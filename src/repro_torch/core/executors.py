@@ -1,0 +1,155 @@
+"""Executor registry behind :class:`repro_torch.api.NapOperator`.
+
+An executor binds one (backend, method) pair to a matrix and a layout
+and exposes what the operator front-end needs: ``forward(v)`` (global
+``A @ v``, 1-RHS or multi-RHS), ``transpose(u)`` (global ``A.T @ u`` on
+the same plan), ``stats()`` and ``autotune_report()``.
+
+Registered here: ``("torch", "nap")`` — the rank-batched node-aware
+program of :mod:`repro_torch.core.spmv_torch` on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.comm_graph import nap_stats
+from repro_torch.core.partition import RowPartition
+from repro_torch.core.topology import Topology
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class OperatorSpec:
+    """Everything an executor factory needs beyond (a, partitions, topo)."""
+
+    method: str = "nap"
+    backend: str = "torch"
+    local_compute: str = "auto"
+    device: Optional[str] = None    # None = CUDA; "cpu" only on request
+
+
+_REGISTRY: Dict[Tuple[str, str], Callable] = {}
+
+
+def register_executor(backend: str, method: str):
+    """Class/factory decorator: ``factory(a, row_part, col_part, topo, spec)``
+    becomes reachable through :func:`bind_executor`."""
+
+    def deco(factory):
+        _REGISTRY[(backend, method)] = factory
+        return factory
+
+    return deco
+
+
+def available_executors() -> List[Tuple[str, str]]:
+    return sorted(_REGISTRY)
+
+
+def bind_executor(backend: str, method: str, a, row_part: RowPartition,
+                  col_part: RowPartition, topo: Topology, spec: OperatorSpec):
+    """Instantiate the registered executor for (backend, method)."""
+    try:
+        factory = _REGISTRY[(backend, method)]
+    except KeyError:
+        avail = ", ".join(f"{b}/{m}" for b, m in available_executors())
+        raise ValueError(
+            f"no executor registered for backend={backend!r} "
+            f"method={method!r}; available: {avail}") from None
+    return factory(a, row_part, col_part, topo, spec)
+
+
+def check_operand(n: int, v) -> np.ndarray:
+    """A global [n] vector or [n, nv] multivector, as numpy."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    v = np.asarray(v)
+    if v.shape[:1] != (n,) or v.ndim > 2:
+        raise ValueError(f"operand must be [{n}] or [{n}, nv], got {v.shape}")
+    return v
+
+
+@register_executor("torch", "nap")
+class NapTorchExecutor:
+    """Node-aware SpMV on one device.  The plan compiles at the first
+    apply; forward packs the operand by ``col_part`` and unpacks the
+    result by ``row_part``, the transpose swaps both."""
+
+    backend = "torch"
+    method = "nap"
+
+    def __init__(self, a, row_part: RowPartition, col_part: RowPartition,
+                 topo: Topology, spec: OperatorSpec):
+        self.a, self.topo, self.spec = a, topo, spec
+        self.row_part, self.col_part = row_part, col_part
+        self.device = resolve_device(spec.device)
+        self._compiled = None
+
+    @property
+    def compiled(self):
+        if self._compiled is None:
+            from repro_torch.core.spmv_torch import compile_nap
+            self._compiled = compile_nap(
+                self.a, self.row_part, self.topo,
+                local_compute=self.spec.local_compute,
+                col_part=self.col_part, device=self.device)
+        return self._compiled
+
+    def program(self, direction: str, materialize_x: bool = False
+                ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The device program of one direction: packed shards in, packed
+        shards out, on the executor's device."""
+        from repro_torch.core.spmv_torch import nap_forward, nap_transpose
+        c, lc = self.compiled, self.spec.local_compute
+        if direction == "forward":
+            return lambda s: nap_forward(c, s, local_compute=lc,
+                                         materialize_x=materialize_x)
+        return lambda s: nap_transpose(c, s, local_compute=lc)
+
+    def packed(self, direction: str, v) -> torch.Tensor:
+        """Pack a global operand into device shards for :meth:`program`."""
+        from repro_torch.core.spmv_torch import pack_vector
+        c = self.compiled
+        if direction == "forward":
+            part, pad, n = self.col_part, c.cols_pad, self.a.shape[1]
+        else:
+            part, pad, n = self.row_part, c.rows_pad, self.a.shape[0]
+        shards = pack_vector(check_operand(n, v), part, self.topo, pad)
+        return torch.from_numpy(shards).to(self.device)
+
+    def _apply(self, direction: str, v, materialize_x: bool = False) -> np.ndarray:
+        from repro_torch.core.spmv_torch import unpack_vector
+        w = self.program(direction, materialize_x)(self.packed(direction, v))
+        out_part = self.row_part if direction == "forward" else self.col_part
+        return unpack_vector(w.cpu().numpy(), out_part, self.topo)
+
+    def forward(self, v, materialize_x: bool = False) -> np.ndarray:
+        return self._apply("forward", v, materialize_x)
+
+    def transpose(self, u) -> np.ndarray:
+        return self._apply("transpose", u)
+
+    @property
+    def local_compute(self) -> str:
+        return self.compiled.resolve_local_compute(self.spec.local_compute)
+
+    @property
+    def transpose_local_compute(self) -> str:
+        return self.compiled.resolve_transpose_local_compute(
+            self.spec.local_compute)
+
+    def autotune_report(self) -> Dict[str, object]:
+        return dict(self.compiled.autotune, resolved=self.local_compute,
+                    transpose_resolved=self.transpose_local_compute,
+                    requested=self.spec.local_compute)
+
+    def stats(self) -> Dict[str, object]:
+        from repro_torch.core.spmv_torch import padded_traffic
+        out = {f"messages_{k}": v for k, v in
+               nap_stats(self.compiled.plan).items()}
+        out.update(padded_traffic(self.compiled))
+        return out

@@ -1,0 +1,743 @@
+"""Node-aware SpMV on one device: host layout + rank-batched program.
+
+**Host layout.**  :func:`compile_nap` turns the node-aware plan of
+:mod:`comm_graph` into static index arrays stacked over ranks
+(``[n_procs, ...]``), exactly as the plan compiler of the JAX package
+does: send/gather maps for the four exchange phases, the three COO
+blocks of Algorithm 3, and lazily the ELL (forward and transposed) and
+fused BSR formats over the packed x ``[v_loc | b_on_node | b_off_node]``.
+Every per-rank buffer is padded to the max over ranks, and the segment
+lengths of the packed x are rounded up to the block width bn, so the
+segments are bn-aligned views of one packed domain.
+
+**Device program.**  The ``(n_nodes, ppn)`` rank grid is the leading
+batch axis of every tensor on ONE device.  A tiled all-to-all is then an
+exact axis permutation of the send buffer:
+
+* over ``proc``: send ``[nn, ppn_src, ppn_dst, pad, nv]`` ->
+  ``recv[n, j, p] = send[n, p, j]`` (swap axes 1 and 2);
+* over ``node``: send ``[nn_src, ppn, nn_dst, pad, nv]`` ->
+  ``recv[m, p, n] = send[n, p, m]`` (swap axes 0 and 2).
+
+Both are involutions, so the transpose program re-applies them.  Gathers
+are rank-batched ``index_select`` over flat indices (``idx + rank * len``)
+and the transpose's scatters are ``index_add_``.  Local compute goes
+through the CUDA ELL / fused BSR kernels (their plain versions on CPU
+tensors) or the COO ``index_add_`` path.
+
+``local_compute="auto"`` resolves through the format autotuner
+(:mod:`cost_model`), whose verdict is recorded on the plan for both
+directions.  There is no transposed BSR kernel: a ``"bsr"`` transpose
+request defers to the ell/coo verdict.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.comm_graph import Message, NAPPlan, build_nap_plan, lookup_slots
+from repro_torch.core.cost_model import (H100_LOCAL, LOCAL_FORMATS,
+                                         LocalComputeParams,
+                                         choose_local_format,
+                                         local_format_times)
+from repro_torch.core.partition import RowPartition
+from repro_torch.core.spmv import LocalBlocks, split_all_blocks
+from repro_torch.core.topology import Topology
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.bsr_spmv.fused import fused_bsr_spmm, fused_bsr_spmm_packed
+from repro_torch.kernels.ell_spmv.kernel import ell_spmm_packed
+from repro_torch.sparse.bsr import BSR
+from repro_torch.sparse.csr import CSR
+from repro_torch.sparse.ell import ELL, stack_ell
+
+
+def _pad_to(arrs: List[np.ndarray], pad: int, fill: float = 0) -> np.ndarray:
+    out = np.full((len(arrs), pad), fill, dtype=arrs[0].dtype if arrs else np.int64)
+    for i, a in enumerate(arrs):
+        out[i, : a.size] = a
+    return out
+
+
+def _ceil_to(x: int, b: int) -> int:
+    return -(-x // b) * b
+
+
+def _resolve_local_compute(requested: str, compile_requested: str,
+                           chosen: str) -> str:
+    """Request -> concrete format: an explicit request wins; ``"auto"``
+    defers to a format requested at compile time, then to the verdict."""
+    if requested == "auto":
+        if compile_requested != "auto":
+            return compile_requested
+        return chosen
+    if requested not in LOCAL_FORMATS:
+        raise ValueError(requested)
+    return requested
+
+
+def _resolve_transpose_local_compute(requested: str, compile_requested: str,
+                                     autotune: Dict[str, object]) -> str:
+    """Transpose-direction format: an explicit ``ell``/``coo`` wins;
+    ``auto`` and ``bsr`` (no transposed BSR kernel) defer to the
+    transpose verdict under ``autotune["transpose"]``."""
+    if requested not in ("auto",) + LOCAL_FORMATS:
+        raise ValueError(requested)
+    for cand in (requested, compile_requested):
+        if cand in ("ell", "coo"):
+            return cand
+    t = autotune.get("transpose", {})
+    return str(t.get("chosen", "coo")) if isinstance(t, dict) else "coo"
+
+
+@dataclasses.dataclass
+class CompiledNAP:
+    """Static arrays of the node-aware SpMV, stacked over ranks.
+
+    ``part`` is the ROW partition (``rows_pad`` output rows per rank),
+    ``col_part`` the COLUMN partition (``cols_pad`` x entries per rank).
+    ``arrays`` hold the host (numpy) layout; :meth:`tensors` stages them
+    on ``device`` once per name.
+    """
+
+    topo: Topology
+    part: Optional[RowPartition]
+    rows_pad: int
+    pads: Dict[str, int]          # full/init/inter/final/bnode/boff/nnz pads
+    arrays: Dict[str, np.ndarray]  # stacked [n_procs, ...] index/value arrays
+    device: torch.device
+    col_part: Optional[RowPartition] = None
+    cols_pad: int = 0
+    plan: Optional[NAPPlan] = None
+    block_shape: Tuple[int, int] = (8, 128)
+    # element offsets of the packed BSR x operand, all multiples of bn
+    bsr_layout: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # rank-local blocks retained for lazy format emission
+    local_blocks: Optional[List[LocalBlocks]] = None
+    # format autotuner verdict (forward at the top, transpose under
+    # "transpose"), its stats and modeled times
+    autotune: Dict[str, object] = dataclasses.field(default_factory=dict)
+    requested_local_compute: str = "auto"
+    ell_kmax: int = 0
+    ell_t_kmax: int = 0
+    _tensors: Dict[object, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+
+    def __post_init__(self) -> None:
+        if self.col_part is None:
+            self.col_part = self.part
+        if not self.cols_pad:
+            self.cols_pad = self.rows_pad
+
+    @property
+    def chosen_local_compute(self) -> str:
+        return str(self.autotune.get("chosen", "coo"))
+
+    def resolve_local_compute(self, requested: str) -> str:
+        return _resolve_local_compute(requested, self.requested_local_compute,
+                                      self.chosen_local_compute)
+
+    def resolve_transpose_local_compute(self, requested: str) -> str:
+        return _resolve_transpose_local_compute(
+            requested, self.requested_local_compute, self.autotune)
+
+    @property
+    def packed_x_len(self) -> int:
+        """Element length of the packed [v_loc | b_on_node | b_off_node] x."""
+        return self.cols_pad + self.pads["bnode"] + self.pads["boff"]
+
+    def _blocks(self) -> List[LocalBlocks]:
+        if self.local_blocks is None:
+            raise ValueError("this plan holds no local blocks to emit a format "
+                             "from; build it with the format arrays included")
+        return self.local_blocks
+
+    def ensure_ell(self) -> None:
+        """Emit the packed ELL arrays (lazily, once)."""
+        if "ell_cols" in self.arrays:
+            return
+        cols, vals, kmax = _fused_ell_arrays(
+            self._blocks(), self.rows_pad, self.cols_pad,
+            self.pads["bnode"], self.pads["boff"])
+        self.arrays["ell_cols"] = cols
+        self.arrays["ell_vals"] = vals
+        self.ell_kmax = kmax
+
+    def ensure_ell_t(self) -> None:
+        """Emit the TRANSPOSED packed ELL arrays (lazily, once): A_r^T over
+        the packed contribution domain ``[z(cols_pad) | c_on_node |
+        c_off_node]`` with x = u_loc."""
+        if "ell_t_cols" in self.arrays:
+            return
+        cols_pad, bnode_pad = self.cols_pad, self.pads["bnode"]
+        out_len = self.packed_x_len
+        per_rank: List[ELL] = []
+        for blk in self._blocks():
+            op_r, op_c, op_v = blk.on_proc.to_coo()
+            on_r, on_c, on_v = blk.on_node.to_coo()
+            off_r, off_c, off_v = blk.off_node.to_coo()
+            rows_t = np.concatenate([op_c, cols_pad + on_c,
+                                     cols_pad + bnode_pad + off_c])
+            cols_t = np.concatenate([op_r, on_r, off_r])
+            vals = np.concatenate([op_v, on_v, off_v])
+            per_rank.append(ELL.from_coo(rows_t, cols_t, vals,
+                                         (out_len, self.rows_pad),
+                                         n_rows_pad=out_len))
+        cols, vals, kmax = stack_ell(per_rank)
+        self.arrays["ell_t_cols"] = cols
+        self.arrays["ell_t_vals"] = vals
+        self.ell_t_kmax = kmax
+
+    def ensure_fused(self) -> None:
+        """Emit the fused BSR arrays (lazily, once)."""
+        if "fused_cols" in self.arrays:
+            return
+        bm, bn = self.block_shape
+        fc, fb, layout = _fused_bsr_arrays(
+            self._blocks(), self.rows_pad, self.cols_pad,
+            self.pads["bnode"], self.pads["boff"], bm, bn)
+        self.arrays["fused_cols"] = fc
+        self.arrays["fused_blocks"] = fb
+        self.bsr_layout.update(layout)
+
+    def tensors(self, names: Sequence[str]) -> Dict[str, torch.Tensor]:
+        """Device copies of the named host arrays, staged once per name."""
+        for k in names:
+            if k not in self._tensors:
+                self._tensors[k] = torch.from_numpy(self.arrays[k]).to(self.device)
+        return {k: self._tensors[k] for k in names}
+
+    def flat_index(self, name: str, seg_len: int, nv: int = 1) -> torch.Tensor:
+        """``arrays[name] + rank * seg_len`` as flat int64: the rank-batched
+        row index into a ``[n_procs * seg_len, nv]`` tensor.  With
+        ``nv > 1`` it is the element index ``row * nv + column`` into the
+        flattened tensor instead.  Built once per (name, length, nv)."""
+        key = (name, seg_len, nv)
+        if key not in self._tensors:
+            idx = self.tensors([name])[name]
+            base = torch.arange(idx.shape[0], device=idx.device,
+                                dtype=torch.int64) * seg_len
+            flat = (idx.long().reshape(idx.shape[0], -1) + base[:, None]).reshape(-1)
+            if nv > 1:
+                flat = (flat[:, None] * nv
+                        + torch.arange(nv, device=flat.device)).reshape(-1)
+            self._tensors[key] = flat
+        return self._tensors[key]
+
+
+# ---------------------------------------------------------------------------
+# Format emission and the format autotuner
+# ---------------------------------------------------------------------------
+
+def _packed_coo(blk: LocalBlocks, offs: Tuple[int, int, int]):
+    """A rank's three blocks as one COO over the packed column domain."""
+    parts = [blk.on_proc.to_coo(), blk.on_node.to_coo(), blk.off_node.to_coo()]
+    rows = np.concatenate([p[0] for p in parts])
+    cols = np.concatenate([p[1] + o for p, o in zip(parts, offs)])
+    vals = np.concatenate([p[2] for p in parts])
+    return rows, cols, vals
+
+
+def _fused_bsr_arrays(blocks: List[LocalBlocks], rows_pad: int, cols_pad: int,
+                      bnode_pad: int, boff_pad: int,
+                      bm: int, bn: int) -> Tuple[np.ndarray, np.ndarray, Dict[str, int]]:
+    """Fuse each rank's three column blocks into one padded-uniform BSR over
+    ``[v_loc | b_on_node | b_off_node]``, every segment a multiple of bn,
+    so a block column never straddles two buffers.  Block columns sort
+    ascending within a block row: on-process, then on-node, then off-node."""
+    vblk = _ceil_to(max(cols_pad, 1), bn)
+    nblk = _ceil_to(max(bnode_pad, 1), bn)
+    oblk = _ceil_to(max(boff_pad, 1), bn)
+    n_cols = vblk + nblk + oblk
+    per_rank = [BSR.from_coo(*_packed_coo(blk, (0, vblk, vblk + nblk)),
+                             (rows_pad, n_cols), bm=bm, bn=bn)
+                for blk in blocks]
+    cols, data, kmax = _stack_padded_bsr(per_rank)
+    layout = dict(vblk=vblk, nblk=nblk, oblk=oblk,
+                  n_brows=per_rank[0].n_brows, kmax=kmax)
+    return cols, data, layout
+
+
+def _fused_ell_arrays(blocks: List[LocalBlocks], rows_pad: int, cols_pad: int,
+                      bnode_pad: int, boff_pad: int
+                      ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Each rank's three blocks as one ELL over the packed x domain
+    (offsets cols_pad and cols_pad + bnode_pad), stacked to a shared kmax."""
+    n_x = cols_pad + bnode_pad + boff_pad
+    per_rank = [ELL.from_coo(*_packed_coo(blk, (0, cols_pad, cols_pad + bnode_pad)),
+                             (rows_pad, n_x), n_rows_pad=rows_pad)
+                for blk in blocks]
+    return stack_ell(per_rank)
+
+
+def _stack_padded_bsr(per_rank: List[BSR]) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Align every rank's padded-uniform layout to one shared kmax and stack
+    into ``[n_procs, n_brows, kmax(, bm, bn)]``."""
+    kmax = max(1, max((int(np.diff(b.indptr).max(initial=0)) for b in per_rank),
+                      default=1))
+    cols_s, blocks_s = [], []
+    for b in per_rank:
+        c, d, _ = b.padded_uniform(kmax=kmax)
+        cols_s.append(c)
+        blocks_s.append(d)
+    return np.stack(cols_s), np.stack(blocks_s), kmax
+
+
+def _format_stats_from_coo(per_rank_rc: List[Tuple[np.ndarray, np.ndarray]],
+                           rows_pad: int, n_x: int, nnz_pad_total: int,
+                           block_shape: Tuple[int, int],
+                           tuner: LocalComputeParams) -> Dict[str, object]:
+    """Layout stats + format verdict from per-rank packed-domain COOs,
+    without emitting any format: BSR tiles from unique (block row, block
+    col) keys, ELL kmax from per-row counts, maxed over ranks."""
+    bm, bn = block_shape
+    nbc = n_x // bn
+    n_brows = -(-rows_pad // bm)
+    per_rank = []
+    kb_global = 1
+    ke_global = 1
+    for rank, (rows, cols) in enumerate(per_rank_rc):
+        keys = np.unique((rows // bm) * nbc + cols // bn)
+        kb = int(np.bincount((keys // nbc).astype(np.int64),
+                             minlength=n_brows).max(initial=0))
+        ke = max(1, int(np.bincount(rows.astype(np.int64),
+                                    minlength=rows_pad).max(initial=0)))
+        nnz = int(rows.size)
+        per_rank.append({
+            "rank": rank, "nnz": nnz, "bsr_tiles": int(keys.size),
+            "bsr_fill": nnz / max(int(keys.size) * bm * bn, 1),
+            "ell_kmax": ke,
+        })
+        kb_global = max(kb_global, kb)
+        ke_global = max(ke_global, ke)
+    stats = {
+        "rows_pad": rows_pad, "n_x": n_x, "nnz_pad": nnz_pad_total,
+        "bsr_blocks": n_brows * kb_global, "bm": bm, "bn": bn,
+        "ell_kmax": ke_global,
+    }
+    times = local_format_times(stats, tuner)
+    for entry in per_rank:
+        rank_stats = dict(stats, bsr_blocks=entry["bsr_tiles"],
+                          ell_kmax=entry["ell_kmax"], nnz_pad=entry["nnz"])
+        entry["choice"] = choose_local_format(rank_stats, tuner)
+    return {
+        "chosen": min(LOCAL_FORMATS, key=lambda f: times[f]),
+        "times": times,
+        "stats": stats,
+        "per_rank": per_rank,
+        "tuner": tuner.name,
+    }
+
+
+def _autotune_stats(blocks: List[LocalBlocks], rows_pad: int, cols_pad: int,
+                    bnode_pad: int, boff_pad: int, nnz_pad_total: int,
+                    block_shape: Tuple[int, int],
+                    tuner: LocalComputeParams) -> Dict[str, object]:
+    """Format stats + verdict for BOTH directions: forward at the top
+    level, the transpose (over the reversed domain) under "transpose"."""
+    offs = (0, cols_pad, cols_pad + bnode_pad)
+    per_rank_rc = [_packed_coo(blk, offs)[:2] for blk in blocks]
+    n_x = cols_pad + bnode_pad + boff_pad
+    out = _format_stats_from_coo(per_rank_rc, rows_pad, n_x,
+                                 nnz_pad_total, block_shape, tuner)
+    out["transpose"] = _transpose_format_stats(
+        [(c, r) for r, c in per_rank_rc], n_x, rows_pad, nnz_pad_total,
+        block_shape, tuner)
+    return out
+
+
+def _transpose_format_stats(per_rank_rc_t: List[Tuple[np.ndarray, np.ndarray]],
+                            out_len: int, n_x: int, nnz_pad_total: int,
+                            block_shape: Tuple[int, int],
+                            tuner: LocalComputeParams) -> Dict[str, object]:
+    """Verdict for the TRANSPOSED local compute: output rows = the packed
+    domain, x = the row-partition shard; only ``ell`` and ``coo``
+    compete (there is no transposed BSR kernel)."""
+    at = _format_stats_from_coo(per_rank_rc_t, out_len, n_x, nnz_pad_total,
+                                block_shape, tuner)
+    times = {f: at["times"][f] for f in ("ell", "coo")}
+    return {"chosen": min(times, key=lambda f: times[f]), "times": times,
+            "stats": at["stats"], "per_rank": at["per_rank"],
+            "tuner": tuner.name}
+
+
+# ---------------------------------------------------------------------------
+# Plan compilation
+# ---------------------------------------------------------------------------
+
+def compile_nap(a: CSR, part: RowPartition, topo: Topology,
+                block_shape: Tuple[int, int] = (8, 128),
+                local_compute: str = "auto",
+                tuner: LocalComputeParams = H100_LOCAL,
+                col_part: Optional[RowPartition] = None,
+                device: DeviceLike = None) -> CompiledNAP:
+    """Compile the node-aware plan to static rank-stacked arrays.
+
+    ``part`` is the ROW partition, ``col_part`` the COLUMN/x partition
+    (defaults to ``part``).  ``device`` is where :meth:`CompiledNAP.tensors`
+    stages the arrays: CUDA unless ``"cpu"`` is asked for.
+    """
+    device = resolve_device(device)
+    if local_compute not in ("auto",) + LOCAL_FORMATS:
+        raise ValueError(local_compute)
+    cpart = part if col_part is None else col_part
+    if part.n_rows != a.shape[0] or cpart.n_rows != a.shape[1]:
+        raise ValueError(
+            f"partition/matrix mismatch: a is {a.shape}, row partition has "
+            f"{part.n_rows} rows, column partition {cpart.n_rows}")
+    plan = build_nap_plan(a.indptr, a.indices, part, topo, col_part=col_part)
+    n_procs, ppn, n_nodes = topo.n_procs, topo.ppn, topo.n_nodes
+    blocks = split_all_blocks(a, part, topo, col_part=cpart)
+    local_index = cpart.local_index()
+    bn = block_shape[1]
+    if bn % 8 != 0:
+        raise ValueError(f"bn must be a multiple of 8, got {bn}")
+    # segment lengths of the packed x are rounded up to bn, so v_loc /
+    # b_on_node / b_off_node are bn-aligned views of one packed domain;
+    # the extra slots are never referenced by a nonzero.
+    rows_pad = _ceil_to(max(1, int(part.counts().max())), bn)
+    cols_pad = _ceil_to(max(1, int(cpart.counts().max())), bn)
+    bnode_pad = _ceil_to(max(1, max(b.on_node_cols.size for b in blocks)), bn)
+    boff_pad = _ceil_to(max(1, max(b.off_node_cols.size for b in blocks)), bn)
+
+    def msg_pad(phase: List[List[Message]]) -> int:
+        return max(1, max((m.size for msgs in phase for m in msgs), default=1))
+
+    full_pad = msg_pad(plan.local_full_sends)
+    init_pad = msg_pad(plan.local_init_sends)
+    inter_pad = msg_pad(plan.inter_sends)
+    final_pad = msg_pad(plan.local_final_sends)
+    nnz_pads = {
+        "on_proc": max(1, max(b.on_proc.nnz for b in blocks)),
+        "on_node": max(1, max(b.on_node.nnz for b in blocks)),
+        "off_node": max(1, max(b.off_node.nnz for b in blocks)),
+    }
+
+    arrays: Dict[str, np.ndarray] = {
+        "full_send": np.zeros((n_procs, ppn, full_pad), np.int32),
+        "init_send": np.zeros((n_procs, ppn, init_pad), np.int32),
+        "final_send": np.zeros((n_procs, ppn, final_pad), np.int32),
+        "inter_gather": np.zeros((n_procs, n_nodes, inter_pad), np.int32),
+        "bnode_gather": np.zeros((n_procs, bnode_pad), np.int32),
+        "boff_gather": np.zeros((n_procs, boff_pad), np.int32),
+    }
+    coo = {k: {"rows": [], "cols": [], "vals": []} for k in nnz_pads}
+
+    for r in range(n_procs):
+        blk = blocks[r]
+        # full-local and init sends: [ppn, pad] source local-row positions
+        for m in plan.local_full_sends[r]:
+            arrays["full_send"][r, topo.local_of(m.dst), : m.size] = local_index[m.idx]
+        for m in plan.local_init_sends[r]:
+            arrays["init_send"][r, topo.local_of(m.dst), : m.size] = local_index[m.idx]
+
+        # inter gather: positions into concat(v_loc, init_recv_flat)
+        init_map = plan.recv_slot_map(r, "init", init_pad)
+        for m in plan.inter_sends[r]:
+            own = cpart.owner[m.idx] == r
+            pos = np.empty(m.size, dtype=np.int64)
+            pos[own] = local_index[m.idx[own]]
+            if not own.all():
+                pos[~own] = cols_pad + lookup_slots(init_map, m.idx[~own])
+            arrays["inter_gather"][r, topo.node_of(m.dst), : m.size] = pos
+
+        # final sends: positions into inter_recv_flat
+        inter_map = plan.recv_slot_map(r, "inter", inter_pad)
+        for m in plan.local_final_sends[r]:
+            arrays["final_send"][r, topo.local_of(m.dst), : m.size] = \
+                lookup_slots(inter_map, m.idx)
+
+        # on-node buffer gather: positions into full_recv_flat
+        full_map = plan.recv_slot_map(r, "full", full_pad)
+        arrays["bnode_gather"][r, : blk.on_node_cols.size] = \
+            lookup_slots(full_map, blk.on_node_cols)
+
+        # off-node buffer gather: positions into concat(inter_recv, final_recv)
+        final_map = plan.recv_slot_map(r, "final", final_pad)
+        comb_idx = np.concatenate([inter_map[0], final_map[0]])
+        comb_pos = np.concatenate([inter_map[1],
+                                   n_nodes * inter_pad + final_map[1]])
+        order = np.argsort(comb_idx, kind="stable")
+        arrays["boff_gather"][r, : blk.off_node_cols.size] = lookup_slots(
+            (comb_idx[order], comb_pos[order]), blk.off_node_cols)
+
+        for key_c, block in (("on_proc", blk.on_proc), ("on_node", blk.on_node),
+                             ("off_node", blk.off_node)):
+            rows_i, cols_i, vals_i = block.to_coo()
+            coo[key_c]["rows"].append(rows_i.astype(np.int32))
+            coo[key_c]["cols"].append(cols_i.astype(np.int32))
+            coo[key_c]["vals"].append(vals_i.astype(np.float32))
+
+    for key_c, pad in nnz_pads.items():
+        arrays[f"{key_c}_rows"] = _pad_to(coo[key_c]["rows"], pad)
+        arrays[f"{key_c}_cols"] = _pad_to(coo[key_c]["cols"], pad)
+        arrays[f"{key_c}_vals"] = _pad_to(coo[key_c]["vals"], pad, fill=0.0)
+
+    pads = dict(full=full_pad, init=init_pad, inter=inter_pad, final=final_pad,
+                bnode=bnode_pad, boff=boff_pad,
+                **{f"nnz_{k}": v for k, v in nnz_pads.items()})
+    autotune = _autotune_stats(blocks, rows_pad, cols_pad, bnode_pad, boff_pad,
+                               sum(nnz_pads.values()), tuple(block_shape), tuner)
+    return CompiledNAP(topo=topo, part=part, col_part=cpart, rows_pad=rows_pad,
+                       cols_pad=cols_pad, pads=pads, arrays=arrays, device=device,
+                       plan=plan, block_shape=tuple(block_shape),
+                       local_blocks=blocks, autotune=autotune,
+                       requested_local_compute=local_compute)
+
+
+def compiled_from_reference(arrays: Dict[str, np.ndarray], pads: Dict[str, int],
+                            rows_pad: int, cols_pad: int,
+                            block_shape: Tuple[int, int],
+                            autotune: Dict[str, object],
+                            topo_shape: Tuple[int, int],
+                            device: DeviceLike = None) -> CompiledNAP:
+    """A compiled plan from host arrays made elsewhere (the JAX package's
+    ``CompiledNAP.arrays`` and metadata, as numpy), staged as tensors on
+    ``device``.  Only the formats present in ``arrays`` can run."""
+    arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+    compiled = CompiledNAP(
+        topo=Topology(*topo_shape), part=None, rows_pad=rows_pad,
+        pads=dict(pads), arrays=arrays, device=resolve_device(device),
+        cols_pad=cols_pad, block_shape=tuple(block_shape),
+        autotune=dict(autotune),
+        ell_kmax=arrays["ell_cols"].shape[-1] if "ell_cols" in arrays else 0,
+        ell_t_kmax=arrays["ell_t_cols"].shape[-1] if "ell_t_cols" in arrays else 0)
+    compiled.tensors(list(arrays))
+    return compiled
+
+
+# ---------------------------------------------------------------------------
+# Vector packing (host)
+# ---------------------------------------------------------------------------
+
+def pack_vector(v: np.ndarray, part: RowPartition, topo: Topology, rows_pad: int) -> np.ndarray:
+    """Global vector/multivector -> ``[n_nodes, ppn, rows_pad(, nv)]`` f32
+    shards laid out by ``part`` (empty ranks give all-zero shards)."""
+    v = np.asarray(v)
+    out = np.zeros((topo.n_procs, rows_pad) + v.shape[1:], dtype=np.float32)
+    for r in range(topo.n_procs):
+        rows = part.rows_of(r)
+        out[r, : rows.size] = v[rows]
+    return out.reshape((topo.n_nodes, topo.ppn, rows_pad) + v.shape[1:])
+
+
+def unpack_vector(w: np.ndarray, part: RowPartition, topo: Topology) -> np.ndarray:
+    """``[n_nodes, ppn, pad(, nv)]`` -> global vector/multivector; exact
+    inverse of :func:`pack_vector` under the same partition."""
+    w = np.asarray(w)
+    w = w.reshape((topo.n_procs, -1) + w.shape[3:] if w.ndim == 4
+                  else (topo.n_procs, -1))
+    out = np.zeros((part.n_rows,) + w.shape[2:], dtype=w.dtype)
+    for r in range(topo.n_procs):
+        rows = part.rows_of(r)
+        out[rows] = w[r, : rows.size]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Rank-batched device program
+# ---------------------------------------------------------------------------
+
+def _exchange_proc(buf: torch.Tensor, topo: Topology) -> torch.Tensor:
+    """Tiled all-to-all over ``proc``: ``[P, ppn, pad, nv]`` per rank."""
+    nn, ppn = topo.n_nodes, topo.ppn
+    s = buf.shape
+    return buf.reshape((nn, ppn, ppn) + s[2:]).transpose(1, 2).reshape(s)
+
+
+def _exchange_node(buf: torch.Tensor, topo: Topology) -> torch.Tensor:
+    """Tiled all-to-all over ``node``: ``[P, nn, pad, nv]`` per rank."""
+    nn, ppn = topo.n_nodes, topo.ppn
+    s = buf.shape
+    return buf.reshape((nn, ppn, nn) + s[2:]).permute(2, 1, 0, 3, 4).reshape(s)
+
+
+def _gather(c: CompiledNAP, x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x[r][arrays[name][r]]`` for every rank r: ``x`` is ``[P, L, nv]``,
+    the result ``arrays[name].shape + (nv,)``.
+
+    Gathers single elements of the flattened ``x``: a gather of whole
+    rows of nv > 1 floats takes PyTorch's vectorized row-gather kernel,
+    which ran the exchange ~10x slower on the H100 (PERF.md, PR 11).
+    """
+    nv = x.shape[-1]
+    idx = c.flat_index(name, x.shape[1], nv)
+    shape = tuple(c.arrays[name].shape) + (nv,)
+    return x.reshape(-1).index_select(0, idx).reshape(shape)
+
+
+def _scatter(c: CompiledNAP, src: torch.Tensor, name: str,
+             out_len: int) -> torch.Tensor:
+    """Adjoint of :func:`_gather`: sum ``src`` (``arrays[name].shape +
+    (nv,)``) into a zero ``[P, out_len, nv]`` at the named positions."""
+    p, nv = src.shape[0], src.shape[-1]
+    out = torch.zeros((p * out_len, nv), dtype=src.dtype, device=src.device)
+    out.index_add_(0, c.flat_index(name, out_len), src.reshape(-1, nv))
+    return out.reshape(p, out_len, nv)
+
+
+def _rank_batch(c: CompiledNAP, shards, pad: int) -> Tuple[torch.Tensor, bool]:
+    """``[nn, ppn, pad(, nv)]`` shards -> f32 ``[P, pad, nv]`` on the plan's
+    device, and whether the caller passed a single vector."""
+    t = torch.as_tensor(shards)
+    single = t.dim() == 3
+    t = t.to(device=c.device, dtype=torch.float32)
+    return t.reshape(c.topo.n_procs, pad, -1).contiguous(), single
+
+
+def _unbatch(c: CompiledNAP, w: torch.Tensor, single: bool) -> torch.Tensor:
+    topo = c.topo
+    out = w.reshape(topo.n_nodes, topo.ppn, w.shape[1], w.shape[2])
+    return out[..., 0] if single else out
+
+
+_COO_KEYS = ("on_proc", "on_node", "off_node")
+
+
+def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
+                materialize_x: bool = False) -> torch.Tensor:
+    """w = A @ v on packed shards: ``v_shards`` is COLUMN-partition packed
+    ``[n_nodes, ppn, cols_pad(, nv)]``, the result ROW-partition packed
+    ``[n_nodes, ppn, rows_pad(, nv)]`` on the plan's device.
+
+    ``materialize_x=True`` concatenates the packed x before the local
+    compute (the one-segment kernels) instead of passing the three
+    segments; the two are bit-equal on the BSR path (an A/B switch).
+    """
+    fmt = c.resolve_local_compute(local_compute)
+    if fmt == "bsr":
+        c.ensure_fused()
+    elif fmt == "ell":
+        c.ensure_ell()
+    topo, rows_pad = c.topo, c.rows_pad
+    v, single = _rank_batch(c, v_shards, c.cols_pad)
+    p, _, nv = v.shape
+
+    # Phase A+B: intra-node exchanges over "proc".
+    full_recv = _exchange_proc(_gather(c, v, "full_send"), topo)
+    init_recv = _exchange_proc(_gather(c, v, "init_send"), topo)
+    # Phase C: ONE aggregated inter-node exchange over "node".
+    staged = torch.cat([v, init_recv.reshape(p, -1, nv)], dim=1)
+    inter_recv = _exchange_node(_gather(c, staged, "inter_gather"), topo)
+    # Phase D: intra-node scatter of the received off-node data.
+    inter_flat = inter_recv.reshape(p, -1, nv)
+    final_recv = _exchange_proc(_gather(c, inter_flat, "final_send"), topo)
+    # Buffers of Algorithm 3's three local_spmv calls.
+    bnode = _gather(c, full_recv.reshape(p, -1, nv), "bnode_gather")
+    boff = _gather(c, torch.cat([inter_flat, final_recv.reshape(p, -1, nv)],
+                                dim=1), "boff_gather")
+    segs = (v, bnode, boff)
+
+    if fmt == "bsr":
+        t = c.tensors(["fused_cols", "fused_blocks"])
+        bn = c.block_shape[1]
+        if materialize_x:
+            x = torch.cat(segs, dim=1)
+            w = fused_bsr_spmm(t["fused_cols"], t["fused_blocks"],
+                               x.reshape(p, -1, bn, nv))
+        else:
+            w = fused_bsr_spmm_packed(t["fused_cols"], t["fused_blocks"],
+                                      tuple(s.reshape(p, -1, bn, nv) for s in segs))
+        w = w.reshape(p, -1, nv)[:, :rows_pad]
+    elif fmt == "ell":
+        t = c.tensors(["ell_cols", "ell_vals"])
+        xs = (torch.cat(segs, dim=1),) if materialize_x else segs
+        w = ell_spmm_packed(t["ell_cols"], t["ell_vals"], xs)
+    else:
+        w = torch.zeros((p, rows_pad, nv), dtype=torch.float32, device=v.device)
+        for key, x in zip(_COO_KEYS, segs):
+            vals = c.tensors([f"{key}_vals"])[f"{key}_vals"]
+            contrib = vals[..., None] * _gather(c, x, f"{key}_cols")
+            w += _scatter(c, contrib, f"{key}_rows", rows_pad)
+    return _unbatch(c, w.contiguous(), single)
+
+
+def nap_transpose(c: CompiledNAP, u_shards,
+                  local_compute: str = "auto") -> torch.Tensor:
+    """z = A.T @ u, the exact adjoint of :func:`nap_forward`: ``u_shards``
+    is ROW-partition packed ``[.., rows_pad(, nv)]``, the result
+    COLUMN-partition packed ``[.., cols_pad(, nv)]``.
+
+    The transposed local compute runs first (one ELL SpMM over the packed
+    contribution domain ``[z | c_on_node | c_off_node]``, or COO
+    scatters), then every phase backwards: each forward gather becomes an
+    ``index_add_`` scatter and each exchange is re-applied.
+    """
+    fmt = c.resolve_transpose_local_compute(local_compute)
+    if fmt == "ell":
+        c.ensure_ell_t()
+    topo, pads = c.topo, c.pads
+    nn, ppn = topo.n_nodes, topo.ppn
+    cols_pad, rows_pad, bnode_pad = c.cols_pad, c.rows_pad, pads["bnode"]
+    inter_len = nn * pads["inter"]
+    u, single = _rank_batch(c, u_shards, rows_pad)
+    p, _, nv = u.shape
+
+    if fmt == "ell":
+        t = c.tensors(["ell_t_cols", "ell_t_vals"])
+        contrib = ell_spmm_packed(t["ell_t_cols"], t["ell_t_vals"], (u,))
+        z = contrib[:, :cols_pad]
+        c_node = contrib[:, cols_pad: cols_pad + bnode_pad]
+        c_off = contrib[:, cols_pad + bnode_pad:]
+    else:
+        outs = []
+        for key, out_len in zip(_COO_KEYS, (cols_pad, bnode_pad, pads["boff"])):
+            vals = c.tensors([f"{key}_vals"])[f"{key}_vals"]
+            prod = vals[..., None] * _gather(c, u, f"{key}_rows")
+            outs.append(_scatter(c, prod, f"{key}_cols", out_len))
+        z, c_node, c_off = outs
+
+    # reverse of boff = concat(inter | final)[boff_gather]
+    comb = _scatter(c, c_off, "boff_gather", inter_len + ppn * pads["final"])
+    inter_c = comb[:, :inter_len]
+    final_recv_c = comb[:, inter_len:].reshape(p, ppn, pads["final"], nv)
+    # reverse phase D
+    final_out_c = _exchange_proc(final_recv_c, topo)
+    inter_c = inter_c + _scatter(c, final_out_c, "final_send", inter_len)
+    # reverse phase C: into the staged domain concat(v_loc, init_recv)
+    inter_out_c = _exchange_node(inter_c.reshape(p, nn, pads["inter"], nv), topo)
+    staged_c = _scatter(c, inter_out_c, "inter_gather",
+                        cols_pad + ppn * pads["init"])
+    z = z + staged_c[:, :cols_pad]
+    # reverse phase B: init redistribution back to the owners
+    init_out_c = _exchange_proc(
+        staged_c[:, cols_pad:].reshape(p, ppn, pads["init"], nv), topo)
+    z = z + _scatter(c, init_out_c, "init_send", cols_pad)
+    # reverse phase A: on-node buffer contributions back to the owners
+    full_recv_c = _scatter(c, c_node, "bnode_gather", ppn * pads["full"])
+    full_out_c = _exchange_proc(full_recv_c.reshape(p, ppn, pads["full"], nv), topo)
+    z = z + _scatter(c, full_out_c, "full_send", cols_pad)
+    return _unbatch(c, z.contiguous(), single)
+
+
+# ---------------------------------------------------------------------------
+# Traffic accounting
+# ---------------------------------------------------------------------------
+
+def padded_traffic(c: CompiledNAP) -> Dict[str, object]:
+    """Padded (what the static exchanges move) vs effective (the plan's
+    true payloads) bytes per phase, float32 payloads; the transpose
+    direction's per-rank figures come from the recv lists."""
+    topo, plan = c.topo, c.plan
+    if plan is None:
+        return {}
+    n = topo.n_procs
+    phases = {
+        "full": (topo.ppn, plan.local_full_sends, plan.local_full_recvs),
+        "init": (topo.ppn, plan.local_init_sends, plan.local_init_recvs),
+        "inter": (topo.n_nodes, plan.inter_sends, plan.inter_recvs),
+        "final": (topo.ppn, plan.local_final_sends, plan.local_final_recvs),
+    }
+    out: Dict[str, object] = {}
+    transpose: Dict[str, int] = {}
+    for name, (n_slots, sends, recvs) in phases.items():
+        padded = n * n_slots * c.pads[name] * 4
+        for d, lists in ((out, sends), (transpose, recvs)):
+            d[f"{name}_padded"] = padded
+            d[f"{name}_effective"] = 4 * sum(m.size for msgs in lists for m in msgs)
+            d[f"{name}_max_rank_effective"] = 4 * max(
+                (sum(m.size for m in msgs) for msgs in lists), default=0)
+    out["transpose"] = transpose
+    return out

@@ -1,0 +1,104 @@
+"""Fused BSR SpMM over a packed x: CUDA kernel wrappers.
+
+One CUDA template (``csrc/bsr_spmm.cu``) replaces both Pallas kernels of
+``repro/kernels/bsr_spmv/fused.py``: :func:`fused_bsr_spmm_packed` runs it
+over 1-3 bn-aligned x segments, :func:`fused_bsr_spmm` over one
+concatenated x.  Their arithmetic is identical, so the two agree bit for
+bit.  Every operand is rank-batched:
+
+    cols:   [P, n_brows, ktot] int32 block-column ids (-1 = padding slot)
+    blocks: [P, n_brows, ktot, bm, bn] float32 (padding slots zero)
+    x / xs: [P, n_bcols_s, bn, nv] float32 per segment
+    returns [P, n_brows, bm, nv] float32
+
+CPU tensors take the plain version (:mod:`.ref`); CUDA tensors take the
+kernel or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.bsr_spmv.ref import (fused_bsr_spmm_packed_ref,
+                                              fused_bsr_spmm_ref)
+
+_INT32_MAX = 2**31 - 1
+
+
+def _fn():
+    fn = _build.library("bsr_spmm").fused_bsr_spmm_f32
+    if fn.argtypes is None:
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, ll, ll, ll, i, p, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(cols: torch.Tensor, blocks: torch.Tensor, xs) -> None:
+    if not 1 <= len(xs) <= 3:
+        raise ValueError(f"1 to 3 x segments, got {len(xs)}")
+    if cols.dtype != torch.int32 or blocks.dtype != torch.float32:
+        raise TypeError(f"cols int32 and blocks float32, got {cols.dtype}, "
+                        f"{blocks.dtype}")
+    if cols.dim() != 3 or blocks.dim() != 5 or blocks.shape[:3] != cols.shape:
+        raise ValueError(f"cols [P, n_brows, ktot] and blocks [P, n_brows, "
+                         f"ktot, bm, bn] expected, got {tuple(cols.shape)} and "
+                         f"{tuple(blocks.shape)}")
+    p, bn, nv = cols.shape[0], blocks.shape[4], xs[0].shape[-1]
+    for x in xs:
+        if x.dtype != torch.float32 or x.dim() != 4 or x.shape[0] != p \
+                or x.shape[2] != bn or x.shape[3] != nv:
+            raise ValueError(f"each x segment must be float32 [{p}, n_bcols, "
+                             f"{bn}, {nv}], got {x.dtype} {tuple(x.shape)}")
+    for t in (cols, blocks, *xs):
+        if t.device != cols.device:
+            raise ValueError("all operands must lie on one device")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if max(cols.shape[1], cols.shape[2], nv) > _INT32_MAX or p > 65535 \
+            or -(-nv // 8) > 65535:
+        raise ValueError(f"shape out of the kernel's range: {tuple(cols.shape)}, nv {nv}")
+
+
+def _launch(name: str, cols: torch.Tensor, blocks: torch.Tensor,
+            xs) -> torch.Tensor:
+    fn = _fn()
+    p, n_brows, ktot, bm, bn = blocks.shape
+    nv = xs[0].shape[-1]
+    out = torch.empty((p, n_brows, bm, nv), dtype=torch.float32,
+                      device=cols.device)
+    pad = 3 - len(xs)
+    ptrs = [x.data_ptr() for x in xs] + [xs[0].data_ptr()] * pad
+    lens = [x.shape[1] for x in xs] + [0] * pad
+    stream = torch.cuda.current_stream(cols.device).cuda_stream
+    code = fn(cols.data_ptr(), blocks.data_ptr(), *ptrs, *lens, len(xs),
+              out.data_ptr(), p, n_brows, ktot, bm, bn, nv, stream)
+    _build.check_status(code, name)
+    _build.launches[name] += 1
+    return out
+
+
+def fused_bsr_spmm_packed(cols: torch.Tensor, blocks: torch.Tensor,
+                          xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """w = A @ cat(xs) without materialising the concatenation."""
+    xs = tuple(xs)
+    _check(cols, blocks, xs)
+    if cols.device.type == "cpu":
+        return fused_bsr_spmm_packed_ref(cols, blocks, xs)
+    if cols.device.type != "cuda":
+        raise ValueError(f"unsupported device {cols.device}")
+    return _launch("fused_bsr_spmm_packed", cols, blocks, xs)
+
+
+def fused_bsr_spmm(cols: torch.Tensor, blocks: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """w = A @ x over one concatenated x (the one-segment instance)."""
+    _check(cols, blocks, (x,))
+    if cols.device.type == "cpu":
+        return fused_bsr_spmm_ref(cols, blocks, x)
+    if cols.device.type != "cuda":
+        raise ValueError(f"unsupported device {cols.device}")
+    return _launch("fused_bsr_spmm", cols, blocks, (x,))

@@ -1,0 +1,55 @@
+"""Guards of the port: it stays free of JAX and of the JAX package, and
+it runs on the GPU unless the caller asks for the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch.api as port_api
+from repro_torch.core.spmv_torch import compile_nap
+from repro_torch.core.partition import contiguous_partition
+from repro_torch.core.topology import Topology
+from repro_torch.device import resolve_device
+from repro_torch.sparse import poisson_2d
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def test_import_loads_neither_jax_nor_reference():
+    code = ("import sys, repro_torch, repro_torch.api, repro_torch.core.spmv_torch\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\nprint('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "clean" in proc.stdout
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_source_imports_no_jax_or_reference(path):
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    hits = pattern.findall(path.read_text())
+    assert not hits, f"{path} imports {hits}"
+
+
+def test_operator_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = poisson_2d(6)
+    topo = Topology(2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_api.operator(a, topo)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile_nap(a, contiguous_partition(36, 4), topo)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+    assert port_api.operator(a, topo, device="cpu").shape == (36, 36)
+    assert resolve_device("cpu") == torch.device("cpu")

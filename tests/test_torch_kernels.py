@@ -1,0 +1,126 @@
+"""The port's kernel wrappers (plain versions on CPU tensors) against the
+JAX package's Pallas kernels in interpret mode.
+
+Inputs come from a seeded numpy generator and go to both.  Tolerance:
+rtol 1e-6 and atol 1e-6 * max|out| — the same f32 products, summed over
+slots in possibly another order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.bsr_spmv.fused import (fused_bsr_spmm as ref_bsr_concat,
+                                          fused_bsr_spmm_packed as ref_bsr_packed)
+from repro.kernels.ell_spmv.kernel import ell_spmm_packed as ref_ell
+
+from repro_torch.kernels import launches, reset_launches
+from repro_torch.kernels.bsr_spmv import (fused_bsr_spmm, fused_bsr_spmm_packed,
+                                          fused_bsr_spmm_packed_ref,
+                                          fused_bsr_spmm_ref)
+from repro_torch.kernels.ell_spmv import ell_spmm_packed, ell_spmm_packed_ref
+
+N_RANKS = 2
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-6,
+                               atol=1e-6 * scale)
+
+
+def _ell_case(seed, seg_lens, nv, n_rows=16, kmax=5):
+    """Per-rank ELL with padding slots (col -1, val 0) and whole padded rows."""
+    rng = np.random.default_rng(seed)
+    n_x = sum(seg_lens)
+    cols = rng.integers(0, n_x, size=(N_RANKS, n_rows, kmax)).astype(np.int32)
+    vals = rng.standard_normal((N_RANKS, n_rows, kmax)).astype(np.float32)
+    pad = rng.random((N_RANKS, n_rows, kmax)) < 0.3
+    pad[:, -2:] = True
+    cols[pad], vals[pad] = -1, 0.0
+    xs = [rng.standard_normal((N_RANKS, L, nv)).astype(np.float32)
+          for L in seg_lens]
+    return cols, vals, xs
+
+
+@pytest.mark.parametrize("nv", [1, 3, 130])
+@pytest.mark.parametrize("seg_lens", [(24,), (16, 8), (16, 8, 8)],
+                         ids=["1seg", "2seg", "3seg"])
+def test_ell_plain_matches_pallas(seg_lens, nv):
+    cols, vals, xs = _ell_case(len(seg_lens) * 10 + nv, seg_lens, nv)
+    t = [torch.from_numpy(x) for x in xs]
+    got = ell_spmm_packed(torch.from_numpy(cols), torch.from_numpy(vals), t)
+    assert got.shape == (N_RANKS, cols.shape[1], nv) and got.dtype == torch.float32
+    for r in range(N_RANKS):
+        want = ref_ell(cols[r], vals[r], tuple(x[r] for x in xs), interpret=True)
+        _close(got[r], want)
+
+
+def _bsr_case(seed, seg_bcols, nv, n_brows=3, ktot=4, bm=8, bn=16):
+    """Per-rank padded-uniform BSR; the last slot of every block row and a
+    random share of the others are padding (col -1, zero block)."""
+    rng = np.random.default_rng(seed)
+    n_bc = sum(seg_bcols)
+    cols = np.sort(rng.integers(0, n_bc, size=(N_RANKS, n_brows, ktot)),
+                   axis=-1).astype(np.int32)
+    blocks = rng.standard_normal((N_RANKS, n_brows, ktot, bm, bn)).astype(np.float32)
+    pad = rng.random((N_RANKS, n_brows, ktot)) < 0.25
+    pad[..., -1] = True
+    cols[pad] = -1
+    blocks[pad] = 0.0
+    xs = [rng.standard_normal((N_RANKS, nb, bn, nv)).astype(np.float32)
+          for nb in seg_bcols]
+    return cols, blocks, xs
+
+
+@pytest.mark.parametrize("nv", [1, 3, 130])
+@pytest.mark.parametrize("seg_bcols", [(5,), (3, 2), (2, 2, 1)],
+                         ids=["1seg", "2seg", "3seg"])
+def test_bsr_plain_matches_pallas(seg_bcols, nv):
+    cols, blocks, xs = _bsr_case(len(seg_bcols) * 10 + nv, seg_bcols, nv)
+    tc, tb = torch.from_numpy(cols), torch.from_numpy(blocks)
+    txs = [torch.from_numpy(x) for x in xs]
+    packed = fused_bsr_spmm_packed(tc, tb, txs)
+    concat = fused_bsr_spmm(tc, tb, torch.cat(txs, dim=1))
+    assert packed.shape == (N_RANKS, cols.shape[1], blocks.shape[3], nv)
+    # the port's packed and concatenated paths are bit-equal
+    assert torch.equal(packed, concat)
+    for r in range(N_RANKS):
+        seg = tuple(x[r] for x in xs)
+        _close(packed[r], ref_bsr_packed(cols[r], blocks[r], seg, interpret=True))
+        _close(concat[r], ref_bsr_concat(cols[r], blocks[r],
+                                         np.concatenate(seg), interpret=True))
+
+
+def test_cpu_wrappers_use_plain_versions_and_launch_nothing():
+    reset_launches()
+    cols, vals, xs = _ell_case(0, (8, 8), 2)
+    tc, tv = torch.from_numpy(cols), torch.from_numpy(vals)
+    txs = [torch.from_numpy(x) for x in xs]
+    assert torch.equal(ell_spmm_packed(tc, tv, txs),
+                       ell_spmm_packed_ref(tc, tv, txs))
+    bc, bb, bxs = _bsr_case(0, (2, 2), 2)
+    tbc, tbb = torch.from_numpy(bc), torch.from_numpy(bb)
+    tbx = [torch.from_numpy(x) for x in bxs]
+    assert torch.equal(fused_bsr_spmm_packed(tbc, tbb, tbx),
+                       fused_bsr_spmm_packed_ref(tbc, tbb, tbx))
+    assert torch.equal(fused_bsr_spmm(tbc, tbb, torch.cat(tbx, 1)),
+                       fused_bsr_spmm_ref(tbc, tbb, torch.cat(tbx, 1)))
+    assert sum(launches.values()) == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "segments", "contiguous"])
+def test_wrappers_reject_bad_operands(bad):
+    cols, vals, xs = _ell_case(1, (8, 8), 2)
+    tc, tv = torch.from_numpy(cols), torch.from_numpy(vals)
+    txs = [torch.from_numpy(x) for x in xs]
+    if bad == "dtype":
+        tc = tc.long()
+    elif bad == "shape":
+        txs[1] = txs[1][..., :1]
+    elif bad == "segments":
+        txs = txs * 2
+    else:
+        tv = tv.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises((TypeError, ValueError)):
+        ell_spmm_packed(tc, tv, txs)
