@@ -6,6 +6,10 @@
     w = op @ v         # forward SpMV ([n] or [n, nv] multi-RHS)
     z = op.T @ u       # transpose SpMV, the same compiled plan reversed
     op.stats(), op.autotune_report()
+    op.cost(BLUE_WATERS)   # the paper's message model (Eqs. 10-12)
+
+``method="nap"`` is the node-aware exchange (Algorithm 3),
+``method="standard"`` the paper's baseline (Algorithm 1).
 
 The program runs on the GPU; ``device="cpu"`` is the only way off it.
 Operands are global numpy arrays (or CPU tensors); results are numpy
@@ -18,6 +22,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.cost_model import MachineParams
 from repro_torch.core.executors import (OperatorSpec, available_executors,
                                         bind_executor, register_executor)
 from repro_torch.core.partition import RowPartition, contiguous_partition
@@ -35,7 +40,8 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
     """Build a :class:`NapOperator` for the square matrix ``a``.
 
     ``topo`` is the (n_nodes, ppn) rank grid; ``part`` the row partition,
-    contiguous by default.  ``local_compute`` is ``"auto"`` (the format
+    contiguous by default.  ``method`` is ``"nap"`` or ``"standard"``.
+    ``local_compute`` is ``"auto"`` (the format
     autotuner's verdict, per direction), ``"ell"``, ``"bsr"`` or ``"coo"``;
     the transpose has no BSR kernel and resolves ``"bsr"`` to the ell/coo
     verdict.  ``device`` defaults to CUDA and raises when it is absent.
@@ -105,6 +111,11 @@ class NapOperator:
     def stats(self):
         """Plan message statistics and padded traffic."""
         return self.executor.stats()
+
+    def cost(self, machine: MachineParams):
+        """Modeled communication time of the plan on ``machine`` (paper
+        Eqs. 10-12): a model of that machine, not a time on the GPU."""
+        return self.executor.cost(machine)
 
     def autotune_report(self):
         """Format verdict (forward at the top, transpose under

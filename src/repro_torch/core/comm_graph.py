@@ -1,7 +1,8 @@
-"""Node-aware communication plan (paper Secs. 4.1, 4.2).
+"""Standard and node-aware communication plans (paper Secs. 2.1, 4.1, 4.2).
 
 The paper's sets, computed once in numpy "as the matrix is formed":
 
+* standard:     ``P(r)`` (Eq. 8), ``D(r, t)`` (Eq. 9)
 * node level:   ``N(n)`` (Eq. 13), ``E(n, m)`` (Eq. 14)
 * distribution: ``T((p,n))`` (Eq. 15), ``U((p,n))`` (Eq. 16)
 * inter-node:   ``G((p,n))`` (Eq. 17), ``I((p,n),(q,m))`` (Eq. 18)
@@ -99,6 +100,52 @@ def _offproc_pairs(indptr: np.ndarray, indices: np.ndarray,
     key = (t.astype(np.int64) * row_part.n_procs + r) * col_part.n_rows + j
     _, uniq = np.unique(key, return_index=True)
     return t[uniq], r[uniq], j[uniq]
+
+
+@dataclasses.dataclass
+class StandardPlan:
+    """Algorithm 1's plan: ``P(r)`` and ``D(r, t)`` as message lists per
+    rank.  ``partition`` is the ROW partition, ``col_partition`` the
+    COLUMN/x partition (``None`` = square)."""
+
+    topology: Topology
+    partition: RowPartition
+    sends: List[List[Message]]  # sends[r] = messages rank r sends
+    recvs: List[List[Message]]  # recvs[t] = messages rank t receives
+    col_partition: Optional[RowPartition] = None
+
+    def P(self, r: int) -> List[int]:
+        return [m.dst for m in self.sends[r]]
+
+    def D(self, r: int, t: int) -> np.ndarray:
+        for m in self.sends[r]:
+            if m.dst == t:
+                return m.idx
+        return np.empty(0, dtype=np.int64)
+
+    def recv_slot_map(self, rank: int, pad: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Slot map into rank's flat recv buffer (``[n_procs, pad]`` by src)."""
+        msgs = self.recvs[rank]
+        return flat_slot_map(msgs, [m.src for m in msgs], pad)
+
+
+def build_standard_plan(indptr: np.ndarray, indices: np.ndarray,
+                        part: RowPartition, topo: Topology,
+                        col_part: Optional[RowPartition] = None) -> StandardPlan:
+    """One message from every owner r to every rank t that needs some of
+    r's x entries, carrying exactly those indices (ascending)."""
+    cpart = part if col_part is None else col_part
+    t, r, j = _offproc_pairs(indptr, indices, part, cpart)
+    sends: List[List[Message]] = [[] for _ in range(topo.n_procs)]
+    recvs: List[List[Message]] = [[] for _ in range(topo.n_procs)]
+    for src in np.unique(r):
+        mask = r == src
+        for dst, idx in sorted(_group_sorted(t[mask], j[mask]).items()):
+            msg = Message(src=int(src), dst=int(dst), idx=idx)
+            sends[int(src)].append(msg)
+            recvs[int(dst)].append(msg)
+    return StandardPlan(topology=topo, partition=part, sends=sends,
+                        recvs=recvs, col_partition=col_part)
 
 
 @dataclasses.dataclass
@@ -321,6 +368,16 @@ class PhaseStats:
             max_msgs=max(counts, default=0), max_bytes=max(sizes, default=0),
             total_msgs=sum(counts), total_bytes=sum(sizes),
         )
+
+
+def standard_stats(plan: StandardPlan, bytes_per_val: int = 8) -> Dict[str, PhaseStats]:
+    topo = plan.topology
+    inter = [[m for m in msgs if not topo.same_node(m.src, m.dst)] for msgs in plan.sends]
+    intra = [[m for m in msgs if topo.same_node(m.src, m.dst)] for msgs in plan.sends]
+    return {
+        "inter": PhaseStats.of(inter, bytes_per_val),
+        "intra": PhaseStats.of(intra, bytes_per_val),
+    }
 
 
 def nap_stats(plan: NAPPlan, bytes_per_val: int = 8) -> Dict[str, PhaseStats]:

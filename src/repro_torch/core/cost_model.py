@@ -1,7 +1,22 @@
-"""Local-compute format autotuner (BSR vs ELL vs COO).
+"""Communication models (paper Sec. 3) and the local-compute format
+autotuner.
 
-No single sparse format wins across structures.  Each candidate for the
-rank-local compute is scored with a two-term roofline
+**Message models**, costing a plan's messages on a two-level machine:
+
+* Eq. (10): max-rate model for inter-node messages
+      T = alpha + ppn*s / min(B_N, B_max + (ppn-1) * B_inj)
+* Eq. (11): postal model (the ppn = 1 case)
+* Eq. (12): intra-node model  T_l = alpha_l + s_l / B_max_l
+
+with short / eager / rendezvous protocols chosen by message size (512 B
+and 8 KiB cutoffs, MPICH-on-Gemini's conventional values; the paper does
+not state Blue Waters').  :data:`BLUE_WATERS` holds the paper's Tables 3
+and 4: a Cray XE6 / Gemini machine, so its outputs are modeled times of
+that machine, not of the GPU the port runs on.
+
+**Format autotuner** (BSR vs ELL vs COO).  No single sparse format wins
+across structures.  Each candidate for the rank-local compute is scored
+with a two-term roofline
 
     t = max(padded_flops / unit_rate, bytes_moved / hbm_bw)
 
@@ -13,7 +28,133 @@ bulk-synchronous over ranks, so the decision uses stats maxed over ranks.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List
+
+from repro_torch.core.comm_graph import Message, NAPPlan, StandardPlan
+
+SHORT_CUTOFF = 512        # bytes
+EAGER_CUTOFF = 8 * 1024   # bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtocolParams:
+    alpha: float   # start-up latency (s)
+    b_inj: float   # per-node injection rate (B/s)
+    b_max: float   # per-process achievable rate (B/s)
+    b_n: float     # NIC peak (B/s)
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalParams:
+    alpha: float
+    b_max: float
+
+
+@dataclasses.dataclass(frozen=True)
+class MachineParams:
+    """Two-level machine: inter-node (max-rate) + intra-node (postal)."""
+
+    name: str
+    inter: Dict[str, ProtocolParams]  # keyed by protocol
+    intra: Dict[str, LocalParams]
+    short_cutoff: int = SHORT_CUTOFF
+    eager_cutoff: int = EAGER_CUTOFF
+
+    def protocol(self, nbytes: int) -> str:
+        if nbytes <= self.short_cutoff:
+            return "short"
+        if nbytes <= self.eager_cutoff:
+            return "eager"
+        return "rend"
+
+
+#: Paper Table 3 (inter) and Table 4 (intra): Blue Waters, Cray XE / Gemini.
+BLUE_WATERS = MachineParams(
+    name="blue_waters",
+    inter={
+        "short": ProtocolParams(alpha=4.0e-6, b_inj=6.3e8, b_max=1.8e7, b_n=float("inf")),
+        "eager": ProtocolParams(alpha=1.1e-5, b_inj=1.7e9, b_max=6.2e7, b_n=float("inf")),
+        "rend": ProtocolParams(alpha=2.0e-5, b_inj=3.6e9, b_max=6.1e8, b_n=5.5e9),
+    },
+    intra={
+        "short": LocalParams(alpha=1.3e-6, b_max=4.2e8),
+        "eager": LocalParams(alpha=1.6e-6, b_max=7.4e8),
+        "rend": LocalParams(alpha=4.2e-6, b_max=3.1e9),
+    },
+)
+
+
+def inter_node_time(nbytes: int, ppn: int, machine: MachineParams) -> float:
+    """Eq. (10) max-rate model for one inter-node message of ``nbytes``."""
+    p = machine.inter[machine.protocol(nbytes)]
+    if ppn == 1:
+        return p.alpha + nbytes / p.b_max  # Eq. (11), postal model
+    rate = min(p.b_n, p.b_max + (ppn - 1) * p.b_inj)
+    return p.alpha + (ppn * nbytes) / rate
+
+
+def intra_node_time(nbytes: int, machine: MachineParams) -> float:
+    """Eq. (12) intra-node postal model."""
+    p = machine.intra[machine.protocol(nbytes)]
+    return p.alpha + nbytes / p.b_max
+
+
+def _rank_phase_time(msgs: List[Message], machine: MachineParams, ppn: int,
+                     inter: bool, bytes_per_val: int = 8) -> float:
+    """One rank's messages of one phase: each pays its start-up plus its
+    bytes at the phase's rate, one after another."""
+    t = 0.0
+    for m in msgs:
+        nbytes = m.size * bytes_per_val
+        t += inter_node_time(nbytes, ppn, machine) if inter else intra_node_time(nbytes, machine)
+    return t
+
+
+def standard_cost(plan: StandardPlan, machine: MachineParams,
+                  bytes_per_val: int = 8) -> Dict[str, float]:
+    """Algorithm 1: every rank sends all its messages at once, so its
+    inter- and intra-node times add and the slowest rank sets the total."""
+    topo = plan.topology
+    inter_t, intra_t = [], []
+    for r in range(topo.n_procs):
+        inter_msgs = [m for m in plan.sends[r] if not topo.same_node(m.src, m.dst)]
+        intra_msgs = [m for m in plan.sends[r] if topo.same_node(m.src, m.dst)]
+        inter_t.append(_rank_phase_time(inter_msgs, machine, topo.ppn, True, bytes_per_val))
+        intra_t.append(_rank_phase_time(intra_msgs, machine, topo.ppn, False, bytes_per_val))
+    return {
+        "inter": max(inter_t, default=0.0),
+        "intra": max(intra_t, default=0.0),
+        "total": max((a + b) for a, b in zip(inter_t, intra_t)) if inter_t else 0.0,
+    }
+
+
+def nap_cost(plan: NAPPlan, machine: MachineParams,
+             bytes_per_val: int = 8) -> Dict[str, float]:
+    """Algorithm 3: init -> inter -> final run in sequence, the fully
+    local exchange overlaps the inter-node phase; each phase is charged
+    at its slowest rank."""
+    topo = plan.topology
+    phases = {
+        "intra_init": (plan.local_init_sends, False),
+        "inter": (plan.inter_sends, True),
+        "intra_final": (plan.local_final_sends, False),
+        "intra_full": (plan.local_full_sends, False),
+    }
+    out: Dict[str, float] = {}
+    for name, (sends, is_inter) in phases.items():
+        per_rank = [_rank_phase_time(sends[r], machine, topo.ppn, is_inter, bytes_per_val)
+                    for r in range(topo.n_procs)]
+        out[name] = max(per_rank, default=0.0)
+    out["intra"] = out["intra_init"] + out["intra_final"] + out["intra_full"]
+    out["total"] = (out["intra_init"] + max(out["inter"], out["intra_full"])
+                    + out["intra_final"])
+    return out
+
+
+def compute_time(nnz: int, flop_rate: float = 2.0e9) -> float:
+    """Local SpMV compute estimate of the paper's CPU ranks: 2 flops per
+    nonzero at an effective memory-bound rate (~2 GF/s per core)."""
+    return 2.0 * nnz / flop_rate
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,10 +3,14 @@
 An executor binds one (backend, method) pair to a matrix and a layout
 and exposes what the operator front-end needs: ``forward(v)`` (global
 ``A @ v``, 1-RHS or multi-RHS), ``transpose(u)`` (global ``A.T @ u`` on
-the same plan), ``stats()`` and ``autotune_report()``.
+the same plan), ``stats()``, ``cost(machine)`` and ``autotune_report()``.
 
-Registered here: ``("torch", "nap")`` — the rank-batched node-aware
-program of :mod:`repro_torch.core.spmv_torch` on one device.
+Registered here, both rank-batched programs of
+:mod:`repro_torch.core.spmv_torch` on one device:
+
+* ``("torch", "nap")`` — the node-aware exchange (Algorithm 3);
+* ``("torch", "standard")`` — the flat exchange (Algorithm 1), the
+  paper's baseline.
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.comm_graph import nap_stats
+from repro_torch.core.comm_graph import nap_stats, standard_stats
+from repro_torch.core.cost_model import MachineParams, nap_cost, standard_cost
 from repro_torch.core.partition import RowPartition
 from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device
@@ -73,14 +78,14 @@ def check_operand(n: int, v) -> np.ndarray:
     return v
 
 
-@register_executor("torch", "nap")
-class NapTorchExecutor:
-    """Node-aware SpMV on one device.  The plan compiles at the first
-    apply; forward packs the operand by ``col_part`` and unpacks the
-    result by ``row_part``, the transpose swaps both."""
+class _TorchExecutor:
+    """One method's program on one device.  The plan compiles at the
+    first apply; forward packs the operand by ``col_part`` and unpacks
+    the result by ``row_part``, the transpose swaps both.  Subclasses
+    give ``_compile()`` and ``_programs()`` (forward, transpose)."""
 
     backend = "torch"
-    method = "nap"
+    method = ""
 
     def __init__(self, a, row_part: RowPartition, col_part: RowPartition,
                  topo: Topology, spec: OperatorSpec):
@@ -92,23 +97,19 @@ class NapTorchExecutor:
     @property
     def compiled(self):
         if self._compiled is None:
-            from repro_torch.core.spmv_torch import compile_nap
-            self._compiled = compile_nap(
-                self.a, self.row_part, self.topo,
-                local_compute=self.spec.local_compute,
-                col_part=self.col_part, device=self.device)
+            self._compiled = self._compile()
         return self._compiled
 
-    def program(self, direction: str, materialize_x: bool = False
+    def program(self, direction: str, **options
                 ) -> Callable[[torch.Tensor], torch.Tensor]:
         """The device program of one direction: packed shards in, packed
-        shards out, on the executor's device."""
-        from repro_torch.core.spmv_torch import nap_forward, nap_transpose
+        shards out, on the executor's device.  ``options`` go to the
+        program function (``materialize_x`` forward; ``live_scatter``
+        for the standard transpose)."""
+        forward, transpose = self._programs()
+        fn = forward if direction == "forward" else transpose
         c, lc = self.compiled, self.spec.local_compute
-        if direction == "forward":
-            return lambda s: nap_forward(c, s, local_compute=lc,
-                                         materialize_x=materialize_x)
-        return lambda s: nap_transpose(c, s, local_compute=lc)
+        return lambda s: fn(c, s, local_compute=lc, **options)
 
     def packed(self, direction: str, v) -> torch.Tensor:
         """Pack a global operand into device shards for :meth:`program`."""
@@ -121,17 +122,17 @@ class NapTorchExecutor:
         shards = pack_vector(check_operand(n, v), part, self.topo, pad)
         return torch.from_numpy(shards).to(self.device)
 
-    def _apply(self, direction: str, v, materialize_x: bool = False) -> np.ndarray:
+    def _apply(self, direction: str, v, **options) -> np.ndarray:
         from repro_torch.core.spmv_torch import unpack_vector
-        w = self.program(direction, materialize_x)(self.packed(direction, v))
+        w = self.program(direction, **options)(self.packed(direction, v))
         out_part = self.row_part if direction == "forward" else self.col_part
         return unpack_vector(w.cpu().numpy(), out_part, self.topo)
 
     def forward(self, v, materialize_x: bool = False) -> np.ndarray:
-        return self._apply("forward", v, materialize_x)
+        return self._apply("forward", v, materialize_x=materialize_x)
 
-    def transpose(self, u) -> np.ndarray:
-        return self._apply("transpose", u)
+    def transpose(self, u, **options) -> np.ndarray:
+        return self._apply("transpose", u, **options)
 
     @property
     def local_compute(self) -> str:
@@ -147,9 +148,57 @@ class NapTorchExecutor:
                     transpose_resolved=self.transpose_local_compute,
                     requested=self.spec.local_compute)
 
+
+@register_executor("torch", "nap")
+class NapTorchExecutor(_TorchExecutor):
+    """Node-aware SpMV (Algorithm 3) on one device."""
+
+    method = "nap"
+
+    def _compile(self):
+        from repro_torch.core.spmv_torch import compile_nap
+        return compile_nap(self.a, self.row_part, self.topo,
+                           local_compute=self.spec.local_compute,
+                           col_part=self.col_part, device=self.device)
+
+    def _programs(self):
+        from repro_torch.core.spmv_torch import nap_forward, nap_transpose
+        return nap_forward, nap_transpose
+
     def stats(self) -> Dict[str, object]:
         from repro_torch.core.spmv_torch import padded_traffic
         out = {f"messages_{k}": v for k, v in
                nap_stats(self.compiled.plan).items()}
         out.update(padded_traffic(self.compiled))
         return out
+
+    def cost(self, machine: MachineParams) -> Dict[str, float]:
+        return nap_cost(self.compiled.plan, machine)
+
+
+@register_executor("torch", "standard")
+class StandardTorchExecutor(_TorchExecutor):
+    """Standard SpMV (Algorithm 1) on one device."""
+
+    method = "standard"
+
+    def _compile(self):
+        from repro_torch.core.spmv_torch import compile_standard
+        return compile_standard(self.a, self.row_part, self.topo,
+                                local_compute=self.spec.local_compute,
+                                col_part=self.col_part, device=self.device)
+
+    def _programs(self):
+        from repro_torch.core.spmv_torch import (standard_forward,
+                                                 standard_transpose)
+        return standard_forward, standard_transpose
+
+    def stats(self) -> Dict[str, object]:
+        from repro_torch.core.spmv_torch import padded_traffic
+        out = {f"messages_{k}": v for k, v in
+               standard_stats(self.compiled.plan).items()}
+        out.update(padded_traffic(self.compiled))
+        return out
+
+    def cost(self, machine: MachineParams) -> Dict[str, float]:
+        return standard_cost(self.compiled.plan, machine)

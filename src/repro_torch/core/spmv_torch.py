@@ -1,4 +1,5 @@
-"""Node-aware SpMV on one device: host layout + rank-batched program.
+"""Node-aware and standard SpMV on one device: host layout + rank-batched
+programs.
 
 **Host layout.**  :func:`compile_nap` turns the node-aware plan of
 :mod:`comm_graph` into static index arrays stacked over ranks
@@ -9,6 +10,9 @@ fused BSR formats over the packed x ``[v_loc | b_on_node | b_off_node]``.
 Every per-rank buffer is padded to the max over ranks, and the segment
 lengths of the packed x are rounded up to the block width bn, so the
 segments are bn-aligned views of one packed domain.
+:func:`compile_standard` does the same for Algorithm 1: one flat
+``[n_procs, n_procs, pair_pad]`` send table and the two-segment packed
+x ``[v_loc | recv buffer]``.
 
 **Device program.**  The ``(n_nodes, ppn)`` rank grid is the leading
 batch axis of every tensor on ONE device.  A tiled all-to-all is then an
@@ -17,13 +21,16 @@ exact axis permutation of the send buffer:
 * over ``proc``: send ``[nn, ppn_src, ppn_dst, pad, nv]`` ->
   ``recv[n, j, p] = send[n, p, j]`` (swap axes 1 and 2);
 * over ``node``: send ``[nn_src, ppn, nn_dst, pad, nv]`` ->
-  ``recv[m, p, n] = send[n, p, m]`` (swap axes 0 and 2).
+  ``recv[m, p, n] = send[n, p, m]`` (swap axes 0 and 2);
+* over ``("node", "proc")`` (standard): send ``[P_src, P_dst, pad, nv]``
+  -> ``recv[r, s] = send[s, r]`` (swap axes 0 and 1), since the ranks
+  are ordered node-major.
 
-Both are involutions, so the transpose program re-applies them.  Gathers
-are rank-batched ``index_select`` over flat indices (``idx + rank * len``)
-and the transpose's scatters are ``index_add_``.  Local compute goes
-through the CUDA ELL / fused BSR kernels (their plain versions on CPU
-tensors) or the COO ``index_add_`` path.
+All are involutions, so the transpose programs re-apply them.  Gathers
+are rank-batched over flat indices (``idx + rank * len``) and the
+transpose's scatters are ``index_add_``.  Local compute goes through the
+CUDA ELL / fused BSR kernels (their plain versions on CPU tensors) or
+the COO ``index_add_`` path.
 
 ``local_compute="auto"`` resolves through the format autotuner
 (:mod:`cost_model`), whose verdict is recorded on the plan for both
@@ -38,7 +45,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.comm_graph import Message, NAPPlan, build_nap_plan, lookup_slots
+from repro_torch.core.comm_graph import (Message, NAPPlan, StandardPlan,
+                                         build_nap_plan, build_standard_plan,
+                                         lookup_slots)
 from repro_torch.core.cost_model import (H100_LOCAL, LOCAL_FORMATS,
                                          LocalComputeParams,
                                          choose_local_format,
@@ -92,8 +101,42 @@ def _resolve_transpose_local_compute(requested: str, compile_requested: str,
     return str(t.get("chosen", "coo")) if isinstance(t, dict) else "coo"
 
 
+class _Staged:
+    """Device staging shared by the compiled plans: ``arrays`` (host
+    numpy) become tensors on ``device`` once per name."""
+
+    arrays: Dict[str, np.ndarray]
+    device: torch.device
+    _tensors: Dict[object, torch.Tensor]
+
+    def tensors(self, names: Sequence[str]) -> Dict[str, torch.Tensor]:
+        """Device copies of the named host arrays, staged once per name."""
+        for k in names:
+            if k not in self._tensors:
+                self._tensors[k] = torch.from_numpy(self.arrays[k]).to(self.device)
+        return {k: self._tensors[k] for k in names}
+
+    def flat_index(self, name: str, seg_len: int, nv: int = 1) -> torch.Tensor:
+        """``arrays[name] + rank * seg_len`` as flat int64: the rank-batched
+        row index into a ``[n_procs * seg_len, nv]`` tensor.  With
+        ``nv > 1`` it is the element index ``row * nv + column`` into the
+        flattened tensor instead.  Built once per (name, length, nv)."""
+        key = (name, seg_len, nv)
+        if key not in self._tensors:
+            idx = torch.from_numpy(self.arrays[name]).to(self.device)
+            base = torch.arange(idx.shape[0], device=idx.device,
+                                dtype=torch.int64) * seg_len
+            flat = (idx.long().reshape(idx.shape[0], -1) + base[:, None]).reshape(-1)
+            del idx
+            if nv > 1:
+                flat = (flat[:, None] * nv
+                        + torch.arange(nv, device=flat.device)).reshape(-1)
+            self._tensors[key] = flat
+        return self._tensors[key]
+
+
 @dataclasses.dataclass
-class CompiledNAP:
+class CompiledNAP(_Staged):
     """Static arrays of the node-aware SpMV, stacked over ranks.
 
     ``part`` is the ROW partition (``rows_pad`` output rows per rank),
@@ -201,30 +244,6 @@ class CompiledNAP:
         self.arrays["fused_cols"] = fc
         self.arrays["fused_blocks"] = fb
         self.bsr_layout.update(layout)
-
-    def tensors(self, names: Sequence[str]) -> Dict[str, torch.Tensor]:
-        """Device copies of the named host arrays, staged once per name."""
-        for k in names:
-            if k not in self._tensors:
-                self._tensors[k] = torch.from_numpy(self.arrays[k]).to(self.device)
-        return {k: self._tensors[k] for k in names}
-
-    def flat_index(self, name: str, seg_len: int, nv: int = 1) -> torch.Tensor:
-        """``arrays[name] + rank * seg_len`` as flat int64: the rank-batched
-        row index into a ``[n_procs * seg_len, nv]`` tensor.  With
-        ``nv > 1`` it is the element index ``row * nv + column`` into the
-        flattened tensor instead.  Built once per (name, length, nv)."""
-        key = (name, seg_len, nv)
-        if key not in self._tensors:
-            idx = self.tensors([name])[name]
-            base = torch.arange(idx.shape[0], device=idx.device,
-                                dtype=torch.int64) * seg_len
-            flat = (idx.long().reshape(idx.shape[0], -1) + base[:, None]).reshape(-1)
-            if nv > 1:
-                flat = (flat[:, None] * nv
-                        + torch.arange(nv, device=flat.device)).reshape(-1)
-            self._tensors[key] = flat
-        return self._tensors[key]
 
 
 # ---------------------------------------------------------------------------
@@ -509,6 +528,227 @@ def compiled_from_reference(arrays: Dict[str, np.ndarray], pads: Dict[str, int],
 
 
 # ---------------------------------------------------------------------------
+# Standard (Algorithm 1) plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CompiledStandard(_Staged):
+    """Static arrays of the standard SpMV (Algorithm 1), stacked over ranks.
+
+    The packed x domain has two bn-aligned segments: ``[0, cols_pad)`` is
+    v_loc (the COLUMN-partition shard), ``[cols_pad, cols_pad + buf_pad)``
+    the one recv buffer of off-process values; the output is ``rows_pad``
+    ROW-partition rows.  ``send_idx [P, P, pair_pad]`` holds the local x
+    rows rank s sends to rank r, ``buf_gather [P, buf_pad]`` the recv
+    slots the buffer reads; both pad with 0.  ``send_counts [P, P]`` are
+    the true message sizes (the live prefix of each ``send_idx`` row).
+    Formats (COO / ELL / transposed ELL / fused BSR over the packed
+    domain) emit lazily from ``per_rank_coo``.
+    """
+
+    topo: Topology
+    part: Optional[RowPartition]
+    rows_pad: int
+    buf_pad: int
+    pair_pad: int
+    nnz_pad: int
+    block_shape: Tuple[int, int]
+    arrays: Dict[str, np.ndarray]
+    device: torch.device
+    send_counts: np.ndarray
+    per_rank_coo: Optional[List[Tuple[np.ndarray, np.ndarray, np.ndarray]]] = None
+    col_part: Optional[RowPartition] = None
+    cols_pad: int = 0
+    plan: Optional[StandardPlan] = None
+    autotune: Dict[str, object] = dataclasses.field(default_factory=dict)
+    requested_local_compute: str = "auto"
+    ell_t_kmax: int = 0
+    _tensors: Dict[object, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+
+    def __post_init__(self) -> None:
+        if self.col_part is None:
+            self.col_part = self.part
+        if not self.cols_pad:
+            self.cols_pad = self.rows_pad
+
+    @property
+    def n_x(self) -> int:
+        """Length of the packed x ``[v_loc | buf]``."""
+        return self.cols_pad + self.buf_pad
+
+    @property
+    def chosen_local_compute(self) -> str:
+        return str(self.autotune.get("chosen", "coo"))
+
+    def resolve_local_compute(self, requested: str) -> str:
+        return _resolve_local_compute(requested, self.requested_local_compute,
+                                      self.chosen_local_compute)
+
+    def resolve_transpose_local_compute(self, requested: str) -> str:
+        return _resolve_transpose_local_compute(
+            requested, self.requested_local_compute, self.autotune)
+
+    def _coo(self) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        if self.per_rank_coo is None:
+            raise ValueError("this plan holds no per-rank COO to emit a format "
+                             "from; build it with the format arrays included")
+        return self.per_rank_coo
+
+    def ensure_coo(self) -> None:
+        if "A_rows" in self.arrays:
+            return
+        coo = self._coo()
+        self.arrays["A_rows"] = _pad_to([rr.astype(np.int32) for rr, _, _ in coo],
+                                        self.nnz_pad)
+        self.arrays["A_cols"] = _pad_to([cc.astype(np.int32) for _, cc, _ in coo],
+                                        self.nnz_pad)
+        self.arrays["A_vals"] = _pad_to([vv.astype(np.float32) for _, _, vv in coo],
+                                        self.nnz_pad, fill=0.0)
+
+    def ensure_ell(self) -> None:
+        if "ell_cols" in self.arrays:
+            return
+        cols, vals, _ = stack_ell([
+            ELL.from_coo(rr, cc, vv, (self.rows_pad, self.n_x),
+                         n_rows_pad=self.rows_pad)
+            for rr, cc, vv in self._coo()])
+        self.arrays["ell_cols"] = cols
+        self.arrays["ell_vals"] = vals
+
+    def ensure_ell_t(self) -> None:
+        """Transposed ELL over the packed contribution domain
+        ``[z(cols_pad) | buf]`` with x = u_loc (rows_pad)."""
+        if "ell_t_cols" in self.arrays:
+            return
+        cols, vals, kmax = stack_ell([
+            ELL.from_coo(cc, rr, vv, (self.n_x, self.rows_pad), n_rows_pad=self.n_x)
+            for rr, cc, vv in self._coo()])
+        self.arrays["ell_t_cols"] = cols
+        self.arrays["ell_t_vals"] = vals
+        self.ell_t_kmax = kmax
+
+    def ensure_fused(self) -> None:
+        if "fused_cols" in self.arrays:
+            return
+        bm, bn = self.block_shape
+        cols, blocks, _ = _stack_padded_bsr([
+            BSR.from_coo(rr, cc, vv, (self.rows_pad, self.n_x), bm=bm, bn=bn)
+            for rr, cc, vv in self._coo()])
+        self.arrays["fused_cols"] = cols
+        self.arrays["fused_blocks"] = blocks
+
+    def live_send_slots(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The live slots of the send table, built once from
+        ``send_counts``: their flat positions in ``[P, P, pair_pad]`` and
+        the flat ``[P * cols_pad]`` rows they carry."""
+        if "live_send" not in self._tensors:
+            p, pad = self.topo.n_procs, self.pair_pad
+            k = self.send_counts.reshape(-1).astype(np.int64)
+            ends = np.cumsum(k)
+            pos = (np.repeat(np.arange(p * p, dtype=np.int64) * pad, k)
+                   + np.arange(ends[-1]) - np.repeat(ends - k, k))
+            rows = (self.arrays["send_idx"].reshape(-1)[pos].astype(np.int64)
+                    + pos // (p * pad) * self.cols_pad)
+            self._tensors["live_send"] = (torch.from_numpy(pos).to(self.device),
+                                          torch.from_numpy(rows).to(self.device))
+        return self._tensors["live_send"]
+
+
+def compile_standard(a: CSR, part: RowPartition, topo: Topology,
+                     block_shape: Tuple[int, int] = (8, 128),
+                     local_compute: str = "auto",
+                     tuner: LocalComputeParams = H100_LOCAL,
+                     col_part: Optional[RowPartition] = None,
+                     device: DeviceLike = None) -> CompiledStandard:
+    """Compile Algorithm 1's flat plan to static rank-stacked arrays.
+
+    ``part`` is the ROW partition, ``col_part`` the COLUMN/x partition
+    (defaults to ``part``); ``device`` as in :func:`compile_nap`.
+    """
+    device = resolve_device(device)
+    if local_compute not in ("auto",) + LOCAL_FORMATS:
+        raise ValueError(local_compute)
+    cpart = part if col_part is None else col_part
+    if part.n_rows != a.shape[0] or cpart.n_rows != a.shape[1]:
+        raise ValueError(
+            f"partition/matrix mismatch: a is {a.shape}, row partition has "
+            f"{part.n_rows} rows, column partition {cpart.n_rows}")
+    plan = build_standard_plan(a.indptr, a.indices, part, topo, col_part=col_part)
+    n_procs = topo.n_procs
+    blocks = split_all_blocks(a, part, topo, col_part=cpart)
+    local_index = cpart.local_index()
+    bm, bn = block_shape
+    if bn % 8 != 0:
+        raise ValueError(f"bn must be a multiple of 8, got {bn}")
+    rows_pad = _ceil_to(max(1, int(part.counts().max())), bn)
+    cols_pad = _ceil_to(max(1, int(cpart.counts().max())), bn)
+    buf_pad = _ceil_to(
+        max(1, max(b.on_node_cols.size + b.off_node_cols.size for b in blocks)), bn)
+    pair_pad = max(1, max((m.size for msgs in plan.sends for m in msgs), default=1))
+
+    send_idx = np.zeros((n_procs, n_procs, pair_pad), dtype=np.int32)
+    send_counts = np.zeros((n_procs, n_procs), dtype=np.int64)
+    for r in range(n_procs):
+        for m in plan.sends[r]:
+            send_idx[r, m.dst, : m.size] = local_index[m.idx]
+            send_counts[r, m.dst] = m.size
+    nnz_pad = max(1, max(b.on_node.nnz + b.off_node.nnz + b.on_proc.nnz
+                         for b in blocks))
+
+    n_x = cols_pad + buf_pad
+    per_rank_coo = []
+    buf_gather = np.zeros((n_procs, buf_pad), dtype=np.int32)
+    for r in range(n_procs):
+        blk = blocks[r]
+        cols_all = np.concatenate([blk.on_node_cols, blk.off_node_cols])
+        buf_gather[r, : cols_all.size] = lookup_slots(
+            plan.recv_slot_map(r, pair_pad), cols_all)
+        rr0, cc0, vv0 = blk.on_proc.to_coo()
+        rr1, cc1, vv1 = blk.on_node.to_coo()
+        rr2, cc2, vv2 = blk.off_node.to_coo()
+        per_rank_coo.append((
+            np.concatenate([rr0, rr1, rr2]),
+            np.concatenate([cc0, cols_pad + cc1,
+                            cols_pad + blk.on_node_cols.size + cc2]),
+            np.concatenate([vv0, vv1, vv2])))
+    autotune = _format_stats_from_coo(
+        [(rr, cc) for rr, cc, _ in per_rank_coo], rows_pad, n_x,
+        nnz_pad, (bm, bn), tuner)
+    autotune["transpose"] = _transpose_format_stats(
+        [(cc, rr) for rr, cc, _ in per_rank_coo], n_x, rows_pad,
+        nnz_pad, (bm, bn), tuner)
+    return CompiledStandard(
+        topo=topo, part=part, col_part=cpart, rows_pad=rows_pad,
+        cols_pad=cols_pad, buf_pad=buf_pad, pair_pad=pair_pad, nnz_pad=nnz_pad,
+        block_shape=tuple(block_shape),
+        arrays=dict(send_idx=send_idx, buf_gather=buf_gather), device=device,
+        send_counts=send_counts, per_rank_coo=per_rank_coo, plan=plan,
+        autotune=autotune, requested_local_compute=local_compute)
+
+
+def compiled_standard_from_reference(
+        arrays: Dict[str, np.ndarray], send_counts: np.ndarray, rows_pad: int,
+        cols_pad: int, buf_pad: int, pair_pad: int, nnz_pad: int,
+        block_shape: Tuple[int, int], autotune: Dict[str, object],
+        topo_shape: Tuple[int, int], device: DeviceLike = None) -> CompiledStandard:
+    """A compiled standard plan from host arrays made elsewhere (the JAX
+    package's ``CompiledStandard.arrays`` and pads, as numpy, with the
+    message sizes of its plan as ``send_counts [P, P]``), staged as
+    tensors on ``device``.  Only the formats present in ``arrays`` run."""
+    arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+    compiled = CompiledStandard(
+        topo=Topology(*topo_shape), part=None, rows_pad=rows_pad,
+        buf_pad=buf_pad, pair_pad=pair_pad, nnz_pad=nnz_pad,
+        block_shape=tuple(block_shape), arrays=arrays,
+        device=resolve_device(device), send_counts=np.asarray(send_counts),
+        cols_pad=cols_pad, autotune=dict(autotune),
+        ell_t_kmax=arrays["ell_t_cols"].shape[-1] if "ell_t_cols" in arrays else 0)
+    compiled.tensors(list(arrays))
+    return compiled
+
+
+# ---------------------------------------------------------------------------
 # Vector packing (host)
 # ---------------------------------------------------------------------------
 
@@ -712,28 +952,140 @@ def nap_transpose(c: CompiledNAP, u_shards,
     return _unbatch(c, z.contiguous(), single)
 
 
+def _exchange_pair(c: CompiledStandard, v: torch.Tensor) -> torch.Tensor:
+    """Algorithm 1's exchange on ``v [P, cols_pad, nv]``: every rank s
+    gathers its padded message to each rank r (``send_idx``), the tiled
+    all-to-all over ``("node", "proc")`` swaps the two rank axes
+    (``recv[r, s] = send[s, r]``), and each rank gathers its buffer from
+    the received slots (``buf_gather``); returns ``buf [P, buf_pad, nv]``.
+
+    The send and recv tables hold ``P * P * pair_pad`` slots per rhs
+    column (~5e8 at the paper's size), so they are laid out column-major
+    (``[nv, ...]``) and gathered with one index entry per slot: neither
+    an nv-expanded element index nor PyTorch's whole-row gather kernel,
+    which ran the nv = 8 forward ~10x slower on the H100 (PERF.md).
+    """
+    p, _, nv = v.shape
+    pad = c.pair_pad
+
+    def take(x: torch.Tensor, name: str, seg_len: int) -> torch.Tensor:
+        idx = c.flat_index(name, seg_len)
+        if nv == 1:
+            return x.reshape(-1).index_select(0, idx).reshape(1, -1)
+        return x.index_select(1, idx)
+
+    send = take(v.permute(2, 0, 1).reshape(nv, -1), "send_idx", c.cols_pad)
+    recv = send.reshape(nv, p, p, pad).transpose(1, 2).contiguous()
+    del send
+    buf = take(recv.reshape(nv, -1), "buf_gather", p * pad)
+    return buf.reshape(nv, p, c.buf_pad).permute(1, 2, 0).contiguous()
+
+
+def standard_forward(c: CompiledStandard, v_shards, local_compute: str = "auto",
+                     materialize_x: bool = False) -> torch.Tensor:
+    """w = A @ v by Algorithm 1: every rank gathers one padded message per
+    destination rank from v_loc, one flat exchange, the recv buffer is
+    gathered from the received slots, then local compute runs over the
+    two segments ``(v_loc, buf)``.  Shards as in :func:`nap_forward`;
+    ``materialize_x`` concatenates the two segments first (bit-equal on
+    the BSR path)."""
+    fmt = c.resolve_local_compute(local_compute)
+    {"coo": c.ensure_coo, "ell": c.ensure_ell, "bsr": c.ensure_fused}[fmt]()
+    v, single = _rank_batch(c, v_shards, c.cols_pad)
+    p, _, nv = v.shape
+    segs = (v, _exchange_pair(c, v))
+    if fmt == "bsr":
+        t = c.tensors(["fused_cols", "fused_blocks"])
+        bn = c.block_shape[1]
+        if materialize_x:
+            w = fused_bsr_spmm(t["fused_cols"], t["fused_blocks"],
+                               torch.cat(segs, dim=1).reshape(p, -1, bn, nv))
+        else:
+            w = fused_bsr_spmm_packed(t["fused_cols"], t["fused_blocks"],
+                                      tuple(s.reshape(p, -1, bn, nv) for s in segs))
+        w = w.reshape(p, -1, nv)[:, :c.rows_pad]
+    elif fmt == "ell":
+        t = c.tensors(["ell_cols", "ell_vals"])
+        xs = (torch.cat(segs, dim=1),) if materialize_x else segs
+        w = ell_spmm_packed(t["ell_cols"], t["ell_vals"], xs)
+    else:
+        vals = c.tensors(["A_vals"])["A_vals"]
+        contrib = vals[..., None] * _gather(c, torch.cat(segs, dim=1), "A_cols")
+        w = _scatter(c, contrib, "A_rows", c.rows_pad)
+    return _unbatch(c, w.contiguous(), single)
+
+
+def standard_transpose(c: CompiledStandard, u_shards,
+                       local_compute: str = "auto",
+                       live_scatter: bool = True) -> torch.Tensor:
+    """z = A.T @ u, the exact adjoint of :func:`standard_forward`: the
+    transposed local compute over the packed contribution domain
+    ``[z | buf]``, the buffer contributions scattered back into the recv
+    slots, the exchange re-applied, and the returned contributions
+    scattered through ``send_idx`` into the owners' rows.
+
+    The padding slots of ``send_idx`` carry exact zeros to row 0 of
+    their rank; ``live_scatter`` (the default) scatters only the live
+    slots (``send_counts``), which gives the same sums up to the sign of
+    a zero without ~P * P * pair_pad atomics on P addresses.
+    ``live_scatter=False`` is the literal adjoint, kept to measure it.
+    """
+    fmt = c.resolve_transpose_local_compute(local_compute)
+    (c.ensure_ell_t if fmt == "ell" else c.ensure_coo)()
+    u, single = _rank_batch(c, u_shards, c.rows_pad)
+    p, _, nv = u.shape
+    cols_pad, pair_pad = c.cols_pad, c.pair_pad
+    if fmt == "ell":
+        t = c.tensors(["ell_t_cols", "ell_t_vals"])
+        contrib = ell_spmm_packed(t["ell_t_cols"], t["ell_t_vals"], (u,))
+    else:
+        vals = c.tensors(["A_vals"])["A_vals"]
+        contrib = _scatter(c, vals[..., None] * _gather(c, u, "A_rows"),
+                           "A_cols", c.n_x)
+    # reverse of buf = recv[buf_gather], then the exchange (an involution)
+    recv_c = _scatter(c, contrib[:, cols_pad:], "buf_gather", p * pair_pad)
+    out_c = recv_c.reshape(p, p, pair_pad, nv).transpose(0, 1).contiguous()
+    del recv_c
+    # reverse of send = v_loc[send_idx]
+    if live_scatter:
+        pos, rows = c.live_send_slots()
+        back = torch.zeros((p * cols_pad, nv), dtype=out_c.dtype, device=out_c.device)
+        back.index_add_(0, rows, out_c.reshape(-1, nv).index_select(0, pos))
+        back = back.reshape(p, cols_pad, nv)
+    else:
+        back = _scatter(c, out_c, "send_idx", cols_pad)
+    return _unbatch(c, (contrib[:, :cols_pad] + back).contiguous(), single)
+
+
 # ---------------------------------------------------------------------------
 # Traffic accounting
 # ---------------------------------------------------------------------------
 
-def padded_traffic(c: CompiledNAP) -> Dict[str, object]:
+def padded_traffic(c) -> Dict[str, object]:
     """Padded (what the static exchanges move) vs effective (the plan's
     true payloads) bytes per phase, float32 payloads; the transpose
-    direction's per-rank figures come from the recv lists."""
+    direction's per-rank figures come from the recv lists.  NAP plans
+    have the phases full / init / inter / final, standard plans the one
+    "pair" exchange."""
     topo, plan = c.topo, c.plan
     if plan is None:
         return {}
     n = topo.n_procs
-    phases = {
-        "full": (topo.ppn, plan.local_full_sends, plan.local_full_recvs),
-        "init": (topo.ppn, plan.local_init_sends, plan.local_init_recvs),
-        "inter": (topo.n_nodes, plan.inter_sends, plan.inter_recvs),
-        "final": (topo.ppn, plan.local_final_sends, plan.local_final_recvs),
-    }
+    if isinstance(c, CompiledStandard):
+        phases = {"pair": (n, plan.sends, plan.recvs)}
+        pads = {"pair": c.pair_pad}
+    else:
+        phases = {
+            "full": (topo.ppn, plan.local_full_sends, plan.local_full_recvs),
+            "init": (topo.ppn, plan.local_init_sends, plan.local_init_recvs),
+            "inter": (topo.n_nodes, plan.inter_sends, plan.inter_recvs),
+            "final": (topo.ppn, plan.local_final_sends, plan.local_final_recvs),
+        }
+        pads = c.pads
     out: Dict[str, object] = {}
     transpose: Dict[str, int] = {}
     for name, (n_slots, sends, recvs) in phases.items():
-        padded = n * n_slots * c.pads[name] * 4
+        padded = n * n_slots * pads[name] * 4
         for d, lists in ((out, sends), (transpose, recvs)):
             d[f"{name}_padded"] = padded
             d[f"{name}_effective"] = 4 * sum(m.size for msgs in lists for m in msgs)

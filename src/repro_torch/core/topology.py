@@ -38,5 +38,14 @@ class Topology:
     def local_of(self, rank: int) -> int:
         return rank % self.ppn
 
+    def ranks_on_node(self, n: int) -> range:
+        return range(n * self.ppn, (n + 1) * self.ppn)
+
+    def same_node(self, r: int, t: int) -> bool:
+        return self.node_of(r) == self.node_of(t)
+
     def node_of_array(self, ranks: np.ndarray) -> np.ndarray:
         return np.asarray(ranks) // self.ppn
+
+    def local_of_array(self, ranks: np.ndarray) -> np.ndarray:
+        return np.asarray(ranks) % self.ppn

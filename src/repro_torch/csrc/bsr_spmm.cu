@@ -1,30 +1,44 @@
-// Fused BSR SpMM over a packed x of 1-3 bn-aligned segments, rank-batched.
+// BSR SpMM over a packed x of 1-3 bn-aligned segments, rank-batched.
 //
-// Replaces the Pallas TPU kernels src/repro/kernels/bsr_spmv/fused.py
-// fused_bsr_spmm_packed (body _make_packed_kernel: up to three segments)
-// and fused_bsr_spmm (_fused_kernel: one concatenated x), both instances
-// of the one template below.  For every rank r and block row i:
+// Replaces three Pallas TPU kernels, all instances of the one template
+// below:
+//   * src/repro/kernels/bsr_spmv/fused.py fused_bsr_spmm_packed (body
+//     _make_packed_kernel: up to three segments) -> fused_bsr_spmm_f32;
+//   * src/repro/kernels/bsr_spmv/fused.py fused_bsr_spmm (_fused_kernel:
+//     one concatenated x) -> fused_bsr_spmm_f32 with one segment;
+//   * src/repro/kernels/bsr_spmv/kernel.py bsr_spmm_padded (the unfused
+//     padded-uniform BSR SpMM of one matrix) -> bsr_spmm_padded_f32, one
+//     segment and one rank.
+// For every rank r and block row i:
 //
-//     w[r, i] = sum_k blocks[r, i, k] @ X_r[max(cols[r, i, k], 0)]
+//     w[r, i] = sum_k blocks[r, i, k] @ X_r[cols[r, i, k]]
 //
 // with blocks (bm, bn), X_r the block columns [bn, nv] of the rank's
 // segments taken in order, and padding slots (col -1) carrying zero
-// blocks.  The segment is picked by comparing the block column with the
+// blocks, which the kernel skips: it reads neither their block nor an x
+// block.  The segment is picked by comparing the block column with the
 // segment bounds, so the concatenated x is never materialised; the
 // arithmetic does not depend on the segment count, so the packed and the
 // concatenated calls are bit-equal.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): bytes.  Each (8, 128)
 // block is 4 KB read for 2 * 8 * 128 * nv flops, 1/2 flop per byte at
-// nv = 1.  The blocks array dominates every other operand.
+// nv = 1.  The live blocks dominate every other operand: for
+// bsr_spmm_padded on the 2024 x 2024 rotated anisotropic stencil with
+// (8, 128) blocks, 1,726,916 live blocks (7.07 GB) of 512,072 x 4 slots
+// (8.39 GB with padding), so >= 2.12 ms, against >= 2.52 ms for a kernel
+// that also read the padding.
 //
 // Design: one thread block per (block row, tile of kNvTile rhs columns,
-// rank), rank on grid axis z; one warp per block-matrix row m.  Lane l
-// takes elements j = l, l + 32, ... of the bn axis, so every warp reads a
-// block row as contiguous 128-byte lines and the x block with unit stride
-// at nv = 1.  Each lane keeps kNvTile f32 partial sums in registers across
-// all ktot slots (slot order), then a shuffle tree sums the 32 lanes.
-// CUDA-core FMAs; the (8, 128) shape does not fill a tensor-core tile.
+// rank), rank on grid axis z; one warp per block-matrix row m (a warp
+// takes rows m, m + 8, ... up to bm = 128).  Lane l takes elements
+// j = l, l + 32, ... of the bn axis, so every warp reads a block row as
+// contiguous 128-byte lines and the x block with unit stride at nv = 1
+// (at bn = 8 lanes 8-31 idle).  Each lane keeps kNvTile f32 partial sums
+// in registers across all ktot slots (slot order), then a shuffle tree
+// sums the 32 lanes.  CUDA-core FMAs; the (8, 128) shape does not fill a
+// tensor-core tile.  Every offset is 64-bit: 8.39 GB of blocks is 2.1e9
+// floats, and (128, 128) blocks pass 2^31 floats sooner.
 
 #include <cuda_runtime.h>
 
@@ -59,8 +73,8 @@ __global__ void fused_bsr_kernel(const int* __restrict__ cols,
 #pragma unroll
     for (int t = 0; t < kNvTile; ++t) acc[t] = 0.0f;
     for (int k = 0; k < ktot; ++k) {
-      long long c = crow[k];
-      c = c < 0 ? 0 : c;
+      const long long c = crow[k];
+      if (c < 0) continue;  // padding slot: a zero block
       const float* xb;
       if (NSEG == 1 || c < nb0) {
         xb = xs0 + c * xblk_elems;
@@ -126,4 +140,12 @@ extern "C" int fused_bsr_spmm_f32(const int* cols, const float* blocks,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int bsr_spmm_padded_f32(const int* cols, const float* blocks,
+                                   const float* x, long long n_bcols,
+                                   float* out, int n_brows, int kmax, int bm,
+                                   int bn, int nv, void* stream) {
+  return fused_bsr_spmm_f32(cols, blocks, x, x, x, n_bcols, 0, 0, 1, out, 1,
+                            n_brows, kmax, bm, bn, nv, stream);
 }

@@ -1,4 +1,4 @@
-"""Block-sparse-row (BSR) container: the layout of the fused BSR kernel.
+"""Block-sparse-row (BSR) container: the layout of the BSR kernels.
 
 Dense ``(bm, bn)`` blocks; block row i holds ``data[indptr[i]:indptr[i+1]]``
 at block columns ``indices[...]``.
@@ -9,6 +9,8 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+
+from repro_torch.sparse.csr import CSR
 
 
 @dataclasses.dataclass
@@ -29,6 +31,42 @@ class BSR:
     @property
     def n_blocks(self) -> int:
         return int(self.indices.size)
+
+    @property
+    def density(self) -> float:
+        """Stored blocks over the blocks of the whole block grid."""
+        bm, bn = self.block_shape
+        total = (self.shape[0] // bm) * (self.shape[1] // bn)
+        return self.n_blocks / max(total, 1)
+
+    def matvec(self, v: np.ndarray) -> np.ndarray:
+        """Dense-block oracle (numpy); ``v`` has the padded length."""
+        bm, bn = self.block_shape
+        out = np.zeros(self.shape[0], dtype=np.result_type(self.data, v))
+        vb = v.reshape(-1, bn)
+        for i in range(self.n_brows):
+            acc = np.zeros(bm, dtype=out.dtype)
+            for k in range(self.indptr[i], self.indptr[i + 1]):
+                acc += self.data[k] @ vb[self.indices[k]]
+            out[i * bm:(i + 1) * bm] = acc
+        return out
+
+    def to_dense(self) -> np.ndarray:
+        bm, bn = self.block_shape
+        out = np.zeros(self.shape, dtype=self.data.dtype)
+        for i in range(self.n_brows):
+            for k in range(self.indptr[i], self.indptr[i + 1]):
+                j = self.indices[k]
+                out[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn] = self.data[k]
+        return out
+
+    @staticmethod
+    def from_csr(a: CSR, bm: int = 128, bn: int = 128,
+                 dtype=np.float32) -> "BSR":
+        """CSR -> BSR, zero-padding the element shape up to the block
+        grid.  Only blocks holding a nonzero are stored."""
+        rows, cols, vals = a.to_coo()
+        return BSR.from_coo(rows, cols, vals, a.shape, bm=bm, bn=bn, dtype=dtype)
 
     @staticmethod
     def from_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,

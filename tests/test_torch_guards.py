@@ -53,3 +53,24 @@ def test_operator_raises_without_cuda(monkeypatch):
         resolve_device("cuda")
     assert port_api.operator(a, topo, device="cpu").shape == (36, 36)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_standard_and_bsr_ops_raise_without_cuda(monkeypatch):
+    from repro_torch.core.spmv_torch import compile_standard
+    from repro_torch.kernels.bsr_spmv import bsr_spmm, bsr_spmv
+    from repro_torch.sparse import BSR
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = poisson_2d(6)
+    topo = Topology(2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_api.operator(a, topo, method="standard")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile_standard(a, contiguous_partition(36, 4), topo)
+    b = BSR.from_csr(a, bm=8, bn=8)
+    x = torch.ones(b.shape[1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bsr_spmm(b, x[:, None])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bsr_spmv(b, x)
+    assert bsr_spmv(b, x, device="cpu").device.type == "cpu"
+    assert port_api.operator(a, topo, method="standard", device="cpu").shape == (36, 36)

@@ -124,3 +124,98 @@ def test_wrappers_reject_bad_operands(bad):
         tv = tv.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises((TypeError, ValueError)):
         ell_spmm_packed(tc, tv, txs)
+
+
+# ---------------------------------------------------------------------------
+# Padded-uniform BSR SpMM of one matrix (bsr_spmm_padded) and its ops
+# ---------------------------------------------------------------------------
+
+import jax.numpy as jnp  # noqa: E402
+
+import repro.kernels.bsr_spmv.ops as ref_ops  # noqa: E402
+import repro.sparse as ref_sparse  # noqa: E402
+from repro.kernels.bsr_spmv.kernel import bsr_spmm_padded as ref_padded  # noqa: E402
+
+import repro_torch.sparse as port_sparse  # noqa: E402
+from repro_torch.kernels.bsr_spmv import (bsr_spmm, bsr_spmm_padded,  # noqa: E402
+                                          bsr_spmm_padded_ref, bsr_spmv,
+                                          bsr_spmv_ref)
+
+
+@pytest.mark.parametrize("bm,bn,nv", [(8, 8, 1), (8, 16, 4), (16, 8, 8),
+                                      (32, 32, 16), (8, 128, 128)])
+def test_bsr_padded_plain_matches_pallas(bm, bn, nv):
+    """Padding slots (col -1, zero block) included, as in the reference's
+    own sweep."""
+    rng = np.random.default_rng(bm * 1000 + bn * 10 + nv)
+    nbr, nbc, kmax = 3, 4, 3
+    cols = rng.integers(-1, nbc, size=(nbr, kmax)).astype(np.int32)
+    cols[0, -1] = -1
+    blocks = rng.standard_normal((nbr, kmax, bm, bn)).astype(np.float32)
+    blocks[cols < 0] = 0.0
+    x = rng.standard_normal((nbc, bn, nv)).astype(np.float32)
+    got = bsr_spmm_padded(torch.from_numpy(cols), torch.from_numpy(blocks),
+                          torch.from_numpy(x))
+    assert got.shape == (nbr, bm, nv) and got.dtype == torch.float32
+    _close(got, ref_padded(jnp.asarray(cols), jnp.asarray(blocks),
+                           jnp.asarray(x), interpret=True))
+    assert torch.equal(got, bsr_spmm_padded_ref(torch.from_numpy(cols),
+                                                torch.from_numpy(blocks),
+                                                torch.from_numpy(x)))
+
+
+BSR_MATRICES = [("poisson_12_8x8", ("poisson_2d", (12,)), (8, 8)),
+                ("random_64_16x16", ("random_fixed_nnz", (64, 5)), (16, 16))]
+
+
+@pytest.mark.parametrize("case", BSR_MATRICES, ids=[c[0] for c in BSR_MATRICES])
+def test_bsr_ops_match_reference(case):
+    _, (gen, args), (bm, bn) = case
+    a_ref = getattr(ref_sparse, gen)(*args)
+    a_port = getattr(port_sparse, gen)(*args)
+    b_ref = ref_sparse.BSR.from_csr(a_ref, bm=bm, bn=bn)
+    b_port = port_sparse.BSR.from_csr(a_port, bm=bm, bn=bn)
+    for f in ("indptr", "indices", "data"):
+        assert getattr(b_port, f).dtype == getattr(b_ref, f).dtype, f
+        np.testing.assert_array_equal(getattr(b_port, f), getattr(b_ref, f))
+    assert b_port.shape == b_ref.shape and b_port.density == b_ref.density
+    np.testing.assert_array_equal(b_port.to_dense(), b_ref.to_dense())
+    rng = np.random.default_rng(len(args) + bm)
+    v = rng.standard_normal(b_port.shape[1])
+    x = rng.standard_normal((a_port.shape[1], 3))  # unpadded: ops pad it
+    np.testing.assert_allclose(b_port.matvec(v), b_ref.matvec(v), rtol=1e-12)
+    w = bsr_spmv(b_port, v, device="cpu")
+    assert w.device.type == "cpu" and w.shape == (b_port.shape[0],)
+    _close(w, ref_ops.bsr_spmv(b_ref, v, interpret=True))
+    _close(bsr_spmv_ref(b_port, v), ref_ops.bsr_spmv(b_ref, v, interpret=True))
+    wm = bsr_spmm(b_port, x, device="cpu")
+    assert wm.shape == (b_port.shape[0], 3)
+    _close(wm, ref_ops.bsr_spmm(b_ref, x, interpret=True))
+    np.testing.assert_allclose(w.numpy()[: a_port.shape[0]],
+                               a_port.matvec(v[: a_port.shape[1]]),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_bsr_padded_on_cpu_launches_nothing():
+    reset_launches()
+    b = port_sparse.BSR.from_csr(port_sparse.poisson_2d(12), bm=8, bn=8)
+    bsr_spmv(b, np.ones(b.shape[1]), device="cpu")
+    assert sum(launches.values()) == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "bn", "contiguous"])
+def test_bsr_padded_rejects_bad_operands(bad):
+    rng = np.random.default_rng(3)
+    cols = torch.from_numpy(rng.integers(-1, 4, size=(3, 2)).astype(np.int32))
+    blocks = torch.zeros((3, 2, 8, 16))
+    x = torch.zeros((4, 16, 2))
+    if bad == "dtype":
+        blocks = blocks.double()
+    elif bad == "shape":
+        cols = cols[:2].contiguous()
+    elif bad == "bn":
+        x = x[:, :8].contiguous()
+    else:
+        x = x.transpose(0, 2).contiguous().transpose(0, 2)
+    with pytest.raises((TypeError, ValueError)):
+        bsr_spmm_padded(cols, blocks, x)
