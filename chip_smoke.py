@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port of the node-aware SpMV on one GPU.
+"""Smoke run of the PyTorch/CUDA port on one GPU: the node-aware SpMV
+and the gemma2-2b serving path.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -8,7 +9,7 @@ Phases, each fatal on failure:
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. the build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc,
    sm_90a, all sources in parallel) and its seconds;
-3. each kernel against its plain PyTorch version at the main path's
+3. each SpMV kernel against its plain PyTorch version at the main path's
    shapes: max error, kernel / plain / library ms (CUDA events, median of
    20) and the least time the card could take (bound).  The padded BSR
    kernel (``bsr_spmm_padded``) runs on ``BSR.from_csr`` of the main-path
@@ -28,13 +29,42 @@ Phases, each fatal on failure:
    against the same oracle, through the ELL kernel; padded vs effective
    exchange bytes and the paper's Blue Waters message model for both
    methods; then the standard fused-BSR forward at the BSR path's size;
-7. a JSON line of every kernel, then the result line.
+7. the decode-attention kernel against its plain version at gemma2-2b's
+   decode_32k shapes: B = 8, S = 32768, Hkv = 4, g = 2, D = 256, softcap
+   50, lengths ragged in [1, S] (1, 17, 4096, 4097, S and three drawn
+   from the seed); the bf16 [B, S, Hkv, D] cache read in place with
+   window 0 and with window 4096, then a float32 [B, Hkv, S, D] copy.
+   Max error against a per-sequence tolerance that scales with the
+   sequence's output (``attn_tolerance``: a dropped partial or skipped
+   rows of a long sequence fail it), kernel /
+   plain / ``scaled_dot_product_attention`` ms (softcap 0 for the
+   library, where it computes the same function), the profiler's device
+   time of the kernel's two launches, and the bound over the k/v rows
+   inside the masks; then the kernel's other query-tile instantiations
+   at small shapes, untimed;
+8. the serving path at full width: gemma2-2b, all 26 layers, bf16,
+   weights drawn from the seed on the card, through
+   ``repro_torch.launch.serve.generate``: batch 4, a 512-token prompt
+   teacher-forced through ``decode_step``, then 32 greedy tokens,
+   max_seq 1024.  Median step ms, the kernel's launches (must equal
+   layers x steps), peak memory, the profiler's busy share of a step,
+   the step's bound (every parameter byte and the cache rows read once),
+   finite logits; then the kernel against its plain version on the
+   served bf16 cache (read in place, 544 of 1024 positions) of an even
+   layer (window 4096) and an odd one (window 1024), with a query drawn
+   from the seed, at the same tolerance and timed;
+9. the whole decode step checked on the card: the same config with 2
+   layers in float32, 8 steps through the kernel, then the same steps
+   with the plain version swapped into ``models.attention`` by this
+   script, logits compared at atol 1e-3;
+10. a JSON line of every kernel, then the result line.
 
 Launch counts are reset right before each path is driven and read right
 after, and the peak of allocated device memory is reset and read around
 it.  Each phase frees its tensors before the next.  TF32 is switched off,
 so the plain versions' products are f32.  ``--n`` and ``--bsr-n`` shrink
-the grids of every phase for a short first call after a kernel change.
+the grids of the SpMV phases and ``--lm-layers`` the depth of phase 8,
+for a short first call after a kernel change.
 """
 import argparse
 import gc
@@ -47,6 +77,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available; this script needs a GPU")
@@ -54,6 +85,7 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.api import operator  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cost_model import BLUE_WATERS  # noqa: E402
 from repro_torch.core.partition import contiguous_partition  # noqa: E402
 from repro_torch.core.topology import Topology  # noqa: E402
@@ -64,8 +96,12 @@ from repro_torch.kernels.bsr_spmv import (bsr_spmm_padded,  # noqa: E402
                                           fused_bsr_spmm_packed,
                                           fused_bsr_spmm_packed_ref,
                                           fused_bsr_spmm_ref)
+from repro_torch.kernels.decode_attn import (decode_attention_grouped,  # noqa: E402
+                                             decode_attention_ref)
 from repro_torch.kernels.ell_spmv import (ell_spmm_packed,  # noqa: E402
                                           ell_spmm_packed_ref)
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import attention, build_model, count_params  # noqa: E402
 from repro_torch.sparse import BSR, rotated_anisotropic_2d  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor
@@ -524,11 +560,245 @@ def phase_standard(a, a_b, topo, part, oracles, nap_summary, full_size):
           f"packed {ms_p:.4f}, materialized {ms_c:.4f}")
     return fwd1, fwd8, tr
 
+# gemma2-2b serving (phases 7-9) -------------------------------------------------
+ATTN_REPLACES = "src/repro/kernels/decode_attn/kernel.py:71"
+ATTN_SOURCE = "src/repro_torch/csrc/decode_attn.cu"
+
+
+def attn_tolerance(q, k, plain, lengths, window, scale, softcap):
+    """Per-sequence limit on |kernel - plain|: the same f32 inputs summed
+    in two orders, under the random-rounding model (n roundings grow as
+    sqrt(n) u, not n u; u = 2^-24).
+    - A score's error is about delta = u (sqrt(D) smax + 4 cap): the
+      D-term dot product (smax = scale max|q| max|k|, Cauchy-Schwarz),
+      then the scaling and tanhf.
+    - Relative errors delta_s of the softmax weights move out by
+      sum_s p_s delta_s (v_s - out), independent terms, so about
+      delta sqrt(sum_s p_s^2 (v_s - out)^2): delta times the spread of
+      out itself, which the largest of its Hkv g D entries, max|plain_b|,
+      exceeds.
+    - The running sums over the sequence's n_b valid rows and the
+      partials add about u sqrt(n_b) max|plain_b|.
+    The limit is 8 times u (sqrt(D) smax + 4 cap + sqrt(n_b)) max|plain_b|
+    (two versions, two kinds of error, a factor 2 for the model).  It
+    scales with the output, so a combine that drops one partial or a
+    chunk that skips rows of a long sequence (a change of order
+    max|plain_b| / partials) fails it."""
+    d = q.shape[-1]
+    norm = lambda t: float(torch.linalg.vector_norm(  # noqa: E731
+        t, dim=-1, dtype=torch.float32).max())
+    smax = scale * norm(q) * norm(k)
+    n = lengths.long().clamp(min=0, max=k.shape[2])
+    if window:
+        n = n.clamp(max=window)
+    out_b = plain.abs().amax(dim=(1, 2, 3)).double()
+    return 8.0 * U32 * (d ** 0.5 * smax + 4.0 * softcap + n.double().sqrt()) * out_b
+
+
+def attn_case(label, q, k, v, lengths, window, softcap, scale, timed=True):
+    """Kernel vs plain (and the library at softcap 0) on one layout;
+    the kernels-line numbers of this case."""
+    run = lambda: decode_attention_grouped(q, k, v, lengths, scale=scale,  # noqa: E731
+                                           softcap=softcap, window=window)
+    plain_fn = lambda: decode_attention_ref(q, k, v, lengths, scale=scale,  # noqa: E731
+                                            softcap=softcap, window=window)
+    out, plain = run(), plain_fn()
+    torch.cuda.synchronize()
+    tol = attn_tolerance(q, k, plain, lengths, window, scale, softcap)
+    err_b = (out - plain).abs().amax(dim=(1, 2, 3)).double()
+    err = float(err_b.max())
+    ratio = err_b / tol.clamp_min(1e-300)
+    worst = int(ratio.argmax())
+    print(f"  {label}: max_abs_err {err:.3e} (per-sequence tolerance "
+          f"{float(tol.min()):.3e} .. {float(tol.max()):.3e}); worst err / "
+          f"tolerance {float(ratio[worst]):.3e} (sequence {worst}, length "
+          f"{int(lengths[worst])}: err {float(err_b[worst]):.3e}, tolerance "
+          f"{float(tol[worst]):.3e}); max |out| {float(plain.abs().max()):.3f}")
+    if not bool((err_b <= tol).all()) or not torch.isfinite(out).all():
+        print(f"  {label}: by sequence, lengths {lengths.tolist()}, err "
+              f"{[f'{e:.3e}' for e in err_b.tolist()]}, tolerance "
+              f"{[f'{t:.3e}' for t in tol.tolist()]}")
+        raise AssertionError(f"{label}: kernel disagrees with its plain version")
+    b, hkv, g, d = q.shape
+    n = lengths.long().clamp(max=window) if window else lengths.long()
+    rows = int(n.sum())
+    nbytes = (2 * rows * hkv * d * k.element_size() + q.nbytes
+              + b * hkv * g * d * 4 + lengths.nbytes)
+    bms, by = bound_ms(nbytes, 4.0 * rows * hkv * g * d)
+    entry = dict(max_abs_err=err, bound_ms=bms, bound_by=by, library_ms=None)
+    if not timed:
+        return entry
+    pos = torch.arange(k.shape[2], device=DEV)[None]
+    mask = pos < lengths[:, None]
+    if window:
+        mask &= pos >= lengths[:, None] - window
+    q4, mask4 = q.reshape(b, hkv * g, 1, d), mask[:, None, None, :]
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k, v, attn_mask=mask4, scale=scale, enable_gqa=True)
+    lib_err = float((library().float().reshape(out.shape) - decode_attention_grouped(
+        q, k, v, lengths, scale=scale, window=window)).abs().max())
+    entry.update(ms=time_ms(run), plain_ms=time_ms(plain_fn),
+                 library_ms=time_ms(library))
+    ms0 = time_ms(lambda: decode_attention_grouped(q, k, v, lengths, scale=scale,
+                                                   window=window))
+    profile_program(label, run, entry["ms"])
+    print(f"  {label}: {rows} k/v rows of {k.shape[2]} x {b}, {nbytes / 1e9:.4f} GB; "
+          f"kernel {entry['ms']:.4f} ms (softcap 0: {ms0:.4f}), bound {bms:.4f} ms "
+          f"({by}), plain {entry['plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"(softcap 0) {entry['library_ms']:.4f} ms, its result vs the kernel "
+          f"at softcap 0: max_abs_err {lib_err:.3e}")
+    return entry
+
+
+def phase_decode_attn(rng, gen):
+    """[7] the decode-attention kernel at gemma2-2b's decode_32k shapes."""
+    cfg = get_config("gemma2-2b")
+    b, s, hkv, d = 8, 32768, cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // hkv
+    print(f"[7] decode attention: B {b}, S {s}, Hkv {hkv}, g {g}, D {d}, softcap "
+          f"{cfg.attn_softcap}")
+    lengths = np.concatenate([[1, 17, 4096, 4097], rng.integers(1, s + 1, 3), [s]])
+    lengths = torch.from_numpy(lengths.astype(np.int32)).to(DEV)
+    q = torch.randn((b, hkv, g, d), generator=gen, device=DEV).to(torch.bfloat16)
+    kc = torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
+    vc = torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
+    scale, cap = 1.0 / d ** 0.5, cfg.attn_softcap
+    print(f"  lengths {lengths.tolist()}; cache [B, S, Hkv, D] bf16, k+v "
+          f"{(kc.nbytes + vc.nbytes) / 1e9:.3f} GB")
+    main = attn_case("bf16 [B,S,Hkv,D] window 0", q, kc.transpose(1, 2),
+                     vc.transpose(1, 2), lengths, 0, cap, scale)
+    attn_case(f"bf16 [B,S,Hkv,D] window {cfg.sliding_window}", q, kc.transpose(1, 2),
+              vc.transpose(1, 2), lengths, cfg.sliding_window, cap, scale)
+    k32 = kc.transpose(1, 2).float().contiguous()
+    del kc
+    v32 = vc.transpose(1, 2).float().contiguous()
+    del vc
+    attn_case("f32 [B,Hkv,S,D] window 0", q.float(), k32, v32, lengths, 0, cap, scale)
+    del k32, v32
+    free()
+    # the kernel's other instantiations (query tiles of 1, 4 and 8 rows,
+    # two tiles at g = 16), untimed at small shapes
+    for gg, dd, dtype in ((1, 64, torch.float32), (3, 128, torch.bfloat16),
+                          (8, 256, torch.bfloat16), (16, 96, torch.float32)):
+        qs = torch.randn((2, 2, gg, dd), generator=gen, device=DEV).to(dtype)
+        ks, vs = (torch.randn((2, 1000, 2, dd), generator=gen, device=DEV).to(dtype)
+                  for _ in range(2))
+        ls = torch.tensor([1000, 333], dtype=torch.int32, device=DEV)
+        for w in (0, 100):
+            attn_case(f"g {gg} D {dd} {str(dtype)[6:]} window {w}", qs,
+                      ks.transpose(1, 2), vs.transpose(1, 2), ls, w, 30.0,
+                      dd ** -0.5, timed=False)
+    return dict(name="decode_attention_grouped", route="cuda", source=ATTN_SOURCE,
+                replaces=ATTN_REPLACES, launches=0, **main)
+
+
+def phase_serve(n_layers, seed):
+    """[8] gemma2-2b serving at full width through serve.generate."""
+    cfg = get_config("gemma2-2b").replace(n_layers=n_layers)
+    batch, prompt_len, gen_len, max_seq = 4, 512, 32, 1024
+    print(f"[8] serve: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}; batch {batch}, prompt {prompt_len}, gen "
+          f"{gen_len}, max_seq {max_seq}")
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(seed)
+    torch.cuda.synchronize()
+    n_params = count_params(model)
+    param_bytes = sum(p.nbytes for p in model.parameters())
+    print(f"  init from seed {seed} on the card {time.perf_counter() - t0:.2f} s; "
+          f"{n_params} parameters, {param_bytes / 1e9:.3f} GB")
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, prompt_len))
+    res, counts = drive("generate", lambda: generate(model, prompts, gen_len, max_seq))
+    steps = prompt_len + gen_len
+    n_launch = counts.get("decode_attention_grouped", 0)
+    if n_launch != cfg.n_layers * steps:
+        raise AssertionError(f"decode_attention_grouped launched {n_launch} times, "
+                             f"not layers x steps = {cfg.n_layers * steps}")
+    if not torch.isfinite(res.logits).all():
+        raise AssertionError("serve: non-finite logits")
+    step = statistics.median(res.step_ms)
+    # bound of the median greedy step: every parameter byte and the cache
+    # rows it reads (count c = tokens stored; even layers capped at the window)
+    c = prompt_len + gen_len // 2 + 1
+    rows = sum(min(c, cfg.sliding_window if i % 2 == 0 else max_seq)
+               for i in range(cfg.n_layers))
+    cache_bytes = rows * batch * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    step_bound = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"  kernel launches {n_launch} = {cfg.n_layers} layers x {steps} steps; "
+          f"prompt {res.prefill_ms:.1f} ms ({res.prefill_ms / prompt_len:.3f} ms/step); "
+          f"greedy step median {step:.4f} ms (min {min(res.step_ms):.4f}, max "
+          f"{max(res.step_ms):.4f}), {batch * 1e3 / step:.1f} tok/s; step bound "
+          f"{step_bound:.4f} ms (params {param_bytes / 1e9:.3f} GB + cache rows "
+          f"{cache_bytes / 1e6:.1f} MB at 3.35 TB/s); logits finite; greedy ids "
+          f"[batch 0] {res.tokens[0, :8].tolist()}...")
+    # the kernel against its plain version at the serve path's own shapes:
+    # the served cache read in place, its lengths after the last step,
+    # the windows of an even and an odd layer, a query drawn from the seed
+    cache, tok = res.cache, res.tokens[:, -1:]
+    g = cfg.n_heads // cfg.n_kv_heads
+    q = torch.randn((batch, cfg.n_kv_heads, g, cfg.head_dim), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(seed)
+                    ).to(cache["layers"]["k"].dtype)
+    for i in range(min(2, cfg.n_layers)):
+        w = cfg.sliding_window if i % 2 == 0 else max_seq
+        attn_case(f"served cache, layer {i}, window {w}", q,
+                  cache["layers"]["k"][i].transpose(1, 2),
+                  cache["layers"]["v"][i].transpose(1, 2), cache["length"], w,
+                  cfg.attn_softcap, cfg.head_dim ** -0.5)
+    profile_program("serve: 4 greedy decode steps",
+                    lambda: [model.decode_step(cache, tok) for _ in range(4)], 4 * step)
+    del model, res, cache
+    free()
+    return n_launch
+
+
+def phase_step_check(seed):
+    """[9] the decode step through the kernel vs through the plain version."""
+    cfg = get_config("gemma2-2b").replace(n_layers=2, dtype="float32")
+    batch, n_steps = 4, 8
+    model = build_model(cfg).init(seed)
+    toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (batch, n_steps))).to(DEV)
+
+    def run():
+        cache, out = model.init_cache(batch, 64), []
+        for t in range(n_steps):
+            logits, cache = model.decode_step(cache, toks[:, t:t + 1])
+            out.append(logits)
+        return torch.stack(out)
+
+    reset_launches()
+    got = run()
+    n_launch = launches["decode_attention_grouped"]
+    kernel = attention.decode_attention_grouped
+    attention.decode_attention_grouped = decode_attention_ref
+    try:
+        reset_launches()
+        want = run()
+        plain_launches = launches["decode_attention_grouped"]
+    finally:
+        attention.decode_attention_grouped = kernel
+    err = float((got - want).abs().max())
+    # Both runs do the same f32 products on the card and differ only in the
+    # attention's summation order (<= 8 rows, D = 256: ~1e-6 relative);
+    # through two layers and the head that stays below 1e-4 on logits
+    # bounded by the final softcap of 30, so 1e-3 leaves a wide margin.
+    tol = 1e-3
+    print(f"[9] decode step, {cfg.name} 2 layers float32, {n_steps} steps: kernel "
+          f"({n_launch} launches) vs plain ({plain_launches}) logits max_abs_err "
+          f"{err:.3e} (tolerance {tol:.0e}), max |logit| {float(want.abs().max()):.2f}")
+    if n_launch != 2 * n_steps or plain_launches != 0 or not err <= tol \
+            or not torch.isfinite(got).all():
+        raise AssertionError("decode step through the kernel disagrees with the plain one")
+    del model, got, want
+    free()
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=2024, help="main-path grid side")
     ap.add_argument("--bsr-n", type=int, default=512, help="BSR-path grid side")
+    ap.add_argument("--lm-layers", type=int, default=26,
+                    help="gemma2-2b depth of the serving phase")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's register and shared-memory report")
@@ -618,6 +888,13 @@ def main():
     s_fwd1, s_fwd8, s_tr = phase_standard(a, a_b, topo, part, oracles,
                                           nap_summary, args.n == 2024)
     free()
+
+    # 7-9. gemma2-2b serving ----------------------------------------------------
+    entries.append(phase_decode_attn(rng, gen))
+    by_name["decode_attention_grouped"] = entries[-1]
+    by_name["decode_attention_grouped"]["launches"] = phase_serve(args.lm_layers,
+                                                                  args.seed)
+    phase_step_check(args.seed)
 
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it)

@@ -1,0 +1,50 @@
+"""Architecture registry of the port: ``get_config(name)``, ``get_reduced``.
+
+The port carries the dense GQA configs (the families its ``LM`` runs).
+Every other architecture of the JAX package resolves by name and raises
+``NotImplementedError`` naming the ROADMAP item that ports its family.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.models.config import ModelConfig
+
+# canonical dashed ids -> module names (the JAX package's table)
+ALIASES: Dict[str, str] = {
+    "gemma2-2b": "gemma2_2b", "llama3-405b": "llama3_405b",
+    "gemma2-27b": "gemma2_27b", "gemma2-9b": "gemma2_9b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "deepseek-v2-236b": "deepseek_v2_236b", "whisper-small": "whisper_small",
+    "chameleon-34b": "chameleon_34b", "zamba2-2.7b": "zamba2_2p7b",
+    "rwkv6-3b": "rwkv6_3b",
+}
+
+PORTED = ("gemma2_2b", "gemma2_9b", "gemma2_27b", "llama3_405b",
+          "chameleon_34b")
+
+WAITING: Dict[str, str] = {
+    "qwen3_moe_235b_a22b": "the MoE family (ROADMAP Queue 1 item 17d)",
+    "deepseek_v2_236b": "MoE with MLA attention (ROADMAP Queue 1 item 17d)",
+    "whisper_small": "the encoder-decoder family (ROADMAP Queue 1 item 17e)",
+    "zamba2_2p7b": "the hybrid SSM family (ROADMAP Queue 1 item 17f)",
+    "rwkv6_3b": "the RWKV SSM family (ROADMAP Queue 1 item 17g)",
+}
+
+
+def _module(name: str):
+    mod = ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
+    if mod in WAITING:
+        raise NotImplementedError(f"{name}: not ported yet; it needs {WAITING[mod]}")
+    if mod not in PORTED:
+        raise KeyError(f"unknown architecture {name!r}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_reduced(name: str) -> ModelConfig:
+    return _module(name).reduced()

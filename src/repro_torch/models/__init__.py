@@ -1,0 +1,4 @@
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.registry import build_model, count_params
+
+__all__ = ["ModelConfig", "build_model", "count_params"]

@@ -1,0 +1,41 @@
+"""Parameters of the JAX package's ``LM.init`` tree, for the port's ``LM``.
+
+The reference stacks the layers on a leading axis (``layers/attn/wq`` is
+``[L, d, H * dh]``); the port keeps one tree per layer.  Arrays arrive as
+numpy (``jax.device_get`` of the tree), bfloat16 ones as ml_dtypes
+arrays, and leave as CPU tensors of the same dtype.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _map(fn: Callable, t):
+    if isinstance(t, dict):
+        return {k: _map(fn, v) for k, v in t.items()}
+    return fn(t)
+
+
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``{"embed", "final_norm", ["head"], "layers": stacked}`` ->
+    ``{"embed", "final_norm", ["head"], "layers": [one tree per layer]}``
+    for ``LM.load``."""
+    unknown = set(tree) - {"embed", "final_norm", "head", "layers"}
+    if unknown:
+        raise NotImplementedError(f"parameter groups the port has no model for: "
+                                  f"{sorted(unknown)}")
+    out = {k: _tensor(v) for k, v in tree.items() if k != "layers"}
+    n_layers = len(tree["layers"]["norm1"])
+    out["layers"] = [_map(lambda a: _tensor(a[i]), tree["layers"])
+                     for i in range(n_layers)]
+    return out

@@ -23,6 +23,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
 
 def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.core.spmv_torch\n"
+            "import repro_torch.models.convert, repro_torch.launch.serve\n"
+            "import repro_torch.kernels.decode_attn\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\nprint('clean')")
@@ -74,3 +76,22 @@ def test_standard_and_bsr_ops_raise_without_cuda(monkeypatch):
         bsr_spmv(b, x)
     assert bsr_spmv(b, x, device="cpu").device.type == "cpu"
     assert port_api.operator(a, topo, method="standard", device="cpu").shape == (36, 36)
+
+
+def test_lm_serve_and_decode_attention_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.decode_attn import decode_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced("gemma2-2b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "gemma2-2b"])
+    q, kv = torch.zeros(1, 4, 16), torch.zeros(1, 8, 2, 16)
+    lengths = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode_attention(q, kv, kv, lengths)
+    assert build_model(cfg, device="cpu").device == torch.device("cpu")
+    assert decode_attention(q, kv, kv, lengths, device="cpu").device.type == "cpu"
