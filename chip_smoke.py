@@ -11,11 +11,20 @@ Phases, each fatal on failure:
    sm_90a, all sources in parallel) and its seconds;
 3. each SpMV kernel against its plain PyTorch version at the main path's
    shapes: max error, kernel / plain / library ms (CUDA events, median of
-   20) and the least time the card could take (bound).  The padded BSR
-   kernel (``bsr_spmm_padded``) runs on ``BSR.from_csr`` of the main-path
-   matrix with (8, 128) blocks and of the BSR-path matrix with
-   (128, 128) blocks, each first driven through ``bsr_spmv`` and held
-   against the float64 host CSR matvec;
+   20 single calls), the kernel's device time per launch (``device_ms``:
+   events around 20 back-to-back launches) and the least time the card
+   could take (bound).  The library is ``torch.sparse.mm`` on a CSR
+   tensor of the real nonzeros and, for the BSR kernels, on a BSR tensor
+   of the live blocks (the same bytes; a refusal by torch is printed and
+   recorded as null).  The padded BSR kernel (``bsr_spmm_padded``) runs
+   on ``BSR.from_csr`` of the main-path matrix with (8, 128) blocks and
+   of the BSR-path matrix with (128, 128) blocks, each first driven
+   through ``bsr_spmv`` and held against the float64 host CSR matvec.
+   Every BSR layout is also held at nv = 3 and 8 and with its slots
+   permuted within each block row (padding inside the rows), and three
+   ragged block shapes ((4, 24), (12, 20), (5, 6); 37 slots a row) go
+   through all three BSR entry points; packed and concatenated stay
+   bit-equal;
 4. the main path at full size: the paper's rotated anisotropic diffusion
    (FE 9-point, eps 0.001, theta pi/6) on a 2024 x 2024 grid (4,096,576
    rows) over Topology(32, 16), 512 ranks: ``op @ v`` for nv = 1 and 8,
@@ -57,7 +66,8 @@ Phases, each fatal on failure:
    layers in float32, 8 steps through the kernel, then the same steps
    with the plain version swapped into ``models.attention`` by this
    script, logits compared at atol 1e-3;
-10. a JSON line of every kernel, then the result line.
+10. a JSON line of every kernel (with ``device_ms`` and, for the BSR
+    kernels, ``library_bsr_ms``), then the result line.
 
 Launch counts are reset right before each path is driven and read right
 after, and the peak of allocated device memory is reset and read around
@@ -127,6 +137,22 @@ def time_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, n=20, warmup=3):
+    """Device time per launch: CUDA events around ``n`` back-to-back calls
+    (after a warm-up), divided by ``n``.  The wrapper's host work overlaps
+    the device's queue unless it is longer than the kernel."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def bound_ms(nbytes, flops):
@@ -200,30 +226,135 @@ def ell_case(name, source, replaces, cols, vals, xs):
     entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=0, max_abs_err=err,
                  ms=time_ms(lambda: ell_spmm_packed(cols, vals, xs)),
+                 device_ms=device_ms(lambda: ell_spmm_packed(cols, vals, xs)),
                  plain_ms=time_ms(lambda: ell_spmm_packed_ref(cols, vals, xs)),
                  bound_ms=bms, bound_by=by,
                  library_ms=time_ms(lambda: torch.sparse.mm(a, x_cat)))
     print(f"  {name}: shapes cols {tuple(cols.shape)} segments "
           f"{[tuple(x.shape) for x in xs]}; {nbytes / 1e6:.1f} MB; kernel "
-          f"{entry['ms']:.4f} ms, bound {bms:.4f} ms ({by}), plain "
-          f"{entry['plain_ms']:.4f} ms, torch.sparse.mm CSR {entry['library_ms']:.4f} ms")
+          f"{entry['ms']:.4f} ms (device {entry['device_ms']:.4f}), bound {bms:.4f} ms "
+          f"({by}), plain {entry['plain_ms']:.4f} ms, torch.sparse.mm CSR "
+          f"{entry['library_ms']:.4f} ms")
     return entry
+
+
+def bsr_library(label, crow, col, vals, size, x, want):
+    """The same-format yardstick: ``torch.sparse.mm`` on a BSR tensor of
+    the live blocks, which reads the kernel's bytes.  Its ms, or None
+    (printed with torch's message) where torch on the card refuses it."""
+    try:
+        a = torch.sparse_bsr_tensor(crow, col, vals, size=size)
+        got = torch.sparse.mm(a, x)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, ValueError) as exc:
+        print(f"  {label}: torch.sparse.mm on a BSR tensor of {tuple(vals.shape[1:])} "
+              f"blocks refused: {' '.join(str(exc).split())[:300]}")
+        return None
+    print(f"  {label}: BSR library result max_abs_err "
+          f"{float((got.reshape(want.shape) - want).abs().max()):.3e}")
+    return time_ms(lambda: torch.sparse.mm(a, x))
+
+
+def fmt_ms(ms):
+    return "refused" if ms is None else f"{ms:.4f} ms"
+
+
+def bsr_held(label, kernel, plain, cols, blocks, xs):
+    """One BSR kernel call against its plain version (``check_close``);
+    ``kernel`` and ``plain`` take (cols, blocks, xs).  Returns both
+    results and the max error."""
+    out, want = kernel(cols, blocks, xs), plain(cols, blocks, xs)
+    scale = float(plain(cols, blocks.abs(), [x.abs() for x in xs]).max())
+    err = check_close(label, out, want, cols.shape[-1] * blocks.shape[-1], scale)
+    return out, want, err
+
+
+def cat(xs):
+    """The concatenated x (no copy when there is one segment, so that a
+    timed call of the concatenated kernel times the kernel alone)."""
+    return xs[0] if len(xs) == 1 else torch.cat(xs, dim=1)
+
+
+# the three BSR entry points over (cols, blocks, xs) and their plain versions
+BSR_PACKED = (lambda c, b, xs: fused_bsr_spmm_packed(c, b, xs),
+              lambda c, b, xs: fused_bsr_spmm_packed_ref(c, b, xs))
+BSR_CONCAT = (lambda c, b, xs: fused_bsr_spmm(c, b, cat(xs)),
+              lambda c, b, xs: fused_bsr_spmm_ref(c, b, cat(xs)))
+BSR_PADDED = (lambda c, b, xs: bsr_spmm_padded(c, b, xs[0]),
+              lambda c, b, xs: bsr_spmm_padded_ref(c, b, xs[0]))
+
+
+def permute_slots(cols, blocks, gen):
+    """The same matrix with the slots of every block row in a random order,
+    cols and blocks together, so that padding slots land inside rows."""
+    ktot = cols.shape[-1]
+    perm = torch.rand(cols.shape, generator=gen, device=DEV).reshape(-1, ktot).argsort(-1)
+    flat = (torch.arange(perm.shape[0], device=DEV)[:, None] * ktot + perm).reshape(-1)
+    return (cols.reshape(-1)[flat].reshape(cols.shape),
+            blocks.reshape(cols.numel(), -1)[flat].reshape(blocks.shape))
+
+
+def bsr_variants(label, fused, cols, blocks, xs1, gen):
+    """The cases the kernel design must survive on one layout: nv = 3 and
+    8, then nv = 1 with the slots permuted; each kernel against its plain
+    version, the packed and concatenated kernels bit-equal.  ``fused``:
+    the rank-batched layout (packed and concatenated), else the padded
+    one of one matrix."""
+    for case in ("nv=3", "nv=8", "permuted slots"):
+        c, b, xs = cols, blocks, xs1
+        if case == "permuted slots":
+            c, b = permute_slots(cols, blocks, gen)
+            print(f"  {label} permuted: {int(((c[..., :-1] < 0) & (c[..., 1:] >= 0)).sum())}"
+                  f" padding slots before a live one")
+        else:
+            xs = [torch.randn((*x.shape[:-1], int(case[3:])), generator=gen, device=DEV)
+                  for x in xs1]
+        if fused:
+            o_p = bsr_held(f"{label} packed {case}", *BSR_PACKED, c, b, xs)[0]
+            o_c = bsr_held(f"{label} concatenated {case}", *BSR_CONCAT, c, b, xs)[0]
+            if not torch.equal(o_p, o_c):
+                raise AssertionError(f"{label} {case}: packed and concatenated kernels differ")
+            del o_p, o_c
+        else:
+            bsr_held(f"{label} {case}", *BSR_PADDED, c, b, xs)
+        del c, b, xs
+        free()
+
+
+def ragged_bsr_cases(gen):
+    """Block shapes off the 16-byte path and off the 8-row band, on small
+    matrices of 3 ranks, 7 block rows and 37 slots (past one 32-id load),
+    padding anywhere (block row 0 all padding): every entry point against
+    its plain version at nv = 1, 3 and 8."""
+    p, nbr, ktot, seg = 3, 7, 37, (5, 3, 4)
+    for bm, bn in ((4, 24), (12, 20), (5, 6)):
+        cols = torch.randint(0, sum(seg), (p, nbr, ktot), generator=gen, device=DEV,
+                             dtype=torch.int32)
+        pad = torch.rand((p, nbr, ktot), generator=gen, device=DEV) < 0.4
+        pad[:, 0] = True
+        pad[..., 1] = True
+        cols[pad] = -1
+        blocks = torch.randn((p, nbr, ktot, bm, bn), generator=gen, device=DEV)
+        blocks[pad] = 0.0
+        for nv in (1, 3, 8):
+            xs = [torch.randn((p, n, bn, nv), generator=gen, device=DEV) for n in seg]
+            label = f"ragged ({bm}, {bn}) nv={nv}"
+            o_p = bsr_held(f"{label} packed", *BSR_PACKED, cols, blocks, xs)[0]
+            o_c = bsr_held(f"{label} concatenated", *BSR_CONCAT, cols, blocks, xs)[0]
+            if not torch.equal(o_p, o_c):
+                raise AssertionError(f"{label}: packed and concatenated kernels differ")
+            # one rank's operands as fresh (16-byte aligned) tensors
+            bsr_held(f"{label} padded", *BSR_PADDED, cols[1].clone(), blocks[1].clone(),
+                     [torch.cat(xs, dim=1)[1].clone()])
 
 
 def bsr_case(name, replaces, cols, blocks, xs, packed):
     """Kernel vs plain for one fused-BSR wrapper; the kernels-line entry."""
-    if packed:
-        run = lambda: fused_bsr_spmm_packed(cols, blocks, xs)  # noqa: E731
-        plain_fn = lambda: fused_bsr_spmm_packed_ref(cols, blocks, xs)  # noqa: E731
-        abs_xs = tuple(x.abs() for x in xs)
-        scale_fn = lambda: fused_bsr_spmm_packed_ref(cols, blocks.abs(), abs_xs)  # noqa: E731
-    else:
-        run = lambda: fused_bsr_spmm(cols, blocks, xs[0])  # noqa: E731
-        plain_fn = lambda: fused_bsr_spmm_ref(cols, blocks, xs[0])  # noqa: E731
-        scale_fn = lambda: fused_bsr_spmm_ref(cols, blocks.abs(), xs[0].abs())  # noqa: E731
-    out, plain = run(), plain_fn()
+    kernel, plain = BSR_PACKED if packed else BSR_CONCAT
+    run = lambda: kernel(cols, blocks, xs)  # noqa: E731
+    plain_fn = lambda: plain(cols, blocks, xs)  # noqa: E731
+    out, want, err = bsr_held(name, kernel, plain, cols, blocks, xs)
     p, nbr, ktot, bm, bn = blocks.shape
-    err = check_close(name, out, plain, ktot * bn, float(scale_fn().max()))
     nv = xs[0].shape[-1]
     n_bc = sum(x.shape[1] for x in xs)
     live = cols >= 0
@@ -233,48 +364,58 @@ def bsr_case(name, replaces, cols, blocks, xs, packed):
     blk = b_idx[nz[:, 0]]
     rows = (blk[:, 0] * nbr + blk[:, 1]) * bm + nz[:, 1]
     ccol = (blk[:, 0] * n_bc + cols[live].long()[nz[:, 0]]) * bn + nz[:, 2]
-    a = csr_from_coo(rows, ccol, dense[nz[:, 0], nz[:, 1], nz[:, 2]],
-                     (p * nbr * bm, p * n_bc * bn))
+    size = (p * nbr * bm, p * n_bc * bn)
+    a = csr_from_coo(rows, ccol, dense[nz[:, 0], nz[:, 1], nz[:, 2]], size)
     x_cat = torch.cat(xs, dim=1).reshape(p * n_bc * bn, nv)
     lib = torch.sparse.mm(a, x_cat).reshape(out.shape)
-    print(f"  {name}: library result max_abs_err {float((lib - plain).abs().max()):.3e}")
+    print(f"  {name}: library result max_abs_err {float((lib - want).abs().max()):.3e}")
+    # the live blocks as a BSR tensor: block rows rank * nbr + i, block
+    # columns rank * n_bc + cols, sorted within each block row
+    brow = b_idx[:, 0] * nbr + b_idx[:, 1]
+    bcol = b_idx[:, 0] * n_bc + cols[live].long()
+    order = (brow * (p * n_bc) + bcol).argsort()
+    crow = torch.zeros(p * nbr + 1, dtype=torch.long, device=DEV)
+    crow[1:] = torch.bincount(brow, minlength=p * nbr).cumsum(0)
+    lib_bsr = bsr_library(name, crow, bcol[order], dense[order], size, x_cat, want)
     n_live = int(live.sum())
     nbytes = (cols.nbytes + n_live * bm * bn * 4 + sum(x.nbytes for x in xs)
               + out.nbytes)
     bms, by = bound_ms(nbytes, 2.0 * n_live * bm * bn * nv)
     entry = dict(name=name, route="cuda", source="src/repro_torch/csrc/bsr_spmm.cu",
                  replaces=replaces, launches=0, max_abs_err=err,
-                 ms=time_ms(run), plain_ms=time_ms(plain_fn),
+                 ms=time_ms(run), device_ms=device_ms(run), plain_ms=time_ms(plain_fn),
                  bound_ms=bms, bound_by=by,
-                 library_ms=time_ms(lambda: torch.sparse.mm(a, x_cat)))
+                 library_ms=time_ms(lambda: torch.sparse.mm(a, x_cat)),
+                 library_bsr_ms=lib_bsr)
     print(f"  {name}: blocks {tuple(blocks.shape)} ({n_live} live) segments "
           f"{[tuple(x.shape) for x in xs]}; {nbytes / 1e6:.1f} MB; kernel "
-          f"{entry['ms']:.4f} ms, bound {bms:.4f} ms ({by}), plain "
-          f"{entry['plain_ms']:.4f} ms, torch.sparse.mm CSR {entry['library_ms']:.4f} ms")
+          f"{entry['ms']:.4f} ms (device {entry['device_ms']:.4f}, "
+          f"{100 * bms / entry['device_ms']:.1f}% of bound), bound {bms:.4f} ms ({by}), "
+          f"plain {entry['plain_ms']:.4f} ms, torch.sparse.mm CSR "
+          f"{entry['library_ms']:.4f} ms, BSR {fmt_ms(lib_bsr)}")
     return entry
 
 
-def padded_bsr_case(label, a, bm, bn, v, want):
+def padded_bsr_case(label, a, bm, bn, v, want, gen):
     """The padded BSR kernel on ``BSR.from_csr(a)``: first the user's path
     ``bsr_spmv`` (counted, against the float64 oracle ``want``), then
-    the kernel against its plain version; the kernels-line entry."""
+    the kernel against its plain version, timed beside the CSR and BSR
+    library calls, then the variants; the kernels-line entry."""
     t0 = time.perf_counter()
     b = BSR.from_csr(a, bm=bm, bn=bn)
     t_conv = time.perf_counter() - t0
     w, counts = drive(f"{label} bsr_spmv", lambda: bsr_spmv(b, v))
     check_oracle(f"{label} bsr_spmv", w.cpu().numpy()[: a.shape[0]], want)
     del w
-    cols_np, blocks_np, kmax = b.padded_uniform()
+    cols_np, blocks_np, _ = b.padded_uniform()
     cols = torch.from_numpy(cols_np).to(DEV)
     blocks = torch.from_numpy(blocks_np).to(DEV)
     del cols_np, blocks_np
     x = torch.zeros(b.shape[1], device=DEV)
     x[: a.shape[1]] = torch.from_numpy(v).to(DEV, torch.float32)
     x = x.reshape(-1, bn, 1)
-    out = bsr_spmm_padded(cols, blocks, x)
-    plain = bsr_spmm_padded_ref(cols, blocks, x)
-    err = check_close(label, out, plain, kmax * bn,
-                      float(bsr_spmm_padded_ref(cols, blocks.abs(), x.abs()).max()))
+    run = lambda: bsr_spmm_padded(cols, blocks, x)  # noqa: E731
+    out, plain, err = bsr_held(label, *BSR_PADDED, cols, blocks, [x])
     lib_a = torch.sparse_csr_tensor(
         torch.from_numpy(a.indptr), torch.from_numpy(a.indices),
         torch.from_numpy(a.data.astype(np.float32)), size=a.shape).to(DEV)
@@ -290,16 +431,26 @@ def padded_bsr_case(label, a, bm, bn, v, want):
                  source="src/repro_torch/csrc/bsr_spmm.cu",
                  replaces="src/repro/kernels/bsr_spmv/kernel.py:57",
                  launches=counts.get("bsr_spmm_padded", 0), max_abs_err=err,
-                 ms=time_ms(lambda: bsr_spmm_padded(cols, blocks, x)),
+                 ms=time_ms(run), device_ms=device_ms(run),
                  plain_ms=time_ms(lambda: bsr_spmm_padded_ref(cols, blocks, x)),
                  bound_ms=bms, bound_by=by,
                  library_ms=time_ms(lambda: torch.sparse.mm(lib_a, x_lib)))
+    del lib_a, lib, out
+    vals = torch.from_numpy(b.data).to(DEV)
+    entry["library_bsr_ms"] = bsr_library(
+        label, torch.from_numpy(b.indptr).to(DEV, torch.long),
+        torch.from_numpy(b.indices).to(DEV, torch.long), vals, b.shape,
+        x.reshape(-1, 1), plain.reshape(-1, 1))
+    del vals, b, plain
+    free()
     print(f"  {label}: BSR.from_csr {t_conv:.2f} s; blocks {tuple(blocks.shape)} "
           f"({n_live} live, {n_live * bm * bn * 4 / 1e9:.3f} GB; padded "
-          f"{blocks.nbytes / 1e9:.3f} GB); kernel {entry['ms']:.4f} ms, bound "
-          f"{bms:.4f} ms ({by}) over the live blocks, {pad_ms:.4f} ms ({pad_by}) "
+          f"{blocks.nbytes / 1e9:.3f} GB); kernel {entry['ms']:.4f} ms (device "
+          f"{entry['device_ms']:.4f}, {100 * bms / entry['device_ms']:.1f}% of bound), "
+          f"bound {bms:.4f} ms ({by}) over the live blocks, {pad_ms:.4f} ms ({pad_by}) "
           f"with the padding; plain {entry['plain_ms']:.4f} ms, torch.sparse.mm "
-          f"CSR {entry['library_ms']:.4f} ms")
+          f"CSR {entry['library_ms']:.4f} ms, BSR {fmt_ms(entry['library_bsr_ms'])}")
+    bsr_variants(label, False, cols, blocks, [x], gen)
     return entry
 
 
@@ -399,29 +550,20 @@ def phase_kernels(c, cb, a, a_b, oracles, gen):
                             "src/repro/kernels/bsr_spmv/fused.py:57",
                             tb["fused_cols"], tb["fused_blocks"],
                             (torch.cat(bsegs, dim=1),), False))
-    bsegs3 = tuple(randn(*s.shape[:3], 3) for s in bsegs)
-    check_close("fused_bsr_spmm_packed nv=3",
-                fused_bsr_spmm_packed(tb["fused_cols"], tb["fused_blocks"], bsegs3),
-                fused_bsr_spmm_packed_ref(tb["fused_cols"], tb["fused_blocks"], bsegs3),
-                cb.bsr_layout["kmax"] * bn,
-                float(fused_bsr_spmm_packed_ref(
-                    tb["fused_cols"], tb["fused_blocks"].abs(),
-                    tuple(x.abs() for x in bsegs3)).max()))
-    if not torch.equal(
-            fused_bsr_spmm_packed(tb["fused_cols"], tb["fused_blocks"], bsegs3),
-            fused_bsr_spmm(tb["fused_cols"], tb["fused_blocks"],
-                           torch.cat(bsegs3, dim=1))):
-        raise AssertionError("packed and concatenated BSR kernels differ")
-    del t, tb, xs8, bsegs, bsegs3
+    bsr_variants(f"fused n={int(np.sqrt(a_b.shape[0]))} {cb.block_shape}", True,
+                 tb["fused_cols"], tb["fused_blocks"], bsegs, gen)
+    del t, tb, xs8, bsegs
+    free()
+    ragged_bsr_cases(gen)
     free()
 
     n_ab = a_b.shape[0]
     entries.append(padded_bsr_case(f"bsr_spmm_padded n={int(np.sqrt(a.shape[0]))} "
                                    f"(8,128)", a, 8, 128, oracles["v1"],
-                                   oracles["w1"]))
+                                   oracles["w1"], gen))
     free()
     padded_bsr_case(f"bsr_spmm_padded n={int(np.sqrt(n_ab))} (128,128)", a_b,
-                    128, 128, oracles["vb"], oracles["wb"])
+                    128, 128, oracles["vb"], oracles["wb"], gen)
     free()
     return entries
 
@@ -637,13 +779,14 @@ def attn_case(label, q, k, v, lengths, window, softcap, scale, timed=True):
         q4, k, v, attn_mask=mask4, scale=scale, enable_gqa=True)
     lib_err = float((library().float().reshape(out.shape) - decode_attention_grouped(
         q, k, v, lengths, scale=scale, window=window)).abs().max())
-    entry.update(ms=time_ms(run), plain_ms=time_ms(plain_fn),
+    entry.update(ms=time_ms(run), device_ms=device_ms(run), plain_ms=time_ms(plain_fn),
                  library_ms=time_ms(library))
     ms0 = time_ms(lambda: decode_attention_grouped(q, k, v, lengths, scale=scale,
                                                    window=window))
     profile_program(label, run, entry["ms"])
     print(f"  {label}: {rows} k/v rows of {k.shape[2]} x {b}, {nbytes / 1e9:.4f} GB; "
-          f"kernel {entry['ms']:.4f} ms (softcap 0: {ms0:.4f}), bound {bms:.4f} ms "
+          f"kernel {entry['ms']:.4f} ms (device {entry['device_ms']:.4f}; softcap 0: "
+          f"{ms0:.4f}), bound {bms:.4f} ms "
           f"({by}), plain {entry['plain_ms']:.4f} ms, scaled_dot_product_attention "
           f"(softcap 0) {entry['library_ms']:.4f} ms, its result vs the kernel "
           f"at softcap 0: max_abs_err {lib_err:.3e}")

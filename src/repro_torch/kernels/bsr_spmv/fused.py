@@ -11,6 +11,7 @@ bit.  Every operand is rank-batched:
     x / xs: [P, n_bcols_s, bn, nv] float32 per segment
     returns [P, n_brows, bm, nv] float32
 
+Operands are contiguous, and blocks and x start on 16-byte boundaries.
 CPU tensors take the plain version (:mod:`.ref`); CUDA tensors take the
 kernel or raise.
 """
@@ -58,9 +59,12 @@ def _check(cols: torch.Tensor, blocks: torch.Tensor, xs) -> None:
             raise ValueError("all operands must lie on one device")
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
-    if max(cols.shape[1], cols.shape[2], nv) > _INT32_MAX or p > 65535 \
-            or -(-nv // 8) > 65535:
-        raise ValueError(f"shape out of the kernel's range: {tuple(cols.shape)}, nv {nv}")
+    for t in (blocks, *xs):
+        if t.data_ptr() % 16:
+            raise ValueError("blocks and x segments must start on a 16-byte "
+                             "boundary (the kernel reads 16-byte vectors)")
+    if max(*blocks.shape, nv) > _INT32_MAX:
+        raise ValueError(f"shape out of the kernel's range: {tuple(blocks.shape)}, nv {nv}")
 
 
 def _launch(name: str, cols: torch.Tensor, blocks: torch.Tensor,

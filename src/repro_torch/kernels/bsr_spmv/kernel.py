@@ -9,6 +9,7 @@ Pallas kernel ``repro/kernels/bsr_spmv/kernel.py::bsr_spmm_padded``:
     x:      [n_bcols, bn, nv] float32
     returns [n_brows, bm, nv] float32
 
+Operands are contiguous, and blocks and x start on 16-byte boundaries.
 CPU tensors take the plain version (:mod:`.ref`); CUDA tensors take the
 kernel or raise.
 """
@@ -51,9 +52,13 @@ def _check(cols: torch.Tensor, blocks: torch.Tensor, x: torch.Tensor) -> None:
     for t in (cols, blocks, x):
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
-    nv = x.shape[2]
-    if max(cols.shape[0], cols.shape[1], nv) > _INT32_MAX or -(-nv // 8) > 65535:
-        raise ValueError(f"shape out of the kernel's range: {tuple(cols.shape)}, nv {nv}")
+    for t in (blocks, x):
+        if t.data_ptr() % 16:
+            raise ValueError("blocks and x must start on a 16-byte boundary "
+                             "(the kernel reads 16-byte vectors)")
+    if max(*blocks.shape, x.shape[2]) > _INT32_MAX:
+        raise ValueError(f"shape out of the kernel's range: {tuple(blocks.shape)}, "
+                         f"nv {x.shape[2]}")
 
 
 def bsr_spmm_padded(cols: torch.Tensor, blocks: torch.Tensor,

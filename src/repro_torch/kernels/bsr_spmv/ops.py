@@ -24,6 +24,8 @@ def bsr_spmm(bsr: BSR, x, *, device: DeviceLike = None) -> torch.Tensor:
     if pad_rows:
         x = torch.nn.functional.pad(x, (0, 0, 0, pad_rows))
     xb = x.reshape(bsr.shape[1] // bn, bn, -1).contiguous()
+    if xb.data_ptr() % 16:  # a view into the caller's array; the kernel needs 16-byte alignment
+        xb = xb.clone()
     out = bsr_spmm_padded(torch.from_numpy(cols).to(dev),
                           torch.from_numpy(blocks).to(dev), xb)
     return out.reshape(bsr.shape[0], -1)

@@ -109,8 +109,45 @@ def test_cpu_wrappers_use_plain_versions_and_launch_nothing():
     assert sum(launches.values()) == 0
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "segments", "contiguous"])
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype)
+    k = next(k for k in range(4) if (buf.data_ptr() + k * t.element_size()) % 16)
+    out = buf[k:k + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "segments", "contiguous",
+                                 "bsr_blocks_misaligned", "bsr_x_misaligned",
+                                 "padded_blocks_misaligned", "padded_x_misaligned"])
 def test_wrappers_reject_bad_operands(bad):
+    if bad.startswith("bsr_"):
+        cols, blocks, xs = _bsr_case(1, (2, 2), 2)
+        tc, tb = torch.from_numpy(cols), torch.from_numpy(blocks)
+        txs = [torch.from_numpy(x) for x in xs]
+        if bad == "bsr_blocks_misaligned":
+            tb = _misaligned(tb)
+        else:
+            txs[1] = _misaligned(txs[1])
+        with pytest.raises(ValueError, match="16-byte"):
+            fused_bsr_spmm_packed(tc, tb, txs)
+        with pytest.raises(ValueError, match="16-byte"):
+            fused_bsr_spmm(tc, tb, txs[1] if bad == "bsr_x_misaligned" else txs[0])
+        return
+    if bad.startswith("padded_"):
+        rng = np.random.default_rng(4)
+        tc = torch.from_numpy(rng.integers(-1, 4, size=(3, 2)).astype(np.int32))
+        tb = torch.zeros((3, 2, 8, 16))
+        tx = torch.zeros((4, 16, 1))
+        if bad == "padded_blocks_misaligned":
+            tb = _misaligned(tb)
+        else:
+            tx = _misaligned(tx)
+        with pytest.raises(ValueError, match="16-byte"):
+            bsr_spmm_padded(tc, tb, tx)
+        return
     cols, vals, xs = _ell_case(1, (8, 8), 2)
     tc, tv = torch.from_numpy(cols), torch.from_numpy(vals)
     txs = [torch.from_numpy(x) for x in xs]
@@ -124,6 +161,52 @@ def test_wrappers_reject_bad_operands(bad):
         tv = tv.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises((TypeError, ValueError)):
         ell_spmm_packed(tc, tv, txs)
+
+
+def _interior_padding_case(seed, seg_bcols, nv, n_brows=4, ktot=6, bm=8, bn=16):
+    """Padded-uniform BSR whose padding slots sit inside the rows: slots
+    1 and 3 are padding in every block row, block row 0 is all padding
+    and block row 2 has only its last slot live."""
+    cols, blocks, xs = _bsr_case(seed, seg_bcols, nv, n_brows=n_brows, ktot=ktot,
+                                 bm=bm, bn=bn)
+    rng = np.random.default_rng(seed + 1)
+    cols[...] = rng.integers(0, sum(seg_bcols), size=cols.shape)
+    blocks[...] = rng.standard_normal(blocks.shape)
+    pad = np.zeros(cols.shape, dtype=bool)
+    pad[..., [1, 3]] = True
+    pad[:, 0] = True
+    pad[:, 2, :-1] = True
+    cols[pad] = -1
+    blocks[pad] = 0.0
+    return cols, blocks, xs
+
+
+@pytest.mark.parametrize("nv", [1, 3, 8])
+@pytest.mark.parametrize("entry", ["packed_3seg", "concat", "padded"])
+def test_bsr_interior_padding_matches_pallas(entry, nv):
+    """Padding slots in the middle of a block row (the contract marks a
+    zero block by col -1 anywhere): each BSR wrapper's plain version
+    against its Pallas kernel in interpret mode."""
+    seg_bcols = (2, 2, 1) if entry == "packed_3seg" else (5,)
+    cols, blocks, xs = _interior_padding_case(7 * nv + len(entry), seg_bcols, nv)
+    assert (cols[..., 1] < 0).all() and (cols[..., -1] >= 0).any()
+    tc, tb = torch.from_numpy(cols), torch.from_numpy(blocks)
+    txs = [torch.from_numpy(x) for x in xs]
+    for r in range(N_RANKS):
+        if entry == "packed_3seg":
+            got = fused_bsr_spmm_packed(tc, tb, txs)[r]
+            want = ref_bsr_packed(cols[r], blocks[r], tuple(x[r] for x in xs),
+                                  interpret=True)
+        elif entry == "concat":
+            got = fused_bsr_spmm(tc, tb, txs[0])[r]
+            want = ref_bsr_concat(cols[r], blocks[r], xs[0][r], interpret=True)
+        else:
+            got = bsr_spmm_padded(tc[r].contiguous(), tb[r].contiguous(), txs[0][r])
+            want = ref_padded(jnp.asarray(cols[r]), jnp.asarray(blocks[r]),
+                              jnp.asarray(xs[0][r]), interpret=True)
+        _close(got, want)
+        assert np.abs(np.asarray(want)[2]).max() > 0  # the row with one live slot
+        np.testing.assert_array_equal(np.asarray(got)[0], 0.0)  # all padding
 
 
 # ---------------------------------------------------------------------------
