@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: the node-aware SpMV
-and the gemma2-2b serving path.
+"""Smoke run of the PyTorch/CUDA port on one GPU: the node-aware SpMV,
+the multi-step exchange and the AMG solver path, and the gemma2-2b
+serving path.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -38,7 +39,28 @@ Phases, each fatal on failure:
    against the same oracle, through the ELL kernel; padded vs effective
    exchange bytes and the paper's Blue Waters message model for both
    methods; then the standard fused-BSR forward at the BSR path's size;
-7. the decode-attention kernel against its plain version at gemma2-2b's
+7. the multi-step exchange on the main path's matrix and topology:
+   ``choose_comm``'s verdicts with every candidate's injected inter-node
+   bytes, then ``method="multistep"`` forward nv = 1 and 8 and the
+   transpose against the same oracle, through the ELL kernel (held
+   against its plain version at this plan's shapes), the direct
+   exchange's padded vs live bytes, its live-slot and literal padded
+   forms bit-equal and timed side by side, and ``threshold=1`` bit-equal
+   to the node-aware operator of phase 4 (transposes in PyTorch's
+   deterministic mode);
+8. the AMG solver path on the same matrix: the smoothed-aggregation
+   hierarchy (theta 0.1, coarse_size 2 x ranks), ``level_operators(...,
+   comm="auto")``, per level the rows, nnz, both directions' exchange
+   and local-format verdicts and the host seconds of chooser and
+   compile; every distributed level's ``A @ v``, ``A.T @ u``, ``P @ x``,
+   ``R @ r`` and lazy ``(R @ A @ P) @ x`` against float64 host products
+   (rtol 1e-4, atol 1e-5 of max |ref|), the ELL kernel against its plain
+   version on each level's arrays, each level's device programs timed;
+   then 10 iterations of AMG-preconditioned CG through the device
+   operators beside the same solver on float64 host matvecs, the true
+   residual of each iteration side by side, and the V-cycle's wall and
+   ELL launches;
+9. the decode-attention kernel against its plain version at gemma2-2b's
    decode_32k shapes: B = 8, S = 32768, Hkv = 4, g = 2, D = 256, softcap
    50, lengths ragged in [1, S] (1, 17, 4096, 4097, S and three drawn
    from the seed); the bf16 [B, S, Hkv, D] cache read in place with
@@ -51,7 +73,7 @@ Phases, each fatal on failure:
    time of the kernel's two launches, and the bound over the k/v rows
    inside the masks; then the kernel's other query-tile instantiations
    at small shapes, untimed;
-8. the serving path at full width: gemma2-2b, all 26 layers, bf16,
+10. the serving path at full width: gemma2-2b, all 26 layers, bf16,
    weights drawn from the seed on the card, through
    ``repro_torch.launch.serve.generate``: batch 4, a 512-token prompt
    teacher-forced through ``decode_step``, then 32 greedy tokens,
@@ -62,18 +84,19 @@ Phases, each fatal on failure:
    served bf16 cache (read in place, 544 of 1024 positions) of an even
    layer (window 4096) and an odd one (window 1024), with a query drawn
    from the seed, at the same tolerance and timed;
-9. the whole decode step checked on the card: the same config with 2
+11. the whole decode step checked on the card: the same config with 2
    layers in float32, 8 steps through the kernel, then the same steps
    with the plain version swapped into ``models.attention`` by this
    script, logits compared at atol 1e-3;
-10. a JSON line of every kernel (with ``device_ms`` and, for the BSR
-    kernels, ``library_bsr_ms``), then the result line.
+12. the whole script's seconds, a JSON line of every kernel (with
+    ``device_ms`` and, for the BSR kernels, ``library_bsr_ms``), then the
+    result line.
 
 Launch counts are reset right before each path is driven and read right
 after, and the peak of allocated device memory is reset and read around
 it.  Each phase frees its tensors before the next.  TF32 is switched off,
 so the plain versions' products are f32.  ``--n`` and ``--bsr-n`` shrink
-the grids of the SpMV phases and ``--lm-layers`` the depth of phase 8,
+the grids of the SpMV phases and ``--lm-layers`` the depth of phase 10,
 for a short first call after a kernel change.
 """
 import argparse
@@ -86,6 +109,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
@@ -94,7 +118,10 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.amg import (LevelOperators, amg_vcycle, cg_solve,  # noqa: E402
+                             level_operators, smoothed_aggregation_hierarchy)
 from repro_torch.api import operator  # noqa: E402
+from repro_torch.comm import choose_comm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cost_model import BLUE_WATERS  # noqa: E402
 from repro_torch.core.partition import contiguous_partition  # noqa: E402
@@ -121,6 +148,7 @@ F32_FLOPS = 67e12
 U32 = 2.0 ** -24            # f32 unit roundoff
 TOL = dict(rtol=1e-4, atol=1e-5)
 DEV = torch.device("cuda")
+T_START = time.perf_counter()
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -487,15 +515,18 @@ def drive(label, fn):
     return out, counts
 
 
-def time_programs(ex, calls):
+def time_programs(ex, calls, profile=True):
     """Device-program ms (median of 10, pack/unpack excluded) and one
-    profile of each ``(label, direction, operand, options)``."""
+    profile of each ``(label, direction, operand, options)``; ``ex`` is
+    one executor or a ``{direction: executor}`` map."""
     out = {}
     for lbl, direction, v, opts in calls:
-        shards = ex.packed(direction, v)
-        prog = ex.program(direction, **opts)
+        e = ex[direction] if isinstance(ex, dict) else ex
+        shards = e.packed(direction, v)
+        prog = e.program(direction, **opts)
         out[lbl] = time_ms(lambda: prog(shards), reps=10)
-        profile_program(lbl, lambda: prog(shards), out[lbl])
+        if profile:
+            profile_program(lbl, lambda: prog(shards), out[lbl])
         del shards
     print(f"  device program ms (median of 10, pack/unpack excluded): "
           + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
@@ -589,7 +620,14 @@ def phase_nap(op, a, oracles):
                        ("transpose nv=1", "transpose", u1, {})])
     print(f"  host: first forward pair (pack + program + unpack, nv=1 and "
           f"nv=8) {t_fwd:.2f} s")
-    return fwd, tr
+    # the NAP results phase 7 holds multistep with threshold=1 against:
+    # the forward at nv=1 and the transpose with index_add_ deterministic
+    torch.use_deterministic_algorithms(True)
+    try:
+        z1_det = op.T @ u1
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return fwd, tr, dict(w1=w1, z1=z1_det)
 
 
 def phase_bsr(op_b, a_b, oracles):
@@ -702,7 +740,310 @@ def phase_standard(a, a_b, topo, part, oracles, nap_summary, full_size):
           f"packed {ms_p:.4f}, materialized {ms_c:.4f}")
     return fwd1, fwd8, tr
 
-# gemma2-2b serving (phases 7-9) -------------------------------------------------
+# the multi-step exchange and the AMG solver path (phases 7-8) --------------------
+
+def ell_held(label, c, direction, gen):
+    """The ELL kernel against its plain version on one compiled plan's own
+    arrays and segment lengths (forward over the packed x, transpose over
+    u_loc), nv = 1: the shapes its path gives the kernel."""
+    p = c.topo.n_procs
+    if direction == "forward":
+        c.ensure_ell()
+        t = c.tensors(["ell_cols", "ell_vals"])
+        cols, vals = t["ell_cols"], t["ell_vals"]
+        lens = ((c.cols_pad, c.pads["bnode"], c.pads["boff"]) if hasattr(c, "pads")
+                else (c.cols_pad, c.buf_pad))
+    else:
+        c.ensure_ell_t()
+        t = c.tensors(["ell_t_cols", "ell_t_vals"])
+        cols, vals, lens = t["ell_t_cols"], t["ell_t_vals"], (c.rows_pad,)
+    xs = tuple(torch.randn((p, n, 1), generator=gen, device=DEV) for n in lens)
+    scale = float(ell_spmm_packed_ref(cols, vals.abs(), tuple(x.abs() for x in xs)).max())
+    check_close(f"{label} ell_spmm_packed {direction} {tuple(cols.shape)}",
+                ell_spmm_packed(cols, vals, xs), ell_spmm_packed_ref(cols, vals, xs),
+                cols.shape[-1], scale)
+
+
+def print_verdict(label, verdict, seconds):
+    for d in ("forward", "transpose"):
+        v = verdict[d]
+        print(f"  {label} {d}: {v['chosen']} (injected inter-node bytes "
+              + ", ".join(f"{k} {c['injected_inter_bytes']}"
+                          for k, c in v["candidates"].items())
+              + "; postal s " + ", ".join(f"{k} {c['postal_time_s']:.6e}"
+                                          for k, c in v["candidates"].items())
+              + f"; {v['postal_params']}); {seconds:.2f} s")
+
+
+def phase_multistep(a, topo, part, oracles, nap_ref, gen, full_size):
+    """[7] the multi-step exchange on the main path's matrix.  ``nap_ref``
+    holds phase 4's NAP results (forward nv=1, deterministic transpose)
+    and the NAP operator's ``local_compute``."""
+    print(f"[7] multistep: n={int(np.sqrt(a.shape[0]))}, Topology(32, 16)")
+    t0 = time.perf_counter()
+    verdict = choose_comm(a.indptr, a.indices, part, topo)
+    print_verdict("choose_comm", verdict, time.perf_counter() - t0)
+    del verdict
+    op = operator(a, topo, part, method="multistep", device=DEV)
+    t0 = time.perf_counter()
+    c = op.executor.compiled
+    t_compile = time.perf_counter() - t0
+    formats = (op.local_compute, op.T.local_compute)
+    if formats != ("ell", "ell"):
+        if full_size:
+            raise AssertionError(f"multistep plan did not resolve to ell: {formats}")
+        print(f"  verdict {formats} at this reduced size; the phase runs ell")
+        op = operator(a, topo, part, method="multistep", local_compute="ell", device=DEV)
+        c = op.executor.compiled
+    t0 = time.perf_counter()
+    c.ensure_ell()
+    c.ensure_ell_t()
+    c.ensure_live_direct()
+    t_ell = time.perf_counter() - t0
+    st = op.stats()
+    p, dpad = topo.n_procs, c.pads["direct"]
+    n_live = c.arrays["direct_live_src"].size
+    print(f"[plan] compile_multistep {t_compile:.2f} s, ensure_ell + ensure_ell_t + "
+          f"live direct slots {t_ell:.2f} s; threshold {c.ms_plan.threshold}; pads "
+          f"{c.pads}; ell_kmax {c.ell_kmax}, ell_t_kmax {c.ell_t_kmax}")
+    print(f"  direct exchange per forward (f32, nv=1): padded {st['direct_padded']} B "
+          f"([{p}, {p}, {dpad}] slots) vs live {st['direct_effective']} B ({n_live} "
+          f"values in {st['messages_direct'].total_msgs} messages, "
+          f"{st['direct_padded'] / max(st['direct_effective'], 1):.0f}x); inter "
+          f"padded {st['inter_padded']} vs effective {st['inter_effective']}; host "
+          f"direct_send {c.arrays['direct_send'].nbytes / 1e9:.2f} GB (never staged)")
+    v1, v8, u1 = oracles["v1"], oracles["v8"], oracles["u1"]
+    (w1, w8), fwd = drive("forward nv=1 and nv=8", lambda: (op @ v1, op @ v8))
+    (z1,), tr = drive("transpose nv=1", lambda: (op.T @ u1,))
+    check_oracle("forward nv=1", w1, oracles["w1"])
+    check_oracle("forward nv=8", w8, oracles["w8"])
+    check_oracle("transpose nv=1", z1, oracles["z1"])
+    if fwd.get("ell_spmm_packed", 0) < 2 or tr.get("ell_spmm_packed", 0) < 1:
+        raise AssertionError(f"the multistep path did not launch the ELL kernel: {fwd}, {tr}")
+    del w8, z1
+    ell_held("multistep", c, "forward", gen)
+    ell_held("multistep", c, "transpose", gen)
+    # the literal padded exchange, run once and timed beside the live one
+    ex = op.executor
+    shards = ex.packed("forward", v1)
+    w_lit, lit = drive("forward nv=1, literal padded direct exchange",
+                       lambda: ex.program("forward", live_direct=False)(shards))
+    if not torch.equal(w_lit, ex.program("forward")(shards)):
+        raise AssertionError("live and literal direct exchanges differ")
+    print("  live-slot and literal direct exchanges bit-equal (forward nv=1)")
+    del w_lit, shards
+    time_programs(ex, [("forward nv=1", "forward", v1, {}),
+                       ("forward nv=8", "forward", v8, {}),
+                       ("transpose nv=1", "transpose", u1, {}),
+                       ("forward nv=1 literal direct", "forward", v1,
+                        {"live_direct": False})])
+    print(f"  Blue Waters model (not a card time): multistep total "
+          f"{op.cost(BLUE_WATERS)['total']:.6e} s")
+    del op, ex, c
+    free()
+    # threshold=1 sends nothing direct: the NAP plan, bit for bit on the card
+    # (the transposes' index_add_ in its deterministic form)
+    op1 = operator(a, topo, part, method="multistep", threshold=1,
+                   local_compute=nap_ref["local_compute"], device=DEV)
+    if op1.executor.compiled.pads["direct"] != 1 or op1.stats()["direct_effective"]:
+        raise AssertionError("threshold=1 left a direct share")
+    w_ms = op1 @ v1
+    torch.use_deterministic_algorithms(True)
+    try:
+        z_ms = op1.T @ u1
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not (np.array_equal(w_ms, nap_ref["w1"]) and np.array_equal(z_ms, nap_ref["z1"])):
+        raise AssertionError("multistep with threshold=1 differs from nap")
+    print("  threshold=1: forward and transpose bit-equal to nap on the card")
+    del op1
+    free()
+    return fwd, tr
+
+
+class HostOp:
+    """A float64 scipy CSR matrix with the operators' call and ``@``: the
+    host-matvec twin of a level's distributed operators."""
+
+    def __init__(self, m):
+        self.m = m
+
+    def __call__(self, x):
+        return self.m @ x
+
+    __matmul__ = __call__
+
+
+def scipy_of(m):
+    return sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+
+
+def check_level(label, got, want):
+    """``check_oracle``'s tolerance on a coarse level, whose entries grow
+    with the Galerkin products: rtol 1e-4 and atol 1e-5 of max |ref|."""
+    scale = float(np.abs(want).max())
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{label}: bad result {got.shape}")
+    np.testing.assert_allclose(got / scale, want / scale, **TOL)
+    return float(np.abs(got - want).max()) / scale
+
+
+def phase_amg(a, topo, gen, seed, full_size):
+    """[8] the AMG solver path on the main path's matrix."""
+    import repro_torch.api as api_mod
+    rng = np.random.default_rng(seed + 8)
+    print(f"[8] AMG: n={int(np.sqrt(a.shape[0]))}, smoothed aggregation theta 0.1, "
+          f"coarse_size {2 * topo.n_procs}, Topology(32, 16), comm='auto'")
+    t0 = time.perf_counter()
+    levels = smoothed_aggregation_hierarchy(a, theta=0.1, coarse_size=2 * topo.n_procs)
+    t_h = time.perf_counter() - t0
+    print(f"  hierarchy {t_h:.2f} s (host, float64): {len(levels)} levels, rows "
+          f"{[lv.a.shape[0] for lv in levels]}, nnz {[lv.a.nnz for lv in levels]}, "
+          f"P nnz {[lv.p.nnz for lv in levels if lv.p is not None]}")
+    chooser = []
+    choose = api_mod.choose_comm
+
+    def timed_choose(*args, **kw):
+        t = time.perf_counter()
+        out = choose(*args, **kw)
+        chooser.append(time.perf_counter() - t)
+        return out
+
+    api_mod.choose_comm = timed_choose
+    t0 = time.perf_counter()
+    try:
+        ops = level_operators(levels, topo, comm="auto", device=DEV)
+    finally:
+        api_mod.choose_comm = choose
+    t_ops = time.perf_counter() - t0
+    print(f"  level_operators {t_ops:.2f} s (chooser {sum(chooser):.2f} s)")
+    n_dist = sum(e.a is not None for e in ops)
+    k = 0
+    for i, (lv, e) in enumerate(zip(levels, ops)):
+        if e.a is None:
+            print(f"  level {i}: {lv.a.shape[0]} rows, {lv.a.nnz} nnz: host (fewer "
+                  f"rows than ranks)")
+            continue
+        for name in ("a", "p"):
+            op = getattr(e, name)
+            if op is None:
+                continue
+            t0 = time.perf_counter()
+            execs = [op.executor] + ([op.transpose_executor]
+                                     if op.transpose_executor is not None else [])
+            for ex in execs:
+                c = ex.compiled
+                if getattr(c, "comm", "nap") == "multistep":
+                    c.ensure_live_direct()
+            if op.local_compute == "ell":
+                op.executor.compiled.ensure_ell()
+            if op.T.local_compute == "ell":
+                (op.transpose_executor or op.executor).compiled.ensure_ell_t()
+            rep = op.autotune_report()["comm"]
+            mat = lv.a if name == "a" else lv.p
+            print(f"  level {i} {name.upper()} {mat.shape} nnz {mat.nnz}: comm forward "
+                  f"{rep['resolved']}, transpose {rep['transpose_resolved']}; local "
+                  f"{op.local_compute} / {op.T.local_compute}; chooser "
+                  f"{chooser[k]:.2f} s, compile {time.perf_counter() - t0:.2f} s")
+            k += 1
+    def held_and_timed(label, op, x, y, profile):
+        """The ELL kernel against its plain version where a direction of
+        ``op`` resolved to it, then both directions' programs timed."""
+        execs = {"forward": op.executor,
+                 "transpose": op.transpose_executor or op.executor}
+        for direction, view in (("forward", op), ("transpose", op.T)):
+            if view.local_compute == "ell":
+                ell_held(label, execs[direction].compiled, direction, gen)
+        time_programs(execs, [(f"{label} forward", "forward", x, {}),
+                              (f"{label}.T", "transpose", y, {})], profile=profile)
+
+    errs = []
+    for i, (lv, e) in enumerate(zip(levels, ops)):
+        if e.a is None:
+            continue
+        sa = scipy_of(lv.a)
+        v, u = rng.standard_normal(sa.shape[1]), rng.standard_normal(sa.shape[0])
+        errs.append(check_level(f"level {i} A @ v", e.a @ v, sa @ v))
+        errs.append(check_level(f"level {i} A.T @ u", e.a.T @ u, sa.T @ u))
+        held_and_timed(f"level {i} A", e.a, v, u, i == 0)
+        if e.p is None:
+            continue
+        sp_, sr = scipy_of(lv.p), scipy_of(lv.r)
+        x, r = rng.standard_normal(sp_.shape[1]), rng.standard_normal(sp_.shape[0])
+        errs.append(check_level(f"level {i} P @ x", e.p @ x, sp_ @ x))
+        errs.append(check_level(f"level {i} R @ r", e.r @ r, sr @ r))
+        errs.append(check_level(f"level {i} (R @ A @ P) @ x", e.galerkin() @ x,
+                                sr @ (sa @ (sp_ @ x))))
+        held_and_timed(f"level {i} P", e.p, x, r, i == 0)
+    print(f"  every distributed level ({n_dist}) matches its float64 host products: "
+          f"max abs err / max |ref| {max(errs):.3e}")
+
+    # AMG-preconditioned CG, 10 iterations, on the card and with host matvecs
+    a0 = scipy_of(levels[0].a)
+    host_ops = [LevelOperators(a=HostOp(scipy_of(lv.a)),
+                               p=None if lv.p is None else HostOp(scipy_of(lv.p)),
+                               r=None if lv.r is None else HostOp(scipy_of(lv.r)))
+                for lv in levels]
+    b = rng.standard_normal(a0.shape[0])
+    b_norm = float(np.linalg.norm(b))
+
+    def pcg(level_ops):
+        hist = []
+        cg_solve(levels[0].a, b, tol=0.0, maxiter=10, spmv=level_ops[0].a,
+                 precond=lambda r: amg_vcycle(levels, r, operators=level_ops),
+                 callback=lambda it, x: hist.append(
+                     float(np.linalg.norm(b - a0 @ x)) / b_norm))
+        return hist
+
+    t0 = time.perf_counter()
+    res_dev, counts = drive("PCG, 10 iterations, device operators", lambda: pcg(ops))
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_host = pcg(host_ops)
+    t_host = time.perf_counter() - t0
+    print("  PCG true relative residual ||b - A x|| / ||b|| (float64 host A), device "
+          "operators vs host float64 matvecs:")
+    for it, (rd, rh) in enumerate(zip(res_dev, res_host), 1):
+        print(f"    iteration {it}: {rd:.6e}  {rh:.6e}  (ratio {rd / rh:.6f})")
+    # Both runs take the same steps.  CG's step length divides by p . A p,
+    # which for the smooth p the V-cycle returns is a small fraction of
+    # |p| |A p| (0.6% at n = 2024), so the f32 rounding of the device's
+    # A p (~4e-5 of |A p|) moves it by ~0.5% and the residuals by up to
+    # ~2% (the z . A z comparison below).  The limit is 5%, 2.5x that.
+    if len(res_dev) != 10 or not all(
+            abs(rd / rh - 1.0) <= 0.05 or max(rd, rh) <= 1e-5
+            for rd, rh in zip(res_dev, res_host)):
+        raise AssertionError("device PCG does not track the host-matvec PCG")
+    if full_size and not res_dev[-1] < 0.5 * res_dev[0]:
+        raise AssertionError("device PCG did not reduce the residual")
+    r0 = b - a0 @ np.zeros_like(b)
+    t0 = time.perf_counter()
+    z_dev, vc = drive("one V-cycle, device operators",
+                      lambda: amg_vcycle(levels, r0, operators=ops))
+    t_vc = time.perf_counter() - t0
+    profile_program("one V-cycle, device operators",
+                    lambda: amg_vcycle(levels, r0, operators=ops), t_vc * 1e3)
+    t0 = time.perf_counter()
+    z_host = amg_vcycle(levels, r0, operators=host_ops)
+    t_vc_host = time.perf_counter() - t0
+    az, az_dev = a0 @ z_host, ops[0].a @ z_host
+    print(f"  V-cycle wall {t_vc:.3f} s with device operators ({vc.get('ell_spmm_packed', 0)}"
+          f" ELL launches), {t_vc_host:.3f} s with host float64 matvecs; PCG "
+          f"{t_dev:.2f} s device, {t_host:.2f} s host; one V-cycle's output, device "
+          f"vs host: ||dz|| / ||z|| {np.linalg.norm(z_dev - z_host) / np.linalg.norm(z_host):.3e}"
+          f", ||A dz|| / ||A z|| {np.linalg.norm(a0 @ (z_dev - z_host)) / np.linalg.norm(a0 @ z_host):.3e}"
+          f"; device A z vs float64 A z on that z: ||d(Az)|| / ||A z|| "
+          f"{np.linalg.norm(az_dev - az) / np.linalg.norm(az):.3e}, z . A z / (||z|| "
+          f"||A z||) {z_host @ az / (np.linalg.norm(z_host) * np.linalg.norm(az)):.3e}, "
+          f"z . d(Az) / z . A z {z_host @ (az_dev - az) / (z_host @ az):.3e}")
+    if counts.get("ell_spmm_packed", 0) < 1:
+        raise AssertionError("the AMG path did not launch the ELL kernel")
+    del ops, host_ops, levels
+    free()
+    return counts
+
+
+# gemma2-2b serving (phases 9-11) -------------------------------------------------
 ATTN_REPLACES = "src/repro/kernels/decode_attn/kernel.py:71"
 ATTN_SOURCE = "src/repro_torch/csrc/decode_attn.cu"
 
@@ -794,11 +1135,11 @@ def attn_case(label, q, k, v, lengths, window, softcap, scale, timed=True):
 
 
 def phase_decode_attn(rng, gen):
-    """[7] the decode-attention kernel at gemma2-2b's decode_32k shapes."""
+    """[9] the decode-attention kernel at gemma2-2b's decode_32k shapes."""
     cfg = get_config("gemma2-2b")
     b, s, hkv, d = 8, 32768, cfg.n_kv_heads, cfg.head_dim
     g = cfg.n_heads // hkv
-    print(f"[7] decode attention: B {b}, S {s}, Hkv {hkv}, g {g}, D {d}, softcap "
+    print(f"[9] decode attention: B {b}, S {s}, Hkv {hkv}, g {g}, D {d}, softcap "
           f"{cfg.attn_softcap}")
     lengths = np.concatenate([[1, 17, 4096, 4097], rng.integers(1, s + 1, 3), [s]])
     lengths = torch.from_numpy(lengths.astype(np.int32)).to(DEV)
@@ -836,10 +1177,10 @@ def phase_decode_attn(rng, gen):
 
 
 def phase_serve(n_layers, seed):
-    """[8] gemma2-2b serving at full width through serve.generate."""
+    """[10] gemma2-2b serving at full width through serve.generate."""
     cfg = get_config("gemma2-2b").replace(n_layers=n_layers)
     batch, prompt_len, gen_len, max_seq = 4, 512, 32, 1024
-    print(f"[8] serve: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+    print(f"[10] serve: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, vocab "
           f"{cfg.vocab}, {cfg.dtype}; batch {batch}, prompt {prompt_len}, gen "
           f"{gen_len}, max_seq {max_seq}")
     t0 = time.perf_counter()
@@ -895,7 +1236,7 @@ def phase_serve(n_layers, seed):
 
 
 def phase_step_check(seed):
-    """[9] the decode step through the kernel vs through the plain version."""
+    """[11] the decode step through the kernel vs through the plain version."""
     cfg = get_config("gemma2-2b").replace(n_layers=2, dtype="float32")
     batch, n_steps = 4, 8
     model = build_model(cfg).init(seed)
@@ -926,7 +1267,7 @@ def phase_step_check(seed):
     # through two layers and the head that stays below 1e-4 on logits
     # bounded by the final softcap of 30, so 1e-3 leaves a wide margin.
     tol = 1e-3
-    print(f"[9] decode step, {cfg.name} 2 layers float32, {n_steps} steps: kernel "
+    print(f"[11] decode step, {cfg.name} 2 layers float32, {n_steps} steps: kernel "
           f"({n_launch} launches) vs plain ({plain_launches}) logits max_abs_err "
           f"{err:.3e} (tolerance {tol:.0e}), max |logit| {float(want.abs().max()):.2f}")
     if n_launch != 2 * n_steps or plain_launches != 0 or not err <= tol \
@@ -946,6 +1287,8 @@ def main():
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's register and shared-memory report")
     args = ap.parse_args()
+    global T_START
+    T_START = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(args.seed)
@@ -1016,10 +1359,11 @@ def main():
                    wb=host_apply(a_b, oracles["vb"]))
     print(f"[plan] float64 host oracles {time.perf_counter() - t0:.2f} s")
 
-    # 3-6. the phases ---------------------------------------------------------
+    # 3-8. the phases ---------------------------------------------------------
     entries = phase_kernels(c, cb, a, a_b, oracles, gen)
     by_name = {e["name"]: e for e in entries}
-    fwd, tr = phase_nap(op, a, oracles)
+    fwd, tr, nap_ref = phase_nap(op, a, oracles)
+    nap_ref["local_compute"] = op.spec.local_compute
     nap_padded, nap_effective = traffic_bytes(op.stats())
     nap_summary = dict(padded=nap_padded, effective=nap_effective,
                        cost=op.cost(BLUE_WATERS))
@@ -1031,8 +1375,15 @@ def main():
     s_fwd1, s_fwd8, s_tr = phase_standard(a, a_b, topo, part, oracles,
                                           nap_summary, args.n == 2024)
     free()
+    m_fwd, m_tr = phase_multistep(a, topo, part, oracles, nap_ref, gen,
+                                  args.n == 2024)
+    del oracles, nap_ref
+    free()
+    amg = phase_amg(a, topo, gen, args.seed, args.n == 2024)
+    del a
+    free()
 
-    # 7-9. gemma2-2b serving ----------------------------------------------------
+    # 9-11. gemma2-2b serving ---------------------------------------------------
     entries.append(phase_decode_attn(rng, gen))
     by_name["decode_attention_grouped"] = entries[-1]
     by_name["decode_attention_grouped"]["launches"] = phase_serve(args.lm_layers,
@@ -1040,16 +1391,18 @@ def main():
     phase_step_check(args.seed)
 
     # launches of each kernel over the paths that run it (each path's
-    # counts were reset just before it)
+    # counts were reset just before it); the AMG solve's launches, forward
+    # and transpose together, count with the forward entry
     by_name["ell_spmm_packed"]["launches"] = sum(
-        d.get("ell_spmm_packed", 0) for d in (fwd, s_fwd1, s_fwd8))
+        d.get("ell_spmm_packed", 0) for d in (fwd, s_fwd1, s_fwd8, m_fwd, amg))
     by_name["ell_spmm_packed:transpose"]["launches"] = sum(
-        d.get("ell_spmm_packed", 0) for d in (tr, s_tr))
+        d.get("ell_spmm_packed", 0) for d in (tr, s_tr, m_tr))
     by_name["fused_bsr_spmm_packed"]["launches"] = cnt_p.get("fused_bsr_spmm_packed", 0)
     by_name["fused_bsr_spmm"]["launches"] = cnt_c.get("fused_bsr_spmm", 0)
     for e in entries:
         if e["launches"] < 1:
             raise AssertionError(f"{e['name']} was not launched on its path")
+    print(f"[12] whole script {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -9,7 +9,22 @@
     op.cost(BLUE_WATERS)   # the paper's message model (Eqs. 10-12)
 
 ``method="nap"`` is the node-aware exchange (Algorithm 3),
-``method="standard"`` the paper's baseline (Algorithm 1).
+``method="standard"`` the paper's baseline (Algorithm 1) and
+``method="multistep"`` the duplication-split node-aware exchange
+(:mod:`repro_torch.comm`).  ``comm=`` pins one of them, or ``"auto"``
+lets the chooser pick one per direction.
+
+**Rectangular operators.**  An operator is an ``[m, n]`` map over two
+partitions: ``row_part`` lays out the m output rows, ``col_part`` the n
+input entries; ``op.T`` swaps the two through the same compiled plan.
+``part=`` is the square-case sugar that sets both::
+
+    p_op = nap.operator(p, topo, row_part=fine, col_part=coarse)
+    r = p_op.T @ residual      # node-aware AMG restriction
+
+**Composition.**  ``@`` between operators is lazy: ``R @ A @ P`` is a
+:class:`ComposedOperator` that applies the factors right to left, with
+shapes and interface partitions checked when it is composed.
 
 The program runs on the GPU; ``device="cpu"`` is the only way off it.
 Operands are global numpy arrays (or CPU tensors); results are numpy
@@ -18,72 +33,150 @@ float32.  The plan compiles at the first apply.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.comm import COMM_CHOICES, choose_comm
+from repro_torch.core.comm_graph import check_pairing
 from repro_torch.core.cost_model import MachineParams
 from repro_torch.core.executors import (OperatorSpec, available_executors,
                                         bind_executor, register_executor)
+from repro_torch.core.integrity import IntegrityError
 from repro_torch.core.partition import RowPartition, contiguous_partition
 from repro_torch.core.topology import Topology
 from repro_torch.device import DeviceLike
 
-__all__ = ["operator", "NapOperator", "available_executors",
-           "register_executor"]
+__all__ = ["operator", "NapOperator", "ComposedOperator", "IntegrityError",
+           "available_executors", "register_executor"]
 
 
 def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
+             row_part: Optional[RowPartition] = None,
+             col_part: Optional[RowPartition] = None,
              method: str = "nap", backend: str = "torch",
-             local_compute: str = "auto",
+             comm: Optional[str] = None, threshold: object = "auto",
+             local_compute: str = "auto", pairing: str = "aligned",
              device: DeviceLike = None) -> "NapOperator":
-    """Build a :class:`NapOperator` for the square matrix ``a``.
+    """Build a :class:`NapOperator` for the ``[m, n]`` matrix ``a``.
 
-    ``topo`` is the (n_nodes, ppn) rank grid; ``part`` the row partition,
-    contiguous by default.  ``method`` is ``"nap"`` or ``"standard"``.
-    ``local_compute`` is ``"auto"`` (the format
-    autotuner's verdict, per direction), ``"ell"``, ``"bsr"`` or ``"coo"``;
-    the transpose has no BSR kernel and resolves ``"bsr"`` to the ell/coo
-    verdict.  ``device`` defaults to CUDA and raises when it is absent.
+    ``topo`` is the (n_nodes, ppn) rank grid.  ``row_part`` lays out the
+    m output rows (contiguous by default); ``col_part`` the n input
+    entries (``row_part`` when the matrix is square, else contiguous).
+    Ranks may own no entry.  ``part`` sets both and needs ``m == n``.
+    ``method`` is ``"nap"``, ``"standard"`` or ``"multistep"``;
+    ``threshold`` is the multistep duplication threshold (``"auto"`` or
+    an int >= 1: columns that fewer processes of a node need go direct).
+    ``comm`` pins the exchange over ``method``, or with ``"auto"`` picks
+    it per direction (:func:`repro_torch.comm.choose_comm`); when the
+    two directions disagree the operator holds a second executor for
+    the transpose, and the verdict rides in ``autotune_report()``.
+    ``local_compute`` is ``"auto"`` (the format autotuner's verdict, per
+    direction), ``"ell"``, ``"bsr"`` or ``"coo"``; the transpose has no
+    BSR kernel and resolves ``"bsr"`` to the ell/coo verdict.  Only
+    ``pairing="aligned"`` is built.  ``device`` defaults to CUDA and
+    raises when it is absent.
     """
     m, n = a.shape
-    if m != n:
-        raise ValueError(f"the operator is square-only for now; a is {a.shape}")
     if topo is None:
         raise ValueError("pass the rank grid topo= explicitly")
-    if part is None:
-        part = contiguous_partition(m, topo.n_procs)
-    if part.n_rows != m:
-        raise ValueError(f"partition has {part.n_rows} rows, a has {m}")
+    if part is not None:
+        if row_part is not None or col_part is not None:
+            raise ValueError("pass either part= (square sugar) or "
+                             "row_part=/col_part=, not both")
+        if m != n:
+            raise ValueError(
+                f"part= is the square-case sugar (sets row AND col "
+                f"partition); a is {a.shape} — pass row_part=/col_part=")
+        row_part = col_part = part
+    if row_part is None:
+        row_part = contiguous_partition(m, topo.n_procs)
+    if col_part is None:
+        col_part = (row_part if n == row_part.n_rows
+                    else contiguous_partition(n, topo.n_procs))
+    if row_part.n_rows != m or col_part.n_rows != n:
+        raise ValueError(
+            f"partition/matrix mismatch: a is {a.shape}, row_part has "
+            f"{row_part.n_rows} rows, col_part {col_part.n_rows}")
+    check_pairing(pairing)
+    comm_report, t_method, plans = None, None, {}
+    if comm is not None:
+        if comm not in COMM_CHOICES:
+            raise ValueError(f"comm must be one of {COMM_CHOICES}, got {comm!r}")
+        if comm == "auto":
+            verdict = choose_comm(a.indptr, a.indices, row_part, topo,
+                                  pairing=pairing, col_part=col_part,
+                                  threshold=threshold)
+            plans = verdict["plans"]
+            method = verdict["forward"]["chosen"]
+            t_method = verdict["transpose"]["chosen"]
+            comm_report = {
+                "requested": "auto", "resolved": method,
+                "transpose_resolved": t_method,
+                "threshold": verdict["threshold"],
+                "forward": verdict["forward"],
+                "transpose": verdict["transpose"],
+            }
+        else:
+            method = t_method = comm
+            comm_report = {"requested": comm, "resolved": comm,
+                           "transpose_resolved": comm}
     spec = OperatorSpec(method=method, backend=backend,
                         local_compute=local_compute,
-                        device=None if device is None else str(device))
-    exec_ = bind_executor(backend, method, a, part, part, topo, spec)
-    return NapOperator(a=a, part=part, topo=topo, spec=spec, executor=exec_)
+                        device=None if device is None else str(device),
+                        threshold=threshold)
+    exec_ = bind_executor(backend, method, a, row_part, col_part, topo, spec,
+                          plan=plans.get(method))
+    t_exec = None
+    if t_method is not None and t_method != method:
+        # the directions disagree: the transpose runs on its own plan
+        t_exec = bind_executor(backend, t_method, a, row_part, col_part, topo,
+                               dataclasses.replace(spec, method=t_method),
+                               plan=plans.get(t_method))
+    return NapOperator(a=a, row_part=row_part, col_part=col_part, topo=topo,
+                       spec=spec, executor=exec_, transpose_executor=t_exec,
+                       comm_report=comm_report)
+
+
+def _is_operator(x) -> bool:
+    return isinstance(x, (NapOperator, ComposedOperator))
 
 
 @dataclasses.dataclass
 class NapOperator:
     """Distributed SpMV as a linear operator: ``op @ x`` applies ``A``,
-    ``op.T @ x`` applies ``A.T`` through the SAME compiled plan."""
+    ``op.T @ x`` applies ``A.T`` through the SAME compiled plan (or the
+    transpose executor ``comm="auto"`` chose); ``op @ other_op`` composes
+    lazily into a :class:`ComposedOperator`."""
 
     a: object
-    part: RowPartition
+    row_part: RowPartition
+    col_part: RowPartition
     topo: Topology
     spec: OperatorSpec
     executor: object
+    # set when comm="auto" resolves the two directions to different
+    # strategies: the transpose runs through its own executor
+    transpose_executor: Optional[object] = None
+    comm_report: Optional[dict] = None
     transposed: bool = False
     _parent: Optional["NapOperator"] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def _transpose_executor(self):
+        return self.transpose_executor or self.executor
 
     def __call__(self, x, materialize_x: bool = False) -> np.ndarray:
         """Apply the operator.  ``materialize_x=True`` concatenates the
         packed x before the forward local compute instead of passing its
         three segments (an A/B switch, bit-equal on the BSR path)."""
         if self.transposed:
-            return self.executor.transpose(x)
+            return self._transpose_executor.transpose(x)
         return self.executor.forward(x, materialize_x)
 
-    def __matmul__(self, x) -> np.ndarray:
+    def __matmul__(self, x):
+        if _is_operator(x):
+            return ComposedOperator.of(self, x)
         return self(x)
 
     def matvec(self, x) -> np.ndarray:
@@ -91,11 +184,29 @@ class NapOperator:
 
     @property
     def shape(self) -> Tuple[int, int]:
-        return tuple(self.a.shape)
+        m, n = self.a.shape
+        return (n, m) if self.transposed else (m, n)
+
+    @property
+    def range_part(self) -> RowPartition:
+        """Partition of THIS view's output (``shape[0]`` entries)."""
+        return self.col_part if self.transposed else self.row_part
+
+    @property
+    def domain_part(self) -> RowPartition:
+        """Partition of THIS view's operand (``shape[1]`` entries)."""
+        return self.row_part if self.transposed else self.col_part
+
+    @property
+    def method(self) -> str:
+        """The exchange of THIS direction."""
+        if self.transposed:
+            return self._transpose_executor.method
+        return self.executor.method
 
     @property
     def T(self) -> "NapOperator":
-        """Transpose view sharing the executor (``op.T.T is op``)."""
+        """Transpose view sharing the executors (``op.T.T is op``)."""
         if self._parent is not None:
             return self._parent
         return dataclasses.replace(self, transposed=not self.transposed,
@@ -105,27 +216,121 @@ class NapOperator:
     def local_compute(self) -> str:
         """Resolved local-compute format of THIS direction."""
         if self.transposed:
-            return self.executor.transpose_local_compute
+            return self._transpose_executor.transpose_local_compute
         return self.executor.local_compute
 
     def stats(self):
-        """Plan message statistics and padded traffic."""
-        return self.executor.stats()
+        """Message statistics and padded traffic of THIS direction's plan."""
+        return (self._transpose_executor if self.transposed
+                else self.executor).stats()
 
     def cost(self, machine: MachineParams):
-        """Modeled communication time of the plan on ``machine`` (paper
-        Eqs. 10-12): a model of that machine, not a time on the GPU."""
-        return self.executor.cost(machine)
+        """Modeled communication time of THIS direction's plan on
+        ``machine`` (paper Eqs. 10-12): a model of that machine, not a
+        time on the GPU."""
+        return (self._transpose_executor if self.transposed
+                else self.executor).cost(machine)
 
     def autotune_report(self):
         """Format verdict (forward at the top, transpose under
         ``"transpose"``), its stats and modeled times, and the resolved
-        formats of both directions."""
-        return self.executor.autotune_report()
+        formats of both directions; with ``comm=``, the exchange verdict
+        under ``"comm"`` / ``"comm_resolved"`` /
+        ``"comm_transpose_resolved"``."""
+        rep = self.executor.autotune_report()
+        if self.comm_report is None:
+            return rep
+        rep = dict(rep)
+        rep["comm"] = self.comm_report
+        rep["comm_resolved"] = self.comm_report["resolved"]
+        rep["comm_transpose_resolved"] = self.comm_report["transpose_resolved"]
+        return rep
 
     def __repr__(self) -> str:
         t = ".T" if self.transposed else ""
         m, n = self.shape
-        return (f"NapOperator{t}(shape=({m}, {n}), method={self.spec.method!r}, "
+        return (f"NapOperator{t}(shape=({m}, {n}), method={self.method!r}, "
                 f"backend={self.spec.backend!r}, "
                 f"topo=({self.topo.n_nodes}x{self.topo.ppn}))")
+
+
+@dataclasses.dataclass(frozen=True)
+class ComposedOperator:
+    """Lazy right-to-left chain: ``(R @ A @ P) @ x`` runs ``P @ x``, then
+    ``A``, then ``R``, three node-aware SpMVs; the product is never
+    formed.
+
+    Composing checks that adjacent shapes chain (``left.shape[1] ==
+    right.shape[0]``) and that the interface partitions match
+    (``left.domain_part`` lays out the entries ``right.range_part``
+    produces), so values flow stage to stage with no hidden
+    repartition.  ``stats`` / ``cost`` / ``autotune_report`` report per
+    stage, ``cost()["total"]`` summing the chain.
+    """
+
+    factors: Tuple  # application order: factors[0] @ (... @ (factors[-1] @ x))
+
+    @staticmethod
+    def of(left, right) -> "ComposedOperator":
+        """Compose two operators (either may already be composed)."""
+        lf = left.factors if isinstance(left, ComposedOperator) else (left,)
+        rf = right.factors if isinstance(right, ComposedOperator) else (right,)
+        factors = tuple(lf) + tuple(rf)
+        for lo, ro in zip(factors[:-1], factors[1:]):
+            if lo.shape[1] != ro.shape[0]:
+                raise ValueError(
+                    f"operator shapes do not chain: {lo.shape} @ {ro.shape}")
+            lp, rp = lo.domain_part, ro.range_part
+            if lp.n_procs != rp.n_procs or not np.array_equal(lp.owner, rp.owner):
+                raise ValueError(
+                    "incompatible partitions at a composition interface: "
+                    f"{lo!r} consumes a different layout than {ro!r} "
+                    "produces — rebuild one side so the interface "
+                    "partitions match (no hidden repartition)")
+        return ComposedOperator(factors=factors)
+
+    def __call__(self, x) -> np.ndarray:
+        for f in reversed(self.factors):
+            x = f(x)
+        return x
+
+    def __matmul__(self, x):
+        if _is_operator(x):
+            return ComposedOperator.of(self, x)
+        return self(x)
+
+    def matvec(self, x) -> np.ndarray:
+        return self(x)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.factors[0].shape[0], self.factors[-1].shape[1])
+
+    @property
+    def range_part(self) -> RowPartition:
+        return self.factors[0].range_part
+
+    @property
+    def domain_part(self) -> RowPartition:
+        return self.factors[-1].domain_part
+
+    @property
+    def T(self) -> "ComposedOperator":
+        """(ABC).T = C.T B.T A.T, each stage's node-aware transpose."""
+        return ComposedOperator(factors=tuple(f.T for f in reversed(self.factors)))
+
+    def stats(self) -> List[object]:
+        """Per-stage plan statistics, left to right."""
+        return [f.stats() for f in self.factors]
+
+    def cost(self, machine: MachineParams):
+        """Per-stage modeled comm times and their sum (the stages depend
+        on each other, so the chain is sequential)."""
+        stages = [f.cost(machine) for f in self.factors]
+        return {"stages": stages, "total": float(sum(s["total"] for s in stages))}
+
+    def autotune_report(self) -> List[object]:
+        return [f.autotune_report() for f in self.factors]
+
+    def __repr__(self) -> str:
+        return f"ComposedOperator({' @ '.join(repr(f) for f in self.factors)})"

@@ -1,0 +1,19 @@
+"""Exchange strategies of the distributed SpMV: the multi-step plan, its
+traffic model, the strategy registry and the per-direction chooser."""
+from repro_torch.comm.autotune import (PREFERENCE, build_candidate_plans,
+                                       choose_comm, comm_verdict)
+from repro_torch.comm.cost import planned_traffic
+from repro_torch.comm.multistep import (AUTO_THRESHOLD, MultistepPlan,
+                                        build_multistep_plan,
+                                        duplication_counts, multistep_stats,
+                                        resolve_threshold)
+from repro_torch.comm.strategies import (COMM_CHOICES, COMM_STRATEGIES,
+                                         CommStrategy, get_strategy)
+
+__all__ = [
+    "AUTO_THRESHOLD", "COMM_CHOICES", "COMM_STRATEGIES", "CommStrategy",
+    "MultistepPlan", "PREFERENCE", "build_candidate_plans",
+    "build_multistep_plan", "choose_comm", "comm_verdict",
+    "duplication_counts", "get_strategy", "multistep_stats",
+    "planned_traffic", "resolve_threshold",
+]

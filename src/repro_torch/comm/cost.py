@@ -1,0 +1,118 @@
+"""Slot-granular planned traffic for the comm-strategy chooser.
+
+The rank-batched programs pad every message of an exchange phase to the
+phase's largest message, so the bytes a strategy *injects* differ from
+the bytes it *needs* to move.  :func:`planned_traffic` costs a plan the
+way the program runs it: per phase, each existing (src, dst) message is
+charged the phase pad; absent slots cost nothing (the full-buffer view
+is ``padded_traffic`` on the compiled plan).  Its payload feeds
+:func:`repro_torch.core.cost_model.postal_comm_time`.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+from repro_torch.comm.multistep import MultistepPlan
+from repro_torch.core.comm_graph import NAPPlan, StandardPlan
+
+
+def _phase_entry(send_lists: Sequence[List], recv_lists: Sequence[List],
+                 pad: int, inter: bool, bytes_per_val: int, nv: int,
+                 direction: str) -> Dict:
+    """One exchange phase.  ``pad`` is the phase's slot size in values;
+    ``direction`` picks whose buffers set the per-rank maxima (the
+    transpose reverses every message, so the forward receiver becomes the
+    bottleneck sender).  Totals are direction-independent."""
+    rank_lists = send_lists if direction == "forward" else recv_lists
+    bpv = bytes_per_val * nv
+    n_msgs = sum(len(msgs) for msgs in send_lists)
+    effective = sum(m.size for msgs in send_lists for m in msgs) * bpv
+    return {
+        "n_msgs": int(n_msgs),
+        "pad": int(pad),
+        "effective_bytes": int(effective),
+        "padded_bytes": int(n_msgs * pad * bpv),
+        "max_rank_msgs": int(max((len(msgs) for msgs in rank_lists), default=0)),
+        "max_rank_padded_bytes": int(max(
+            (len(msgs) * pad * bpv for msgs in rank_lists), default=0)),
+        "inter": bool(inter),
+    }
+
+
+def _pad_of(send_lists: Sequence[List]) -> int:
+    return max((m.size for msgs in send_lists for m in msgs), default=1) or 1
+
+
+def _split_pair(plan: StandardPlan):
+    """The flat pair exchange's messages split into inter- and intra-node
+    lists (sends and recvs); both keep the pad the program shares."""
+    topo = plan.topology
+    n = topo.n_procs
+    s_inter: List[List] = [[] for _ in range(n)]
+    s_intra: List[List] = [[] for _ in range(n)]
+    r_inter: List[List] = [[] for _ in range(n)]
+    r_intra: List[List] = [[] for _ in range(n)]
+    for r in range(n):
+        for m in plan.sends[r]:
+            (s_intra if topo.same_node(m.src, m.dst) else s_inter)[r].append(m)
+        for m in plan.recvs[r]:
+            (r_intra if topo.same_node(m.src, m.dst) else r_inter)[r].append(m)
+    return s_inter, s_intra, r_inter, r_intra
+
+
+def planned_traffic(plan, bytes_per_val: int = 4, nv: int = 1,
+                    direction: str = "forward") -> Dict:
+    """Phase-by-phase injected traffic of a Standard / NAP / Multistep plan.
+
+    Returns ``{"strategy", "direction", "bytes_per_val", "phases":
+    {name: entry}, "injected_inter_bytes", "effective_inter_bytes",
+    "injected_intra_bytes", "effective_intra_bytes"}``; each phase entry
+    carries padded and effective totals, per-rank maxima for the
+    direction, and an ``inter`` flag.
+    """
+    if direction not in ("forward", "transpose"):
+        raise ValueError(f"unknown direction {direction!r}")
+    phases: Dict[str, Dict] = {}
+
+    def entry(sends, recvs, pad, inter):
+        return _phase_entry(sends, recvs, pad, inter, bytes_per_val, nv,
+                            direction)
+
+    def nap_phases(nap: NAPPlan) -> None:
+        for name, sends, recvs, inter in (
+                ("full", nap.local_full_sends, nap.local_full_recvs, False),
+                ("init", nap.local_init_sends, nap.local_init_recvs, False),
+                ("inter", nap.inter_sends, nap.inter_recvs, True),
+                ("final", nap.local_final_sends, nap.local_final_recvs, False)):
+            phases[name] = entry(sends, recvs, _pad_of(sends), inter)
+
+    if isinstance(plan, MultistepPlan):
+        strategy = "multistep"
+        nap_phases(plan.nap)
+        phases["direct"] = entry(plan.direct.sends, plan.direct.recvs,
+                                 _pad_of(plan.direct.sends), True)
+    elif isinstance(plan, NAPPlan):
+        strategy = "nap"
+        nap_phases(plan)
+    elif isinstance(plan, StandardPlan):
+        strategy = "standard"
+        s_inter, s_intra, r_inter, r_intra = _split_pair(plan)
+        pad = _pad_of(plan.sends)  # shared across the flat exchange
+        phases["pair_inter"] = entry(s_inter, r_inter, pad, True)
+        phases["pair_intra"] = entry(s_intra, r_intra, pad, False)
+    else:
+        raise TypeError(f"unsupported plan type {type(plan).__name__}")
+
+    def total(key: str, inter: bool) -> int:
+        return sum(ph[key] for ph in phases.values() if ph["inter"] is inter)
+
+    return {
+        "strategy": strategy,
+        "direction": direction,
+        "bytes_per_val": int(bytes_per_val),
+        "phases": phases,
+        "injected_inter_bytes": total("padded_bytes", True),
+        "effective_inter_bytes": total("effective_bytes", True),
+        "injected_intra_bytes": total("padded_bytes", False),
+        "effective_intra_bytes": total("effective_bytes", False),
+    }

@@ -102,6 +102,16 @@ def _offproc_pairs(indptr: np.ndarray, indices: np.ndarray,
     return t[uniq], r[uniq], j[uniq]
 
 
+def check_pairing(pairing: str) -> None:
+    """The port builds ``"aligned"`` slot pairing only."""
+    if pairing == "balanced":
+        raise NotImplementedError(
+            "pairing='balanced' (the paper's text rule) is not ported; the "
+            "port builds pairing='aligned' (ROADMAP Queue 1 item 9)")
+    if pairing != "aligned":
+        raise ValueError(f"unknown pairing {pairing!r}")
+
+
 @dataclasses.dataclass
 class StandardPlan:
     """Algorithm 1's plan: ``P(r)`` and ``D(r, t)`` as message lists per
@@ -131,11 +141,18 @@ class StandardPlan:
 
 def build_standard_plan(indptr: np.ndarray, indices: np.ndarray,
                         part: RowPartition, topo: Topology,
-                        col_part: Optional[RowPartition] = None) -> StandardPlan:
+                        col_part: Optional[RowPartition] = None,
+                        pairs: Optional[Tuple[np.ndarray, np.ndarray,
+                                              np.ndarray]] = None) -> StandardPlan:
     """One message from every owner r to every rank t that needs some of
-    r's x entries, carrying exactly those indices (ascending)."""
+    r's x entries, carrying exactly those indices (ascending).
+
+    ``pairs`` supplies the deduped off-process triples ``(t, r, j)`` in
+    place of extracting them from the structure (the multi-step plan
+    splits one extraction between two sub-plans)."""
     cpart = part if col_part is None else col_part
-    t, r, j = _offproc_pairs(indptr, indices, part, cpart)
+    t, r, j = pairs if pairs is not None else \
+        _offproc_pairs(indptr, indices, part, cpart)
     sends: List[List[Message]] = [[] for _ in range(topo.n_procs)]
     recvs: List[List[Message]] = [[] for _ in range(topo.n_procs)]
     for src in np.unique(r):
@@ -227,16 +244,24 @@ def _chunk(arr: np.ndarray, k: int, c: int) -> np.ndarray:
 
 
 def build_nap_plan(indptr: np.ndarray, indices: np.ndarray, part: RowPartition,
-                   topo: Topology,
-                   col_part: Optional[RowPartition] = None) -> NAPPlan:
+                   topo: Topology, pairing: str = "aligned",
+                   col_part: Optional[RowPartition] = None,
+                   pairs: Optional[Tuple[np.ndarray, np.ndarray,
+                                         np.ndarray]] = None) -> NAPPlan:
     """Build the node-aware plan with ``"aligned"`` slot pairing.
 
     ``part`` is the row partition, ``col_part`` the column/x partition
-    (defaults to ``part``: the paper's square case).
+    (defaults to ``part``: the paper's square case).  ``pairs`` supplies
+    the deduped off-process triples ``(t, r, j)`` instead of extracting
+    them from the structure (the multi-step plan hands over its
+    high-duplication share).  The paper's ``"balanced"`` pairing is not
+    ported.
     """
+    check_pairing(pairing)
     cpart = part if col_part is None else col_part
     ppn, n_nodes, n_procs = topo.ppn, topo.n_nodes, topo.n_procs
-    t, r, j = _offproc_pairs(indptr, indices, part, cpart)
+    t, r, j = pairs if pairs is not None else \
+        _offproc_pairs(indptr, indices, part, cpart)
     tn = topo.node_of_array(t)  # receiver node m
     rn = topo.node_of_array(r)  # sender node n
     off_node = tn != rn

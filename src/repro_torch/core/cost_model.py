@@ -7,6 +7,9 @@ autotuner.
       T = alpha + ppn*s / min(B_N, B_max + (ppn-1) * B_inj)
 * Eq. (11): postal model (the ppn = 1 case)
 * Eq. (12): intra-node model  T_l = alpha_l + s_l / B_max_l
+* :func:`multistep_cost` adds the multi-step plan's direct exchange;
+  :func:`postal_comm_time` is the comm chooser's alpha-beta tie-break
+  over padded slots (:data:`BLUE_WATERS_POSTAL`)
 
 with short / eager / rendezvous protocols chosen by message size (512 B
 and 8 KiB cutoffs, MPICH-on-Gemini's conventional values; the paper does
@@ -151,10 +154,88 @@ def nap_cost(plan: NAPPlan, machine: MachineParams,
     return out
 
 
+def multistep_cost(plan, machine: MachineParams,
+                   bytes_per_val: int = 8) -> Dict[str, float]:
+    """Cost of a :class:`repro_torch.comm.multistep.MultistepPlan`: the
+    NAP sub-plan's phase chain plus the direct exchange, which shares
+    the network with (and so serialises against) the aggregated inter
+    phase; the fully local exchange still overlaps both."""
+    out = nap_cost(plan.nap, machine, bytes_per_val)
+    direct = standard_cost(plan.direct, machine, bytes_per_val)
+    # every direct message crosses nodes
+    out["direct"] = direct["inter"]
+    out["inter"] = out["inter"] + direct["inter"]
+    out["total"] = (out["intra_init"] + max(out["inter"], out["intra_full"])
+                    + out["intra_final"])
+    return out
+
+
 def compute_time(nnz: int, flop_rate: float = 2.0e9) -> float:
     """Local SpMV compute estimate of the paper's CPU ranks: 2 flops per
     nonzero at an effective memory-bound rate (~2 GF/s per core)."""
     return 2.0 * nnz / flop_rate
+
+
+# ---------------------------------------------------------------------------
+# Postal term of the comm-strategy chooser (repro_torch.comm)
+# ---------------------------------------------------------------------------
+#
+# The message models above cost each message at its EFFECTIVE size.  The
+# rank-batched programs ship PADDED slots (every message of a phase
+# stretches to the phase's largest), so the chooser also needs an
+# alpha-beta term over the slot-granular padded bytes of
+# ``repro_torch.comm.cost.planned_traffic``.  It only breaks ties: the
+# verdict is decided first by injected inter-node bytes.
+
+@dataclasses.dataclass(frozen=True)
+class PostalParams:
+    """Flat two-level postal model: a start-up alpha per message plus the
+    padded bytes at rate beta, for network (inter-node) and intra-node
+    hops."""
+
+    name: str
+    alpha_inter: float
+    beta_inter: float
+    alpha_intra: float
+    beta_intra: float
+
+
+#: The rendezvous rows of :data:`BLUE_WATERS` (paper Tables 3-4): start-up
+#: and per-process rate of a large message between nodes and on a node.
+#: A model of that Cray machine, not of the GPU.
+BLUE_WATERS_POSTAL = PostalParams(
+    name="blue_waters_postal",
+    alpha_inter=BLUE_WATERS.inter["rend"].alpha,
+    beta_inter=BLUE_WATERS.inter["rend"].b_max,
+    alpha_intra=BLUE_WATERS.intra["rend"].alpha,
+    beta_intra=BLUE_WATERS.intra["rend"].b_max)
+
+
+def postal_phase_time(n_msgs: int, nbytes: float, inter: bool,
+                      params: PostalParams = BLUE_WATERS_POSTAL) -> float:
+    """alpha-beta time of one exchange phase at one rank: ``n_msgs``
+    start-ups plus ``nbytes`` (padded) at the level's rate."""
+    if n_msgs == 0:
+        return 0.0
+    alpha, beta = (params.alpha_inter, params.beta_inter) if inter \
+        else (params.alpha_intra, params.beta_intra)
+    return n_msgs * alpha + nbytes / beta
+
+
+def postal_comm_time(traffic: Dict, params: PostalParams = BLUE_WATERS_POSTAL
+                     ) -> Dict[str, float]:
+    """Modeled seconds of one exchange schedule (a ``planned_traffic``
+    payload): phases run one after another, each charged at its
+    bottleneck rank's padded bytes."""
+    out: Dict[str, float] = {}
+    total = 0.0
+    for name, ph in traffic["phases"].items():
+        t = postal_phase_time(ph["max_rank_msgs"], ph["max_rank_padded_bytes"],
+                              ph["inter"], params)
+        out[name] = t
+        total += t
+    out["total"] = total
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,7 +10,10 @@ Registered here, both rank-batched programs of
 
 * ``("torch", "nap")`` — the node-aware exchange (Algorithm 3);
 * ``("torch", "standard")`` — the flat exchange (Algorithm 1), the
-  paper's baseline.
+  paper's baseline;
+* ``("torch", "multistep")`` — the node-aware exchange for columns that
+  several processes of a node need, a direct owner -> requester hop for
+  the rest (:mod:`repro_torch.comm.multistep`).
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.comm_graph import nap_stats, standard_stats
-from repro_torch.core.cost_model import MachineParams, nap_cost, standard_cost
+from repro_torch.core.cost_model import (MachineParams, multistep_cost,
+                                         nap_cost, standard_cost)
 from repro_torch.core.partition import RowPartition
 from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device
@@ -35,14 +39,16 @@ class OperatorSpec:
     backend: str = "torch"
     local_compute: str = "auto"
     device: Optional[str] = None    # None = CUDA; "cpu" only on request
+    # duplication threshold of method="multistep" ("auto" or an int >= 1)
+    threshold: object = "auto"
 
 
 _REGISTRY: Dict[Tuple[str, str], Callable] = {}
 
 
 def register_executor(backend: str, method: str):
-    """Class/factory decorator: ``factory(a, row_part, col_part, topo, spec)``
-    becomes reachable through :func:`bind_executor`."""
+    """Class/factory decorator: ``factory(a, row_part, col_part, topo, spec,
+    plan=None)`` becomes reachable through :func:`bind_executor`."""
 
     def deco(factory):
         _REGISTRY[(backend, method)] = factory
@@ -56,8 +62,11 @@ def available_executors() -> List[Tuple[str, str]]:
 
 
 def bind_executor(backend: str, method: str, a, row_part: RowPartition,
-                  col_part: RowPartition, topo: Topology, spec: OperatorSpec):
-    """Instantiate the registered executor for (backend, method)."""
+                  col_part: RowPartition, topo: Topology, spec: OperatorSpec,
+                  plan=None):
+    """Instantiate the registered executor for (backend, method); ``plan``
+    is a prebuilt communication plan of that method (the comm chooser's
+    candidate), else the executor builds its own."""
     try:
         factory = _REGISTRY[(backend, method)]
     except KeyError:
@@ -65,7 +74,7 @@ def bind_executor(backend: str, method: str, a, row_part: RowPartition,
         raise ValueError(
             f"no executor registered for backend={backend!r} "
             f"method={method!r}; available: {avail}") from None
-    return factory(a, row_part, col_part, topo, spec)
+    return factory(a, row_part, col_part, topo, spec, plan=plan)
 
 
 def check_operand(n: int, v) -> np.ndarray:
@@ -88,10 +97,11 @@ class _TorchExecutor:
     method = ""
 
     def __init__(self, a, row_part: RowPartition, col_part: RowPartition,
-                 topo: Topology, spec: OperatorSpec):
+                 topo: Topology, spec: OperatorSpec, plan=None):
         self.a, self.topo, self.spec = a, topo, spec
         self.row_part, self.col_part = row_part, col_part
         self.device = resolve_device(spec.device)
+        self._plan = plan       # a prebuilt plan of this method, or None
         self._compiled = None
 
     @property
@@ -105,7 +115,8 @@ class _TorchExecutor:
         """The device program of one direction: packed shards in, packed
         shards out, on the executor's device.  ``options`` go to the
         program function (``materialize_x`` forward; ``live_scatter``
-        for the standard transpose)."""
+        for the standard transpose; ``live_direct`` both ways on the
+        multi-step plan)."""
         forward, transpose = self._programs()
         fn = forward if direction == "forward" else transpose
         c, lc = self.compiled, self.spec.local_compute
@@ -157,7 +168,7 @@ class NapTorchExecutor(_TorchExecutor):
 
     def _compile(self):
         from repro_torch.core.spmv_torch import compile_nap
-        return compile_nap(self.a, self.row_part, self.topo,
+        return compile_nap(self.a, self.row_part, self.topo, plan=self._plan,
                            local_compute=self.spec.local_compute,
                            col_part=self.col_part, device=self.device)
 
@@ -185,6 +196,7 @@ class StandardTorchExecutor(_TorchExecutor):
     def _compile(self):
         from repro_torch.core.spmv_torch import compile_standard
         return compile_standard(self.a, self.row_part, self.topo,
+                                plan=self._plan,
                                 local_compute=self.spec.local_compute,
                                 col_part=self.col_part, device=self.device)
 
@@ -202,3 +214,35 @@ class StandardTorchExecutor(_TorchExecutor):
 
     def cost(self, machine: MachineParams) -> Dict[str, float]:
         return standard_cost(self.compiled.plan, machine)
+
+
+@register_executor("torch", "multistep")
+class MultistepTorchExecutor(_TorchExecutor):
+    """The multi-step plan on the node-aware programs, which add the
+    direct exchange when the compiled plan carries ``comm="multistep"``."""
+
+    method = "multistep"
+
+    def _compile(self):
+        from repro_torch.core.spmv_torch import compile_multistep
+        return compile_multistep(self.a, self.row_part, self.topo,
+                                 plan=self._plan,
+                                 local_compute=self.spec.local_compute,
+                                 col_part=self.col_part,
+                                 threshold=self.spec.threshold,
+                                 device=self.device)
+
+    def _programs(self):
+        from repro_torch.core.spmv_torch import nap_forward, nap_transpose
+        return nap_forward, nap_transpose
+
+    def stats(self) -> Dict[str, object]:
+        from repro_torch.comm.multistep import multistep_stats
+        from repro_torch.core.spmv_torch import padded_traffic
+        out = {f"messages_{k}": v for k, v in
+               multistep_stats(self.compiled.ms_plan).items()}
+        out.update(padded_traffic(self.compiled))
+        return out
+
+    def cost(self, machine: MachineParams) -> Dict[str, float]:
+        return multistep_cost(self.compiled.ms_plan, machine)

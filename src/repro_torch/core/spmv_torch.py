@@ -12,7 +12,9 @@ lengths of the packed x are rounded up to the block width bn, so the
 segments are bn-aligned views of one packed domain.
 :func:`compile_standard` does the same for Algorithm 1: one flat
 ``[n_procs, n_procs, pair_pad]`` send table and the two-segment packed
-x ``[v_loc | recv buffer]``.
+x ``[v_loc | recv buffer]``.  :func:`compile_multistep` builds the
+node-aware arrays from the multi-step plan's high-duplication share and
+adds its direct exchange, which the programs run from its live slots.
 
 **Device program.**  The ``(n_nodes, ppn)`` rank grid is the leading
 batch axis of every tensor on ONE device.  A tiled all-to-all is then an
@@ -45,6 +47,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.comm.multistep import build_multistep_plan
 from repro_torch.core.comm_graph import (Message, NAPPlan, StandardPlan,
                                          build_nap_plan, build_standard_plan,
                                          lookup_slots)
@@ -128,10 +131,7 @@ class _Staged:
                                 dtype=torch.int64) * seg_len
             flat = (idx.long().reshape(idx.shape[0], -1) + base[:, None]).reshape(-1)
             del idx
-            if nv > 1:
-                flat = (flat[:, None] * nv
-                        + torch.arange(nv, device=flat.device)).reshape(-1)
-            self._tensors[key] = flat
+            self._tensors[key] = _elements(flat, nv)
         return self._tensors[key]
 
 
@@ -165,6 +165,11 @@ class CompiledNAP(_Staged):
     requested_local_compute: str = "auto"
     ell_kmax: int = 0
     ell_t_kmax: int = 0
+    # "multistep": the plan adds the direct exchange (``direct_send``,
+    # ``pads["direct"]``) and ``ms_plan`` holds the MultistepPlan, whose
+    # NAP sub-plan is ``plan``
+    comm: str = "nap"
+    ms_plan: Optional[object] = None
     _tensors: Dict[object, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
@@ -177,6 +182,42 @@ class CompiledNAP(_Staged):
     @property
     def chosen_local_compute(self) -> str:
         return str(self.autotune.get("chosen", "coo"))
+
+    @property
+    def direct_offset(self) -> int:
+        """Where the direct recv slots start in the off-node gather's
+        domain ``[inter | final | direct]``."""
+        return (self.topo.n_nodes * self.pads["inter"]
+                + self.topo.ppn * self.pads["final"])
+
+    def ensure_live_direct(self) -> None:
+        """Emit the live-slot form of the direct exchange (lazily, once).
+
+        The literal exchange moves ``[P, P, direct_pad]`` slots, nearly
+        all padding.  Composing ``direct_send`` with the recv slots that
+        ``boff_gather`` reads gives, for every live value, its source in
+        the rank-batched v_loc (``direct_live_src``, flat ``s * cols_pad
+        + row``) and its place in the rank-batched off-node buffer
+        (``direct_live_dst``, flat ``r * boff_pad + k``), ordered by the
+        literal exchange's slots so that the transpose's sums keep its
+        order.  ``boff_live_gather`` is ``boff_gather`` with the direct
+        entries pointed at one dump slot just past ``[inter | final]``.
+        """
+        if "boff_live_gather" in self.arrays:
+            return
+        p, dpad = self.topo.n_procs, self.pads["direct"]
+        off = self.direct_offset
+        bg = self.arrays["boff_gather"]
+        r, k = np.nonzero(bg >= off)
+        q = bg[r, k].astype(np.int64) - off
+        s = q // dpad
+        slot = (s * p + r) * dpad + q % dpad
+        order = np.argsort(slot, kind="stable")
+        r, k, s, slot = r[order], k[order], s[order], slot[order]
+        rows = self.arrays["direct_send"].reshape(-1)[slot].astype(np.int64)
+        self.arrays["direct_live_src"] = s * self.cols_pad + rows
+        self.arrays["direct_live_dst"] = r * bg.shape[1] + k
+        self.arrays["boff_live_gather"] = np.where(bg >= off, off, bg).astype(np.int32)
 
     def resolve_local_compute(self, requested: str) -> str:
         return _resolve_local_compute(requested, self.requested_local_compute,
@@ -387,6 +428,7 @@ def _transpose_format_stats(per_rank_rc_t: List[Tuple[np.ndarray, np.ndarray]],
 # ---------------------------------------------------------------------------
 
 def compile_nap(a: CSR, part: RowPartition, topo: Topology,
+                plan: Optional[NAPPlan] = None,
                 block_shape: Tuple[int, int] = (8, 128),
                 local_compute: str = "auto",
                 tuner: LocalComputeParams = H100_LOCAL,
@@ -395,10 +437,45 @@ def compile_nap(a: CSR, part: RowPartition, topo: Topology,
     """Compile the node-aware plan to static rank-stacked arrays.
 
     ``part`` is the ROW partition, ``col_part`` the COLUMN/x partition
-    (defaults to ``part``).  ``device`` is where :meth:`CompiledNAP.tensors`
-    stages the arrays: CUDA unless ``"cpu"`` is asked for.
+    (defaults to ``part``); ``plan`` a prebuilt :class:`NAPPlan` of the
+    same layout.  ``device`` is where :meth:`CompiledNAP.tensors` stages
+    the arrays: CUDA unless ``"cpu"`` is asked for.
     """
     device = resolve_device(device)
+    _check_layout(a, part, col_part, local_compute)
+    if plan is None:
+        plan = build_nap_plan(a.indptr, a.indices, part, topo, col_part=col_part)
+    return _compile_node_aware(a, part, topo, plan, None, block_shape,
+                               local_compute, tuner, col_part, device)
+
+
+def compile_multistep(a: CSR, part: RowPartition, topo: Topology,
+                      plan=None, block_shape: Tuple[int, int] = (8, 128),
+                      local_compute: str = "auto",
+                      tuner: LocalComputeParams = H100_LOCAL,
+                      col_part: Optional[RowPartition] = None,
+                      threshold="auto", device: DeviceLike = None) -> CompiledNAP:
+    """Compile the multi-step plan (:mod:`repro_torch.comm.multistep`).
+
+    A :class:`CompiledNAP` with ``comm="multistep"``: the four NAP arrays
+    built from the high-duplication sub-plan exactly as
+    :func:`compile_nap` builds them, a ``direct_send [n_procs, n_procs,
+    direct_pad]`` gather for the flat fifth exchange, and ``boff_gather``
+    resolving off-node columns against ``[inter | final | direct]``.
+    ``plan`` supplies a prebuilt :class:`MultistepPlan`.
+    """
+    device = resolve_device(device)
+    _check_layout(a, part, col_part, local_compute)
+    if plan is None:
+        plan = build_multistep_plan(a.indptr, a.indices, part, topo,
+                                    col_part=col_part, threshold=threshold)
+    return _compile_node_aware(a, part, topo, plan.nap, plan.direct,
+                               block_shape, local_compute, tuner, col_part,
+                               device, ms_plan=plan)
+
+
+def _check_layout(a: CSR, part: RowPartition, col_part: Optional[RowPartition],
+                  local_compute: str) -> None:
     if local_compute not in ("auto",) + LOCAL_FORMATS:
         raise ValueError(local_compute)
     cpart = part if col_part is None else col_part
@@ -406,7 +483,17 @@ def compile_nap(a: CSR, part: RowPartition, topo: Topology,
         raise ValueError(
             f"partition/matrix mismatch: a is {a.shape}, row partition has "
             f"{part.n_rows} rows, column partition {cpart.n_rows}")
-    plan = build_nap_plan(a.indptr, a.indices, part, topo, col_part=col_part)
+
+
+def _compile_node_aware(a: CSR, part: RowPartition, topo: Topology,
+                        plan: NAPPlan, direct: Optional[StandardPlan],
+                        block_shape: Tuple[int, int], local_compute: str,
+                        tuner: LocalComputeParams,
+                        col_part: Optional[RowPartition],
+                        device: torch.device, ms_plan=None) -> CompiledNAP:
+    """The arrays of :func:`compile_nap` from a NAP plan and, for the
+    multi-step plan, its direct sub-plan."""
+    cpart = part if col_part is None else col_part
     n_procs, ppn, n_nodes = topo.n_procs, topo.ppn, topo.n_nodes
     blocks = split_all_blocks(a, part, topo, col_part=cpart)
     local_index = cpart.local_index()
@@ -428,6 +515,7 @@ def compile_nap(a: CSR, part: RowPartition, topo: Topology,
     init_pad = msg_pad(plan.local_init_sends)
     inter_pad = msg_pad(plan.inter_sends)
     final_pad = msg_pad(plan.local_final_sends)
+    direct_pad = msg_pad(direct.sends) if direct is not None else 0
     nnz_pads = {
         "on_proc": max(1, max(b.on_proc.nnz for b in blocks)),
         "on_node": max(1, max(b.on_node.nnz for b in blocks)),
@@ -442,6 +530,10 @@ def compile_nap(a: CSR, part: RowPartition, topo: Topology,
         "bnode_gather": np.zeros((n_procs, bnode_pad), np.int32),
         "boff_gather": np.zeros((n_procs, boff_pad), np.int32),
     }
+    if direct is not None:
+        # source local-row positions, one slot per destination rank of
+        # the flat direct exchange
+        arrays["direct_send"] = np.zeros((n_procs, n_procs, direct_pad), np.int32)
     coo = {k: {"rows": [], "cols": [], "vals": []} for k in nnz_pads}
 
     for r in range(n_procs):
@@ -473,11 +565,18 @@ def compile_nap(a: CSR, part: RowPartition, topo: Topology,
         arrays["bnode_gather"][r, : blk.on_node_cols.size] = \
             lookup_slots(full_map, blk.on_node_cols)
 
-        # off-node buffer gather: positions into concat(inter_recv, final_recv)
+        # off-node buffer gather: positions into
+        # concat(inter_recv, final_recv[, direct_recv])
         final_map = plan.recv_slot_map(r, "final", final_pad)
-        comb_idx = np.concatenate([inter_map[0], final_map[0]])
-        comb_pos = np.concatenate([inter_map[1],
-                                   n_nodes * inter_pad + final_map[1]])
+        maps = [inter_map, final_map]
+        offsets = [0, n_nodes * inter_pad]
+        if direct is not None:
+            for m in direct.sends[r]:
+                arrays["direct_send"][r, m.dst, : m.size] = local_index[m.idx]
+            maps.append(direct.recv_slot_map(r, direct_pad))
+            offsets.append(n_nodes * inter_pad + ppn * final_pad)
+        comb_idx = np.concatenate([m[0] for m in maps])
+        comb_pos = np.concatenate([o + m[1] for o, m in zip(offsets, maps)])
         order = np.argsort(comb_idx, kind="stable")
         arrays["boff_gather"][r, : blk.off_node_cols.size] = lookup_slots(
             (comb_idx[order], comb_pos[order]), blk.off_node_cols)
@@ -497,13 +596,17 @@ def compile_nap(a: CSR, part: RowPartition, topo: Topology,
     pads = dict(full=full_pad, init=init_pad, inter=inter_pad, final=final_pad,
                 bnode=bnode_pad, boff=boff_pad,
                 **{f"nnz_{k}": v for k, v in nnz_pads.items()})
+    if direct is not None:
+        pads["direct"] = direct_pad
     autotune = _autotune_stats(blocks, rows_pad, cols_pad, bnode_pad, boff_pad,
                                sum(nnz_pads.values()), tuple(block_shape), tuner)
     return CompiledNAP(topo=topo, part=part, col_part=cpart, rows_pad=rows_pad,
                        cols_pad=cols_pad, pads=pads, arrays=arrays, device=device,
                        plan=plan, block_shape=tuple(block_shape),
                        local_blocks=blocks, autotune=autotune,
-                       requested_local_compute=local_compute)
+                       requested_local_compute=local_compute,
+                       comm="nap" if direct is None else "multistep",
+                       ms_plan=ms_plan)
 
 
 def compiled_from_reference(arrays: Dict[str, np.ndarray], pads: Dict[str, int],
@@ -656,6 +759,7 @@ class CompiledStandard(_Staged):
 
 
 def compile_standard(a: CSR, part: RowPartition, topo: Topology,
+                     plan: Optional[StandardPlan] = None,
                      block_shape: Tuple[int, int] = (8, 128),
                      local_compute: str = "auto",
                      tuner: LocalComputeParams = H100_LOCAL,
@@ -664,17 +768,14 @@ def compile_standard(a: CSR, part: RowPartition, topo: Topology,
     """Compile Algorithm 1's flat plan to static rank-stacked arrays.
 
     ``part`` is the ROW partition, ``col_part`` the COLUMN/x partition
-    (defaults to ``part``); ``device`` as in :func:`compile_nap`.
+    (defaults to ``part``); ``plan`` and ``device`` as in :func:`compile_nap`.
     """
     device = resolve_device(device)
-    if local_compute not in ("auto",) + LOCAL_FORMATS:
-        raise ValueError(local_compute)
+    _check_layout(a, part, col_part, local_compute)
     cpart = part if col_part is None else col_part
-    if part.n_rows != a.shape[0] or cpart.n_rows != a.shape[1]:
-        raise ValueError(
-            f"partition/matrix mismatch: a is {a.shape}, row partition has "
-            f"{part.n_rows} rows, column partition {cpart.n_rows}")
-    plan = build_standard_plan(a.indptr, a.indices, part, topo, col_part=col_part)
+    if plan is None:
+        plan = build_standard_plan(a.indptr, a.indices, part, topo,
+                                   col_part=col_part)
     n_procs = topo.n_procs
     blocks = split_all_blocks(a, part, topo, col_part=cpart)
     local_index = cpart.local_index()
@@ -836,8 +937,35 @@ def _unbatch(c: CompiledNAP, w: torch.Tensor, single: bool) -> torch.Tensor:
 _COO_KEYS = ("on_proc", "on_node", "off_node")
 
 
+def _elements(idx: torch.Tensor, nv: int) -> torch.Tensor:
+    """Row indices into a flat ``[L, nv]`` tensor as element indices
+    (``row * nv + column``) when nv > 1, the faster gather (:func:`_gather`)."""
+    if nv == 1:
+        return idx
+    return (idx[:, None] * nv + torch.arange(nv, device=idx.device)).reshape(-1)
+
+
+def _live_direct(c: CompiledNAP, nv: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The live direct slots as (source, destination) element indices
+    into the flattened v_loc and off-node buffer (see
+    :meth:`CompiledNAP.ensure_live_direct`), staged once per nv."""
+    key = ("live_direct", nv)
+    if key not in c._tensors:
+        t = c.tensors(["direct_live_src", "direct_live_dst"])
+        c._tensors[key] = (_elements(t["direct_live_src"], nv),
+                           _elements(t["direct_live_dst"], nv))
+    return c._tensors[key]
+
+
+def _direct_exchange(buf: torch.Tensor) -> torch.Tensor:
+    """Tiled all-to-all over ``("node", "proc")``: ``[P_src, P_dst, pad,
+    nv]`` -> ``recv[r, s] = send[s, r]`` (ranks are node-major)."""
+    return buf.transpose(0, 1).contiguous()
+
+
 def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
-                materialize_x: bool = False) -> torch.Tensor:
+                materialize_x: bool = False,
+                live_direct: bool = True) -> torch.Tensor:
     """w = A @ v on packed shards: ``v_shards`` is COLUMN-partition packed
     ``[n_nodes, ppn, cols_pad(, nv)]``, the result ROW-partition packed
     ``[n_nodes, ppn, rows_pad(, nv)]`` on the plan's device.
@@ -845,6 +973,12 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
     ``materialize_x=True`` concatenates the packed x before the local
     compute (the one-segment kernels) instead of passing the three
     segments; the two are bit-equal on the BSR path (an A/B switch).
+
+    A multi-step plan (``c.comm == "multistep"``) adds phase E, the
+    direct exchange of its low-duplication columns.  By default only its
+    live slots move: each value is gathered from v_loc straight into its
+    place in the off-node buffer.  ``live_direct=False`` runs the literal
+    padded exchange (``[P, P, direct_pad]`` slots); the two are bit-equal.
     """
     fmt = c.resolve_local_compute(local_compute)
     if fmt == "bsr":
@@ -866,8 +1000,22 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
     final_recv = _exchange_proc(_gather(c, inter_flat, "final_send"), topo)
     # Buffers of Algorithm 3's three local_spmv calls.
     bnode = _gather(c, full_recv.reshape(p, -1, nv), "bnode_gather")
-    boff = _gather(c, torch.cat([inter_flat, final_recv.reshape(p, -1, nv)],
-                                dim=1), "boff_gather")
+    comb = [inter_flat, final_recv.reshape(p, -1, nv)]
+    if c.comm != "multistep":
+        boff = _gather(c, torch.cat(comb, dim=1), "boff_gather")
+    elif live_direct:
+        # Phase E, live slots: [inter | final | dump] first, then every
+        # direct value from v_loc into its place in the buffer.
+        c.ensure_live_direct()
+        comb.append(torch.zeros((p, 1, nv), dtype=v.dtype, device=v.device))
+        boff = _gather(c, torch.cat(comb, dim=1), "boff_live_gather")
+        src, dst = _live_direct(c, nv)
+        boff.view(-1).index_copy_(0, dst, v.reshape(-1).index_select(0, src))
+    else:
+        # Phase E, literal: the flat exchange of the padded direct slots.
+        direct_recv = _direct_exchange(_gather(c, v, "direct_send"))
+        comb.append(direct_recv.reshape(p, -1, nv))
+        boff = _gather(c, torch.cat(comb, dim=1), "boff_gather")
     segs = (v, bnode, boff)
 
     if fmt == "bsr":
@@ -894,8 +1042,8 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
     return _unbatch(c, w.contiguous(), single)
 
 
-def nap_transpose(c: CompiledNAP, u_shards,
-                  local_compute: str = "auto") -> torch.Tensor:
+def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
+                  live_direct: bool = True) -> torch.Tensor:
     """z = A.T @ u, the exact adjoint of :func:`nap_forward`: ``u_shards``
     is ROW-partition packed ``[.., rows_pad(, nv)]``, the result
     COLUMN-partition packed ``[.., cols_pad(, nv)]``.
@@ -903,7 +1051,10 @@ def nap_transpose(c: CompiledNAP, u_shards,
     The transposed local compute runs first (one ELL SpMM over the packed
     contribution domain ``[z | c_on_node | c_off_node]``, or COO
     scatters), then every phase backwards: each forward gather becomes an
-    ``index_add_`` scatter and each exchange is re-applied.
+    ``index_add_`` scatter and each exchange is re-applied.  A multi-step
+    plan's direct contributions go straight back to their owners' rows:
+    by default from the live slots only, ``live_direct=False`` through
+    the literal padded exchange (the same sums in the same order).
     """
     fmt = c.resolve_transpose_local_compute(local_compute)
     if fmt == "ell":
@@ -929,10 +1080,26 @@ def nap_transpose(c: CompiledNAP, u_shards,
             outs.append(_scatter(c, prod, f"{key}_cols", out_len))
         z, c_node, c_off = outs
 
-    # reverse of boff = concat(inter | final)[boff_gather]
-    comb = _scatter(c, c_off, "boff_gather", inter_len + ppn * pads["final"])
+    # reverse of boff = concat(inter | final [| direct])[boff_gather]
+    comb_len = inter_len + ppn * pads["final"]
+    z_direct = None
+    if c.comm != "multistep":
+        comb = _scatter(c, c_off, "boff_gather", comb_len)
+    elif live_direct:
+        c.ensure_live_direct()
+        comb = _scatter(c, c_off, "boff_live_gather", comb_len + 1)
+        src, dst = _live_direct(c, 1)
+        z_direct = torch.zeros((p * cols_pad, nv), dtype=u.dtype, device=u.device)
+        z_direct.index_add_(0, src, c_off.reshape(-1, nv).index_select(0, dst))
+        z_direct = z_direct.reshape(p, cols_pad, nv)
+    else:
+        dpad = pads["direct"]
+        comb = _scatter(c, c_off, "boff_gather", comb_len + p * dpad)
+        # reverse phase E: the flat exchange is its own adjoint
+        direct_out_c = _direct_exchange(comb[:, comb_len:].reshape(p, p, dpad, nv))
+        z_direct = _scatter(c, direct_out_c, "direct_send", cols_pad)
     inter_c = comb[:, :inter_len]
-    final_recv_c = comb[:, inter_len:].reshape(p, ppn, pads["final"], nv)
+    final_recv_c = comb[:, inter_len:comb_len].reshape(p, ppn, pads["final"], nv)
     # reverse phase D
     final_out_c = _exchange_proc(final_recv_c, topo)
     inter_c = inter_c + _scatter(c, final_out_c, "final_send", inter_len)
@@ -949,6 +1116,8 @@ def nap_transpose(c: CompiledNAP, u_shards,
     full_recv_c = _scatter(c, c_node, "bnode_gather", ppn * pads["full"])
     full_out_c = _exchange_proc(full_recv_c.reshape(p, ppn, pads["full"], nv), topo)
     z = z + _scatter(c, full_out_c, "full_send", cols_pad)
+    if z_direct is not None:
+        z = z + z_direct
     return _unbatch(c, z.contiguous(), single)
 
 
@@ -1065,8 +1234,8 @@ def padded_traffic(c) -> Dict[str, object]:
     """Padded (what the static exchanges move) vs effective (the plan's
     true payloads) bytes per phase, float32 payloads; the transpose
     direction's per-rank figures come from the recv lists.  NAP plans
-    have the phases full / init / inter / final, standard plans the one
-    "pair" exchange."""
+    have the phases full / init / inter / final, multi-step plans also
+    "direct", standard plans the one "pair" exchange."""
     topo, plan = c.topo, c.plan
     if plan is None:
         return {}
@@ -1081,6 +1250,9 @@ def padded_traffic(c) -> Dict[str, object]:
             "inter": (topo.n_nodes, plan.inter_sends, plan.inter_recvs),
             "final": (topo.ppn, plan.local_final_sends, plan.local_final_recvs),
         }
+        if c.comm == "multistep":
+            direct = c.ms_plan.direct
+            phases["direct"] = (n, direct.sends, direct.recvs)
         pads = c.pads
     out: Dict[str, object] = {}
     transpose: Dict[str, int] = {}

@@ -11,6 +11,17 @@ from typing import Tuple
 import numpy as np
 
 
+def expand_positions(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """``concat(starts[i] + arange(counts[i]))`` without a Python loop:
+    the index ramp behind CSR row expansion (``csr_matmul``)."""
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, dtype=np.int64)
+    ends = np.cumsum(counts)
+    intra = np.arange(total) - np.repeat(ends - counts, counts)
+    return np.repeat(starts, counts) + intra
+
+
 @dataclasses.dataclass
 class CSR:
     indptr: np.ndarray   # int64 [n_rows + 1]
@@ -25,6 +36,10 @@ class CSR:
     @property
     def n_rows(self) -> int:
         return self.shape[0]
+
+    def row(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        sl = slice(self.indptr[i], self.indptr[i + 1])
+        return self.indices[sl], self.data[sl]
 
     def matvec(self, v: np.ndarray) -> np.ndarray:
         out = np.zeros(self.shape[0], dtype=np.result_type(self.data, v))
@@ -80,3 +95,9 @@ class CSR:
     def from_dense(a: np.ndarray) -> "CSR":
         rows, cols = np.nonzero(a)
         return CSR.from_coo(rows, cols, a[rows, cols], a.shape, sum_duplicates=False)
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape)
+        rows, cols, vals = self.to_coo()
+        out[rows, cols] = vals
+        return out

@@ -4,6 +4,8 @@
   ``-div(Q diag(1, eps) Q^T grad u)`` on an n x n grid, Q a rotation by
   theta (the paper's "2D rotated anisotropic" problem).
 * :func:`poisson_2d` — the 5-point Laplacian.
+* :func:`linear_elasticity_2d` — Q1 plane-stress linear elasticity on a
+  regular grid, 2 dofs per node (the paper's second AMG problem).
 * :func:`random_fixed_nnz` — random matrices with a constant number of
   nonzeros per row (Figs. 11-12).
 """
@@ -74,6 +76,58 @@ def rotated_anisotropic_2d(n: int, eps: float = 0.001,
             offsets.append((di, dj))
             weights.append(st[di + 1, dj + 1])
     return _stencil_matrix(n, offsets, weights)
+
+
+def linear_elasticity_2d(n: int, E: float = 1e5, nu: float = 0.3) -> CSR:
+    """Q1 plane-stress linear elasticity on an n x n node grid (2 dofs per
+    node): the 8 x 8 element stiffness of a bilinear quad on unit square
+    elements by 2 x 2 Gauss quadrature, assembled, with the x = 0 edge
+    pinned (Dirichlet) so the matrix is SPD."""
+    D = (E / (1.0 - nu * nu)) * np.array([
+        [1.0, nu, 0.0], [nu, 1.0, 0.0], [0.0, 0.0, (1.0 - nu) / 2.0]])
+    gp = np.array([-1.0, 1.0]) / np.sqrt(3.0)
+    ke = np.zeros((8, 8))
+    for xi in gp:
+        for eta in gp:
+            dN = 0.25 * np.array([
+                [-(1 - eta), (1 - eta), (1 + eta), -(1 + eta)],
+                [-(1 - xi), -(1 + xi), (1 + xi), (1 - xi)]])
+            J = dN @ np.array([[0, 0], [1, 0], [1, 1], [0, 1]], dtype=float)
+            dNdx = np.linalg.solve(J, dN)
+            B = np.zeros((3, 8))
+            B[0, 0::2] = dNdx[0]
+            B[1, 1::2] = dNdx[1]
+            B[2, 0::2] = dNdx[1]
+            B[2, 1::2] = dNdx[0]
+            ke += B.T @ D @ B * np.linalg.det(J)
+
+    nodes = np.arange(n * n).reshape(n, n)
+    ne = n - 1
+    e00 = nodes[:-1, :-1].reshape(-1)
+    elems = np.stack([e00, e00 + 1, e00 + n + 1, e00 + n], axis=1)  # ccw quad
+    dof = np.empty((ne * ne, 8), dtype=np.int64)
+    dof[:, 0::2] = 2 * elems
+    dof[:, 1::2] = 2 * elems + 1
+    rows = np.repeat(dof, 8, axis=1).reshape(-1)
+    cols = np.tile(dof, (1, 8)).reshape(-1)
+    vals = np.tile(ke.reshape(-1), ne * ne)
+    a = CSR.from_coo(rows, cols, vals, (2 * n * n, 2 * n * n))
+    fixed = np.concatenate([2 * nodes[0], 2 * nodes[0] + 1])
+    return _apply_dirichlet(a, fixed)
+
+
+def _apply_dirichlet(a: CSR, fixed: np.ndarray) -> CSR:
+    """Drop the rows and columns of the ``fixed`` dofs and put ones on
+    their diagonal."""
+    rows, cols, vals = a.to_coo()
+    fixed_set = np.zeros(a.shape[0], dtype=bool)
+    fixed_set[fixed] = True
+    keep = ~(fixed_set[rows] | fixed_set[cols])
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    rows = np.concatenate([rows, fixed])
+    cols = np.concatenate([cols, fixed])
+    vals = np.concatenate([vals, np.ones(fixed.size)])
+    return CSR.from_coo(rows, cols, vals, a.shape)
 
 
 def random_fixed_nnz(n_rows: int, nnz_per_row: int, seed: int = 0) -> CSR:

@@ -95,3 +95,37 @@ def test_lm_serve_and_decode_attention_raise_without_cuda(monkeypatch):
         decode_attention(q, kv, kv, lengths)
     assert build_model(cfg, device="cpu").device == torch.device("cpu")
     assert decode_attention(q, kv, kv, lengths, device="cpu").device.type == "cpu"
+
+
+def test_comm_and_amg_import_loads_neither_jax_nor_reference():
+    code = ("import sys, repro_torch.comm, repro_torch.amg\n"
+            "import repro_torch.core.integrity\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\nprint('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "clean" in proc.stdout
+
+
+def test_multistep_and_level_operators_raise_without_cuda(monkeypatch):
+    from repro_torch.amg import level_operators, smoothed_aggregation_hierarchy
+    from repro_torch.core.spmv_torch import compile_multistep
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = poisson_2d(8)
+    topo = Topology(2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_api.operator(a, topo, method="multistep")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_api.operator(a, topo, comm="auto")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile_multistep(a, contiguous_partition(64, 4), topo)
+    levels = smoothed_aggregation_hierarchy(a, coarse_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        level_operators(levels, topo)
+    ops = level_operators(levels, topo, comm="auto", device="cpu")
+    assert ops[0].a.shape == (64, 64) and ops[0].p.shape == levels[0].p.shape
+    assert port_api.operator(a, topo, method="multistep",
+                             device="cpu").method == "multistep"
