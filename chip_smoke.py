@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: the node-aware SpMV,
-the multi-step exchange and the AMG solver path, and the gemma2-2b
-serving path.
+the multi-step exchange, wire integrity, the float64 simulate backend
+and the AMG solver path, and the gemma2-2b serving path.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -48,7 +48,23 @@ Phases, each fatal on failure:
    forms bit-equal and timed side by side, and ``threshold=1`` bit-equal
    to the node-aware operator of phase 4 (transposes in PyTorch's
    deterministic mode);
-8. the AMG solver path on the same matrix: the smoothed-aggregation
+8. wire integrity on the main path's matrix and topology, for the nap,
+   multistep and standard methods (``integrity="detect"``, ELL): clean
+   detect applies at nv = 1 and 8 in both directions, bit-equal to the
+   uninstrumented program (transposes in deterministic mode) with zero
+   wire and ABFT mismatches; for every message phase and direction one
+   real edge whose payload is neither all zero nor constant (from a
+   recorded clean run), every fault kind on it detected with the
+   receiver, slot, phase and scope ``scope_for`` gives, and a compute
+   bitflip on bit 30 of a value in [0.1, 1) caught by ABFT; device-program
+   ms (median of 10) and peak memory, bare and instrumented; then
+   ``integrity="recover"`` bit-equal to the clean result after one retry
+   each way, one detect apply of the fused-BSR forward at the BSR path's
+   grid, and the float64 simulate backend: all three methods at the BSR
+   path's grid against the device programs and the float64 host product,
+   the node-aware method at full size against phase 4's device results,
+   and one scripted wire fault attributed as on the device;
+9. the AMG solver path on the same matrix: the smoothed-aggregation
    hierarchy (theta 0.1, coarse_size 2 x ranks), ``level_operators(...,
    comm="auto")``, per level the rows, nnz, both directions' exchange
    and local-format verdicts and the host seconds of chooser and
@@ -60,7 +76,7 @@ Phases, each fatal on failure:
    operators beside the same solver on float64 host matvecs, the true
    residual of each iteration side by side, and the V-cycle's wall and
    ELL launches;
-9. the decode-attention kernel against its plain version at gemma2-2b's
+10. the decode-attention kernel against its plain version at gemma2-2b's
    decode_32k shapes: B = 8, S = 32768, Hkv = 4, g = 2, D = 256, softcap
    50, lengths ragged in [1, S] (1, 17, 4096, 4097, S and three drawn
    from the seed); the bf16 [B, S, Hkv, D] cache read in place with
@@ -73,7 +89,7 @@ Phases, each fatal on failure:
    time of the kernel's two launches, and the bound over the k/v rows
    inside the masks; then the kernel's other query-tile instantiations
    at small shapes, untimed;
-10. the serving path at full width: gemma2-2b, all 26 layers, bf16,
+11. the serving path at full width: gemma2-2b, all 26 layers, bf16,
    weights drawn from the seed on the card, through
    ``repro_torch.launch.serve.generate``: batch 4, a 512-token prompt
    teacher-forced through ``decode_step``, then 32 greedy tokens,
@@ -84,11 +100,11 @@ Phases, each fatal on failure:
    served bf16 cache (read in place, 544 of 1024 positions) of an even
    layer (window 4096) and an odd one (window 1024), with a query drawn
    from the seed, at the same tolerance and timed;
-11. the whole decode step checked on the card: the same config with 2
+12. the whole decode step checked on the card: the same config with 2
    layers in float32, 8 steps through the kernel, then the same steps
    with the plain version swapped into ``models.attention`` by this
    script, logits compared at atol 1e-3;
-12. the whole script's seconds, a JSON line of every kernel (with
+13. the whole script's seconds, a JSON line of every kernel (with
     ``device_ms`` and, for the BSR kernels, ``library_bsr_ms``), then the
     result line.
 
@@ -96,7 +112,7 @@ Launch counts are reset right before each path is driven and read right
 after, and the peak of allocated device memory is reset and read around
 it.  Each phase frees its tensors before the next.  TF32 is switched off,
 so the plain versions' products are f32.  ``--n`` and ``--bsr-n`` shrink
-the grids of the SpMV phases and ``--lm-layers`` the depth of phase 10,
+the grids of the SpMV phases and ``--lm-layers`` the depth of phase 11,
 for a short first call after a kernel change.
 """
 import argparse
@@ -124,7 +140,10 @@ from repro_torch.api import operator  # noqa: E402
 from repro_torch.comm import choose_comm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cost_model import BLUE_WATERS  # noqa: E402
+from repro_torch.core.integrity import (FAULT_KINDS, IntegrityError,  # noqa: E402
+                                        MessageFault, message_phases, scope_for)
 from repro_torch.core.partition import contiguous_partition  # noqa: E402
+import repro_torch.core.spmv_torch as spmv_torch  # noqa: E402
 from repro_torch.core.topology import Topology  # noqa: E402
 from repro_torch.kernels import build_all, launches, reset_launches  # noqa: E402
 from repro_torch.kernels.bsr_spmv import (bsr_spmm_padded,  # noqa: E402
@@ -216,12 +235,12 @@ def check_close(name, got, want, slots, scale):
     return err
 
 
-def check_oracle(label, got, want):
+def check_oracle(label, got, want, ref="float64 host CSR"):
     if got.shape != want.shape or not np.isfinite(got).all():
         raise AssertionError(f"{label}: bad result {got.shape}")
     np.testing.assert_allclose(got, want, **TOL)
     rel = float(np.abs(got - want).max() / np.abs(want).max())
-    print(f"  {label}: matches float64 host CSR (max abs err / max |ref| {rel:.3e})")
+    print(f"  {label}: matches {ref} (max abs err / max |ref| {rel:.3e})")
 
 
 def free():
@@ -740,7 +759,7 @@ def phase_standard(a, a_b, topo, part, oracles, nap_summary, full_size):
           f"packed {ms_p:.4f}, materialized {ms_c:.4f}")
     return fwd1, fwd8, tr
 
-# the multi-step exchange and the AMG solver path (phases 7-8) --------------------
+# the multi-step exchange and the AMG solver path (phases 7 and 9) ----------------
 
 def ell_held(label, c, direction, gen):
     """The ELL kernel against its plain version on one compiled plan's own
@@ -861,6 +880,346 @@ def phase_multistep(a, topo, part, oracles, nap_ref, gen, full_size):
     return fwd, tr
 
 
+# wire integrity on the main path (phase 8) ------------------------------------
+
+class deterministic:
+    """PyTorch's deterministic algorithms for the block (``index_add_`` of
+    the transposes then sums in a fixed order), when ``on``."""
+
+    def __init__(self, on=True):
+        self.on = on
+
+    def __enter__(self):
+        if self.on:
+            torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        if self.on:
+            torch.use_deterministic_algorithms(False)
+
+
+def record_messages(ex, direction, v):
+    """One clean instrumented run of ``ex``'s program with every message
+    buffer recorded just before its fault boundary: ``{phase: [P, slots,
+    words]}`` (int32 words of each message, row-major), ``"compute"`` the
+    local result or packed contributions the compute fault would hit."""
+    rec = {}
+    orig_fault, orig_pair = spmv_torch._Wire.fault, spmv_torch._fault_pair
+
+    def fault(self, phase, buf):
+        rec[phase] = buf.reshape(buf.shape[0], buf.shape[1], -1).clone()
+        return orig_fault(self, phase, buf)
+
+    def fault_pair(send, spec):
+        nv, p, _, pad = send.shape
+        rec["pair"] = send.permute(1, 2, 3, 0).reshape(p, p, pad * nv).clone()
+        return orig_pair(send, spec)
+
+    spmv_torch._Wire.fault, spmv_torch._fault_pair = fault, fault_pair
+    try:
+        ex.program(direction, fault_spec=zero_spec(ex))(ex.packed(direction, v))
+    finally:
+        spmv_torch._Wire.fault, spmv_torch._fault_pair = orig_fault, orig_pair
+    torch.cuda.synchronize()
+    return rec
+
+
+def zero_spec(ex):
+    n = len(message_phases(ex.method)) + 1
+    return torch.zeros((ex.topo.n_nodes, ex.topo.ppn, n, 4), dtype=torch.int32,
+                       device=DEV)
+
+
+def pick_edges(buf):
+    """Per fault kind, one real edge ``(sender, slot, element)`` of a
+    message phase whose payload is neither all zero nor constant (the
+    median such edge), the fault then changing its bits: ``duplicate``
+    also needs the next slot's payload to differ.  None where no edge
+    qualifies (the documented undetectable classes)."""
+    w = buf.view(torch.int32) if buf.dtype != torch.int32 else buf
+    good = (w != 0).any(-1) & (w != w[..., :1]).any(-1)
+    dup = good & (w != torch.roll(w, -1, 1)).any(-1)
+
+    def median(mask):
+        idx = torch.nonzero(mask.reshape(-1)).reshape(-1)
+        if idx.numel() == 0:
+            return None
+        flat = int(idx[idx.numel() // 2])
+        s, k = divmod(flat, w.shape[1])
+        return s, k, int(torch.nonzero(w[s, k])[0])
+
+    edge = median(good)
+    return {kind: (median(dup) if kind == "duplicate" else edge) for kind in FAULT_KINDS}
+
+
+def expected_mismatch(phase, s, k, ppn):
+    """(node, proc, slot) where the receiver reports a fault that sender
+    rank ``s`` put on its message slot ``k``."""
+    node, proc = divmod(s, ppn)
+    if phase == "inter":
+        return k, proc, node
+    if phase in ("pair", "direct"):
+        return k // ppn, k % ppn, s
+    return node, k, proc
+
+
+def expect_detected(view, v, label, fault, want):
+    """Inject ``fault``; the next apply of ``view`` to ``v`` must raise
+    with exactly the mismatch ``want``."""
+    view.queue_fault(fault)
+    try:
+        view @ v
+    except IntegrityError as e:
+        got = [(m.check, m.phase, m.scope, m.node, m.proc, m.slot, m.direction)
+               for m in e.mismatches]
+        if got != [want]:
+            raise AssertionError(f"{label}: mismatches {got}, expected [{want}]")
+        return
+    raise AssertionError(f"{label}: {fault} not detected")
+
+
+def fault_sweep(op, method, direction, v, ppn):
+    """Every fault kind on a real edge of every message phase, then a
+    compute bitflip on a high exponent bit, each detected with the
+    reference's attribution; returns the number of faults detected."""
+    view = op.T if direction == "transpose" else op
+    rec = record_messages(op.executor, direction, v)
+    n = 0
+    for phase in message_phases(method):
+        edges = pick_edges(rec[phase])
+        for kind in FAULT_KINDS:
+            edge = edges[kind]
+            if edge is None and kind == "bitflip":
+                edge = (0, 0, 0)    # no live edge: a flip in padding is still seen
+            if edge is None:
+                print(f"    {method} {direction} {phase}: no edge carries a payload "
+                      f"{kind} changes (documented undetectable class), skipped")
+                continue
+            s, k, elem = edge
+            node, proc, slot = expected_mismatch(phase, s, k, ppn)
+            fault = MessageFault(phase=phase, kind=kind, node=s // ppn, proc=s % ppn,
+                                 slot=k, element=elem, bit=20, direction=direction)
+            expect_detected(view, v, f"{method} {direction} {phase} {kind}", fault,
+                            ("wire", phase, scope_for(phase, node, proc, slot, ppn),
+                             node, proc, slot, direction))
+            n += 1
+        print(f"    {method} {direction} {phase}: edge {edges['bitflip']}, "
+              f"{sum(e is not None for e in edges.values())} kinds on live edges")
+    # ABFT: bit 30 of a value in [0.1, 1) makes it ~2^128 times larger and
+    # still finite, far above the tolerance (a flip to inf would not be)
+    r = op.topo.n_procs - 1
+    vals = rec["compute"][r, 0]
+    idx = torch.nonzero((vals.abs() >= 0.1) & (vals.abs() < 1.0)).reshape(-1)
+    elem = int(idx[idx.numel() // 2])
+    fault = MessageFault(phase="compute", kind="bitflip", node=r // ppn, proc=r % ppn,
+                         element=elem, bit=30, direction=direction)
+    expect_detected(view, v, f"{method} {direction} compute", fault,
+                    ("abft", "compute", "on_proc", r // ppn, r % ppn, 0, direction))
+    del rec
+    free()
+    return n + 1
+
+
+def bare_apply(ex, direction, v):
+    """The uninstrumented program on the same compiled plan, unpacked: the
+    ``integrity="off"`` result."""
+    w = ex.program(direction)(ex.packed(direction, v))
+    part = ex.row_part if direction == "forward" else ex.col_part
+    return spmv_torch.unpack_vector(w.cpu().numpy(), part, ex.topo)
+
+
+def phase_integrity(a, topo, part, oracles, a_b):
+    """[8] wire integrity on the main path: nap, standard and multistep."""
+    n = int(np.sqrt(a.shape[0]))
+    print(f"[8] integrity: n={n}, Topology(32, 16), nap / multistep / standard, "
+          f"integrity='detect'")
+    ppn = topo.ppn
+    v1, v8, u1 = oracles["v1"], oracles["v8"], oracles["u1"]
+    ell = {"forward": 0, "transpose": 0}
+    nap_op = None
+    for method in ("multistep", "standard", "nap"):   # nap last: it stays alive
+        t0 = time.perf_counter()
+        op = operator(a, topo, part, method=method, local_compute="ell",
+                      integrity="detect", device=DEV)
+        ex = op.executor
+        c = ex.compiled
+        c.ensure_ell()
+        c.ensure_ell_t()
+        t_compile = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c.ensure_abft()
+        st = op.stats()
+        print(f"  {method}: compile + formats {t_compile:.2f} s, ensure_abft "
+              f"{time.perf_counter() - t0:.2f} s; checksum words per apply "
+              f"{st['checksum_total'] // 4} ({st['checksum_total']} B)")
+        # 1. clean detect applies, bit-equal to the bare program, no mismatch
+        nvs = (1, 8)
+        for direction in ("forward", "transpose"):
+            view = op.T if direction == "transpose" else op
+            for nv in nvs:
+                v = (v1 if direction == "forward" else u1) if nv == 1 else v8
+                with deterministic(direction == "transpose"):
+                    got, cnt = drive(f"{method} detect {direction} nv={nv}",
+                                     lambda: view @ v)
+                    want = bare_apply(ex, direction, v)
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"{method} {direction} nv={nv}: detect != off")
+                ell[direction] += cnt.get("ell_spmm_packed", 0)
+                if nv == 1:
+                    check_oracle(f"{method} detect {direction} nv=1", got,
+                                 oracles["w1" if direction == "forward" else "z1"])
+                del got, want
+        rep = op.integrity_report()
+        if rep["wire_mismatches"] or rep["abft_mismatches"] or not rep["wire_checks"]:
+            raise AssertionError(f"{method}: clean applies reported {rep}")
+        print(f"  {method}: {rep['applies']} clean detect applies bit-equal to off, "
+              f"{rep['wire_checks']} wire checks, {rep['abft_checks']} ABFT checks, "
+              f"0 mismatches")
+        # 2. scripted faults on real edges, both directions
+        n_faults = 0
+        for direction in ("forward", "transpose"):
+            with deterministic(direction == "transpose"):
+                n_faults += fault_sweep(op, method, direction,
+                                        v1 if direction == "forward" else u1, ppn)
+        rep = op.integrity_report()
+        print(f"  {method}: {n_faults} scripted faults detected with the expected "
+              f"attribution; strikes {rep['strikes']}")
+        # 3. device-program times and peaks, bare and instrumented
+        spec = zero_spec(ex)
+        for direction in ("forward", "transpose"):
+            for nv in nvs:
+                v = (v1 if direction == "forward" else u1) if nv == 1 else v8
+                shards = ex.packed(direction, v)
+                row = dict(method=method, direction=direction, nv=nv)
+                for label, prog in (("bare", ex.program(direction)),
+                                    ("instrumented",
+                                     ex.program(direction, fault_spec=spec))):
+                    free()
+                    torch.cuda.reset_peak_memory_stats()
+                    out = prog(shards)
+                    torch.cuda.synchronize()
+                    row[f"{label}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                    del out
+                    row[f"{label}_ms"] = time_ms(lambda: prog(shards), reps=10)
+                print(f"  {method} {direction} nv={nv}: bare {row['bare_ms']:.4f} ms "
+                      f"(peak {row['bare_peak_gb']:.3f} GB), instrumented "
+                      f"{row['instrumented_ms']:.4f} ms (peak "
+                      f"{row['instrumented_peak_gb']:.3f} GB), ratio "
+                      f"{row['instrumented_ms'] / row['bare_ms']:.2f}")
+                if nv == 1:
+                    profile_program(f"{method} {direction} nv=1 instrumented",
+                                    lambda: prog(shards), row["instrumented_ms"])
+                del shards
+        if method == "nap":
+            nap_op = op
+        else:
+            del op
+        del ex, c
+        free()
+    # 4. recover: one fault, the clean result bit for bit after one retry
+    rec_op = operator(a, topo, part, local_compute="ell", integrity="recover",
+                      device=DEV)
+    y_off = bare_apply(nap_op.executor, "forward", v1)
+    s, k, elem = pick_edges(record_messages(rec_op.executor, "forward", v1)["inter"])["bitflip"]
+    rec_op.inject_fault("inter", "bitflip", node=s // ppn, proc=s % ppn, slot=k,
+                        element=elem, bit=20)
+    if not np.array_equal(rec_op @ v1, y_off):
+        raise AssertionError("recover forward is not the clean result")
+    rep = rec_op.integrity_report()
+    if not rep["retries"] == rep["recovered"] == 1:
+        raise AssertionError(f"recover forward: {rep}")
+    with deterministic():
+        z_off = bare_apply(nap_op.executor, "transpose", u1)
+        s, k, elem = pick_edges(record_messages(rec_op.executor, "transpose",
+                                                u1)["final"])["zero"]
+        rec_op.T.inject_fault("final", "zero", node=s // ppn, proc=s % ppn, slot=k,
+                              element=elem)
+        if not np.array_equal(rec_op.T @ u1, z_off):
+            raise AssertionError("recover transpose is not the clean result")
+    rep = rec_op.integrity_report()
+    if not rep["retries"] == rep["recovered"] == 2:
+        raise AssertionError(f"recover transpose: {rep}")
+    print(f"  recover: forward and transpose faults retried once each, results "
+          f"bit-equal to off (retries {rep['retries']}, recovered "
+          f"{rep['recovered']}, strikes {rep['strikes']})")
+    del rec_op, y_off, z_off
+    free()
+    # 5. the fused-BSR forward at the BSR path's size, one detect apply
+    op_b = operator(a_b, topo, local_compute="bsr", integrity="detect", device=DEV)
+    vb = oracles["vb"][:, None]
+    wb, cnt_b = drive("bsr detect forward", lambda: op_b @ vb)
+    if not np.array_equal(wb, bare_apply(op_b.executor, "forward", vb)):
+        raise AssertionError("bsr detect != off")
+    check_oracle("bsr detect forward", wb[:, 0], oracles["wb"])
+    if cnt_b.get("fused_bsr_spmm_packed", 0) < 1:
+        raise AssertionError("the BSR detect apply did not launch its kernel")
+    print(f"  bsr n={int(np.sqrt(a_b.shape[0]))}: detect apply bit-equal to off, "
+          f"{op_b.integrity_report()['wire_checks']} wire checks, 0 mismatches")
+    del op_b, wb
+    free()
+    return ell, cnt_b, nap_op
+
+
+def phase_simulate(a, topo, part, oracles, a_b, nap_op, nap_w1, nap_z1):
+    """[8, simulate] the float64 simulate backend: every method at the BSR
+    path's grid against the device programs and the float64 host product;
+    the node-aware method at the main path's size against phase 4's device
+    results, and one scripted wire fault on both backends."""
+    nb = int(np.sqrt(a_b.shape[0]))
+    print(f"  simulate: n={nb} all methods, then n={int(np.sqrt(a.shape[0]))} "
+          f"node-aware (host float64)")
+    rng = np.random.default_rng(16)
+    vb = oracles["vb"]
+    ub = rng.standard_normal(a_b.shape[0])
+    wb, zb = host_apply(a_b, vb), host_apply(a_b, ub, transpose=True)
+    for method in ("nap", "standard", "multistep"):
+        t0 = time.perf_counter()
+        sim = operator(a_b, topo, method=method, backend="simulate")
+        w, z = sim @ vb, sim.T @ ub
+        t_sim = time.perf_counter() - t0
+        dev = operator(a_b, topo, method=method, local_compute="ell", device=DEV)
+        check_oracle(f"device {method} n={nb} forward", dev @ vb, w, "float64 simulate")
+        check_oracle(f"device {method} n={nb} transpose", dev.T @ ub, z,
+                     "float64 simulate")
+        for label, got, want in (("forward", w, wb), ("transpose", z, zb)):
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            if not rel <= 1e-12:
+                raise AssertionError(f"simulate {method} {label}: {rel:.3e} off float64")
+        print(f"  simulate {method} n={nb}: forward + transpose {t_sim:.2f} s host, "
+              f"float64 within 1e-12 of the host product")
+        del sim, dev
+    t0 = time.perf_counter()
+    sim = operator(a, topo, part, backend="simulate", integrity="detect")
+    w, z = sim @ oracles["v1"], sim.T @ oracles["u1"]
+    t_sim = time.perf_counter() - t0
+    for label, got, want, dev in (("forward", w, oracles["w1"], nap_w1),
+                                  ("transpose", z, oracles["z1"], nap_z1)):
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        if not rel <= 1e-12:
+            raise AssertionError(f"simulate nap {label}: {rel:.3e} off float64")
+        check_oracle(f"device nap {label} (phase 4)", dev, got, "float64 simulate")
+    print(f"  simulate nap n={int(np.sqrt(a.shape[0]))}: forward + transpose "
+          f"{t_sim:.2f} s host, within 1e-12 of the host product")
+    # one scripted fault on both backends: the device's inter edge
+    rec = record_messages(nap_op.executor, "forward", oracles["v1"])
+    s, k, elem = pick_edges(rec["inter"])["bitflip"]
+    del rec
+    fault = dict(phase="inter", kind="bitflip", node=s // topo.ppn,
+                 proc=s % topo.ppn, slot=k, element=elem, bit=20)
+    got = []
+    for view in (nap_op, sim):
+        view.inject_fault(**fault)
+        try:
+            view @ oracles["v1"]
+            raise AssertionError(f"{view.spec.backend}: fault not detected")
+        except IntegrityError as e:
+            got.append([(m.check, m.phase, m.scope, m.node, m.proc, m.slot)
+                        for m in e.mismatches])
+    if got[0] != got[1]:
+        raise AssertionError(f"simulate and device attribute differently: {got}")
+    print(f"  simulate wire: fault {fault} attributed as on the device: {got[0]}")
+
+
 class HostOp:
     """A float64 scipy CSR matrix with the operators' call and ``@``: the
     host-matvec twin of a level's distributed operators."""
@@ -889,10 +1248,10 @@ def check_level(label, got, want):
 
 
 def phase_amg(a, topo, gen, seed, full_size):
-    """[8] the AMG solver path on the main path's matrix."""
+    """[9] the AMG solver path on the main path's matrix."""
     import repro_torch.api as api_mod
     rng = np.random.default_rng(seed + 8)
-    print(f"[8] AMG: n={int(np.sqrt(a.shape[0]))}, smoothed aggregation theta 0.1, "
+    print(f"[9] AMG: n={int(np.sqrt(a.shape[0]))}, smoothed aggregation theta 0.1, "
           f"coarse_size {2 * topo.n_procs}, Topology(32, 16), comm='auto'")
     t0 = time.perf_counter()
     levels = smoothed_aggregation_hierarchy(a, theta=0.1, coarse_size=2 * topo.n_procs)
@@ -1043,7 +1402,7 @@ def phase_amg(a, topo, gen, seed, full_size):
     return counts
 
 
-# gemma2-2b serving (phases 9-11) -------------------------------------------------
+# gemma2-2b serving (phases 10-12) ------------------------------------------------
 ATTN_REPLACES = "src/repro/kernels/decode_attn/kernel.py:71"
 ATTN_SOURCE = "src/repro_torch/csrc/decode_attn.cu"
 
@@ -1135,11 +1494,11 @@ def attn_case(label, q, k, v, lengths, window, softcap, scale, timed=True):
 
 
 def phase_decode_attn(rng, gen):
-    """[9] the decode-attention kernel at gemma2-2b's decode_32k shapes."""
+    """[10] the decode-attention kernel at gemma2-2b's decode_32k shapes."""
     cfg = get_config("gemma2-2b")
     b, s, hkv, d = 8, 32768, cfg.n_kv_heads, cfg.head_dim
     g = cfg.n_heads // hkv
-    print(f"[9] decode attention: B {b}, S {s}, Hkv {hkv}, g {g}, D {d}, softcap "
+    print(f"[10] decode attention: B {b}, S {s}, Hkv {hkv}, g {g}, D {d}, softcap "
           f"{cfg.attn_softcap}")
     lengths = np.concatenate([[1, 17, 4096, 4097], rng.integers(1, s + 1, 3), [s]])
     lengths = torch.from_numpy(lengths.astype(np.int32)).to(DEV)
@@ -1177,10 +1536,10 @@ def phase_decode_attn(rng, gen):
 
 
 def phase_serve(n_layers, seed):
-    """[10] gemma2-2b serving at full width through serve.generate."""
+    """[11] gemma2-2b serving at full width through serve.generate."""
     cfg = get_config("gemma2-2b").replace(n_layers=n_layers)
     batch, prompt_len, gen_len, max_seq = 4, 512, 32, 1024
-    print(f"[10] serve: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+    print(f"[11] serve: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, vocab "
           f"{cfg.vocab}, {cfg.dtype}; batch {batch}, prompt {prompt_len}, gen "
           f"{gen_len}, max_seq {max_seq}")
     t0 = time.perf_counter()
@@ -1236,7 +1595,7 @@ def phase_serve(n_layers, seed):
 
 
 def phase_step_check(seed):
-    """[11] the decode step through the kernel vs through the plain version."""
+    """[12] the decode step through the kernel vs through the plain version."""
     cfg = get_config("gemma2-2b").replace(n_layers=2, dtype="float32")
     batch, n_steps = 4, 8
     model = build_model(cfg).init(seed)
@@ -1267,7 +1626,7 @@ def phase_step_check(seed):
     # through two layers and the head that stays below 1e-4 on logits
     # bounded by the final softcap of 30, so 1e-3 leaves a wide margin.
     tol = 1e-3
-    print(f"[11] decode step, {cfg.name} 2 layers float32, {n_steps} steps: kernel "
+    print(f"[12] decode step, {cfg.name} 2 layers float32, {n_steps} steps: kernel "
           f"({n_launch} launches) vs plain ({plain_launches}) logits max_abs_err "
           f"{err:.3e} (tolerance {tol:.0e}), max |logit| {float(want.abs().max()):.2f}")
     if n_launch != 2 * n_steps or plain_launches != 0 or not err <= tol \
@@ -1359,7 +1718,7 @@ def main():
                    wb=host_apply(a_b, oracles["vb"]))
     print(f"[plan] float64 host oracles {time.perf_counter() - t0:.2f} s")
 
-    # 3-8. the phases ---------------------------------------------------------
+    # 3-9. the phases ---------------------------------------------------------
     entries = phase_kernels(c, cb, a, a_b, oracles, gen)
     by_name = {e["name"]: e for e in entries}
     fwd, tr, nap_ref = phase_nap(op, a, oracles)
@@ -1377,13 +1736,19 @@ def main():
     free()
     m_fwd, m_tr = phase_multistep(a, topo, part, oracles, nap_ref, gen,
                                   args.n == 2024)
-    del oracles, nap_ref
+    free()
+    t0 = time.perf_counter()
+    i_ell, i_bsr, nap_det = phase_integrity(a, topo, part, oracles, a_b)
+    phase_simulate(a, topo, part, oracles, a_b, nap_det, nap_ref["w1"],
+                   nap_ref["z1"])
+    print(f"  phase 8 {time.perf_counter() - t0:.1f} s")
+    del oracles, nap_ref, nap_det
     free()
     amg = phase_amg(a, topo, gen, args.seed, args.n == 2024)
     del a
     free()
 
-    # 9-11. gemma2-2b serving ---------------------------------------------------
+    # 10-12. gemma2-2b serving ---------------------------------------------------
     entries.append(phase_decode_attn(rng, gen))
     by_name["decode_attention_grouped"] = entries[-1]
     by_name["decode_attention_grouped"]["launches"] = phase_serve(args.lm_layers,
@@ -1394,15 +1759,17 @@ def main():
     # counts were reset just before it); the AMG solve's launches, forward
     # and transpose together, count with the forward entry
     by_name["ell_spmm_packed"]["launches"] = sum(
-        d.get("ell_spmm_packed", 0) for d in (fwd, s_fwd1, s_fwd8, m_fwd, amg))
+        d.get("ell_spmm_packed", 0) for d in (fwd, s_fwd1, s_fwd8, m_fwd, amg)) \
+        + i_ell["forward"]
     by_name["ell_spmm_packed:transpose"]["launches"] = sum(
-        d.get("ell_spmm_packed", 0) for d in (tr, s_tr, m_tr))
-    by_name["fused_bsr_spmm_packed"]["launches"] = cnt_p.get("fused_bsr_spmm_packed", 0)
+        d.get("ell_spmm_packed", 0) for d in (tr, s_tr, m_tr)) + i_ell["transpose"]
+    by_name["fused_bsr_spmm_packed"]["launches"] = (
+        cnt_p.get("fused_bsr_spmm_packed", 0) + i_bsr.get("fused_bsr_spmm_packed", 0))
     by_name["fused_bsr_spmm"]["launches"] = cnt_c.get("fused_bsr_spmm", 0)
     for e in entries:
         if e["launches"] < 1:
             raise AssertionError(f"{e['name']} was not launched on its path")
-    print(f"[12] whole script {time.perf_counter() - T_START:.1f} s")
+    print(f"[13] whole script {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

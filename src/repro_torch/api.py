@@ -26,9 +26,26 @@ input entries; ``op.T`` swaps the two through the same compiled plan.
 :class:`ComposedOperator` that applies the factors right to left, with
 shapes and interface partitions checked when it is composed.
 
-The program runs on the GPU; ``device="cpu"`` is the only way off it.
-Operands are global numpy arrays (or CPU tensors); results are numpy
-float32.  The plan compiles at the first apply.
+**Backends.**  ``backend="torch"`` runs the rank-batched program on the
+GPU; ``device="cpu"`` is the only way off it.  ``backend="simulate"``
+runs the float64 message-passing simulators on the host (numpy, no
+device), the paper's exact semantics; it alone takes the paper's
+``pairing="balanced"`` slot rule.  Operands are global numpy arrays (or
+CPU tensors); results are numpy float32 on the device backend and
+float64 on simulate (``precision=`` pins one).  The plan compiles at the
+first apply.
+
+**Integrity.**  ``integrity="detect"`` checksums every message of every
+exchange and checks each rank's local compute by ABFT; a mismatch raises
+:class:`IntegrityError` with its phase, message and rank.
+``"recover"`` retries the apply once and returns the fault-free result
+bit for bit.  ``op.inject_fault(...)`` scripts a deterministic fault for
+the next apply (``op.T.inject_fault`` for the transpose), and
+``op.integrity_report()`` counts checks, mismatches and strikes::
+
+    op = nap.operator(a, topo, integrity="detect")
+    op.inject_fault("inter", "bitflip", node=1, proc=0, slot=0)
+    op @ v             # raises IntegrityError (wire, inter, off_node)
 """
 from __future__ import annotations
 
@@ -42,13 +59,15 @@ from repro_torch.core.comm_graph import check_pairing
 from repro_torch.core.cost_model import MachineParams
 from repro_torch.core.executors import (OperatorSpec, available_executors,
                                         bind_executor, register_executor)
-from repro_torch.core.integrity import IntegrityError
+from repro_torch.core.integrity import IntegrityError, MessageFault
 from repro_torch.core.partition import RowPartition, contiguous_partition
 from repro_torch.core.topology import Topology
 from repro_torch.device import DeviceLike
 
 __all__ = ["operator", "NapOperator", "ComposedOperator", "IntegrityError",
-           "available_executors", "register_executor"]
+           "MessageFault", "available_executors", "register_executor"]
+
+INTEGRITY_MODES = ("off", "detect", "recover")
 
 
 def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
@@ -57,6 +76,7 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
              method: str = "nap", backend: str = "torch",
              comm: Optional[str] = None, threshold: object = "auto",
              local_compute: str = "auto", pairing: str = "aligned",
+             integrity: str = "off",
              device: DeviceLike = None) -> "NapOperator":
     """Build a :class:`NapOperator` for the ``[m, n]`` matrix ``a``.
 
@@ -73,9 +93,14 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
     the transpose, and the verdict rides in ``autotune_report()``.
     ``local_compute`` is ``"auto"`` (the format autotuner's verdict, per
     direction), ``"ell"``, ``"bsr"`` or ``"coo"``; the transpose has no
-    BSR kernel and resolves ``"bsr"`` to the ell/coo verdict.  Only
-    ``pairing="aligned"`` is built.  ``device`` defaults to CUDA and
-    raises when it is absent.
+    BSR kernel and resolves ``"bsr"`` to the ell/coo verdict.
+    ``backend`` is ``"torch"`` (the device programs) or ``"simulate"``
+    (the float64 host simulators).  ``pairing`` is the inter-node slot
+    rule of the node-aware plans: ``"aligned"``, or the paper's
+    ``"balanced"`` on the simulate backend.  ``integrity`` is ``"off"``,
+    ``"detect"`` or ``"recover"`` (module docstring); the chooser then
+    charges the checksum wires.  ``device`` defaults to CUDA and raises
+    when it is absent; the simulate backend runs on the host.
     """
     m, n = a.shape
     if topo is None:
@@ -98,7 +123,10 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
         raise ValueError(
             f"partition/matrix mismatch: a is {a.shape}, row_part has "
             f"{row_part.n_rows} rows, col_part {col_part.n_rows}")
-    check_pairing(pairing)
+    check_pairing(pairing, backend)
+    if integrity not in INTEGRITY_MODES:
+        raise ValueError(f"integrity must be one of {INTEGRITY_MODES}, "
+                         f"got {integrity!r}")
     comm_report, t_method, plans = None, None, {}
     if comm is not None:
         if comm not in COMM_CHOICES:
@@ -106,7 +134,7 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
         if comm == "auto":
             verdict = choose_comm(a.indptr, a.indices, row_part, topo,
                                   pairing=pairing, col_part=col_part,
-                                  threshold=threshold)
+                                  threshold=threshold, integrity=integrity)
             plans = verdict["plans"]
             method = verdict["forward"]["chosen"]
             t_method = verdict["transpose"]["chosen"]
@@ -124,7 +152,8 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
     spec = OperatorSpec(method=method, backend=backend,
                         local_compute=local_compute,
                         device=None if device is None else str(device),
-                        threshold=threshold)
+                        threshold=threshold, pairing=pairing,
+                        integrity=integrity)
     exec_ = bind_executor(backend, method, a, row_part, col_part, topo, spec,
                           plan=plans.get(method))
     t_exec = None
@@ -136,6 +165,15 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
     return NapOperator(a=a, row_part=row_part, col_part=col_part, topo=topo,
                        spec=spec, executor=exec_, transpose_executor=t_exec,
                        comm_report=comm_report)
+
+
+def _check_precision(precision: Optional[str], backend: str) -> None:
+    if precision not in (None, "float32", "float64"):
+        raise ValueError(f"precision must be float32|float64, got {precision!r}")
+    if precision == "float64" and backend != "simulate":
+        raise NotImplementedError(
+            f"backend={backend!r} computes in float32; use "
+            f"backend='simulate' for float64 results")
 
 
 def _is_operator(x) -> bool:
@@ -166,13 +204,21 @@ class NapOperator:
     def _transpose_executor(self):
         return self.transpose_executor or self.executor
 
-    def __call__(self, x, materialize_x: bool = False) -> np.ndarray:
+    def __call__(self, x, materialize_x: bool = False,
+                 precision: Optional[str] = None) -> np.ndarray:
         """Apply the operator.  ``materialize_x=True`` concatenates the
         packed x before the forward local compute instead of passing its
-        three segments (an A/B switch, bit-equal on the BSR path)."""
+        three segments (an A/B switch, bit-equal on the BSR path).
+        ``precision`` pins the result dtype, ``"float32"`` or
+        ``"float64"`` (None: the backend's own, float32 on the device,
+        float64 on simulate); the device programs compute in float32, so
+        asking them for float64 raises."""
+        _check_precision(precision, self.spec.backend)
         if self.transposed:
-            return self._transpose_executor.transpose(x)
-        return self.executor.forward(x, materialize_x)
+            out = self._transpose_executor.transpose(x)
+        else:
+            out = self.executor.forward(x, materialize_x)
+        return out if precision is None else np.asarray(out, dtype=precision)
 
     def __matmul__(self, x):
         if _is_operator(x):
@@ -230,6 +276,42 @@ class NapOperator:
         time on the GPU."""
         return (self._transpose_executor if self.transposed
                 else self.executor).cost(machine)
+
+    def integrity_report(self):
+        """Check and mismatch counters, scope attribution, per-node strikes
+        and quarantine candidates (``{"mode": "off"}`` without integrity);
+        the transpose executor's under ``"transpose_executor"``."""
+        rep = self.executor.integrity_report()
+        if self.transpose_executor is not None:
+            rep = dict(rep)
+            rep["transpose_executor"] = self.transpose_executor.integrity_report()
+        return rep
+
+    def inject_fault(self, phase: str, kind: str = "bitflip", *,
+                     node: int = 0, proc: int = 0, slot: int = 0,
+                     element: int = 0, bit: int = 30,
+                     direction: Optional[str] = None) -> MessageFault:
+        """Script ONE deterministic fault for the next matching apply
+        (needs ``integrity != "off"``; it fires once).  ``(node, proc)``
+        is the sender, ``slot`` the destination's message slot (its
+        local rank for full / init / final, its node for inter, its flat
+        rank for pair / direct); ``phase="compute"`` flips a bit of the
+        sender's local result.  ``direction`` defaults to this view's."""
+        if direction is None:
+            direction = "transpose" if self.transposed else "forward"
+        fault = MessageFault(phase=phase, kind=kind, node=node, proc=proc,
+                             slot=slot, element=element, bit=bit,
+                             direction=direction)
+        self.queue_fault(fault)
+        return fault
+
+    def queue_fault(self, fault: MessageFault) -> None:
+        """Script a prebuilt :class:`MessageFault`; a transpose fault goes
+        to the transpose executor where ``comm="auto"`` gave it one."""
+        if fault.direction == "transpose" and self.transpose_executor is not None:
+            self.transpose_executor.queue_fault(fault)
+        else:
+            self.executor.queue_fault(fault)
 
     def autotune_report(self):
         """Format verdict (forward at the top, transpose under
@@ -289,10 +371,12 @@ class ComposedOperator:
                     "partitions match (no hidden repartition)")
         return ComposedOperator(factors=factors)
 
-    def __call__(self, x) -> np.ndarray:
+    def __call__(self, x, precision: Optional[str] = None) -> np.ndarray:
+        """Apply the factors right to left; ``precision`` pins the dtype
+        of the result."""
         for f in reversed(self.factors):
             x = f(x)
-        return x
+        return x if precision is None else np.asarray(x, dtype=precision)
 
     def __matmul__(self, x):
         if _is_operator(x):

@@ -4,8 +4,9 @@
 structure, scores each with :func:`repro_torch.comm.cost.planned_traffic`
 plus the postal alpha-beta term, and picks the winner lexicographically:
 
-1. fewest injected inter-node bytes (padded slots), the quantity the
-   paper optimizes, an exact property of the plan;
+1. fewest injected inter-node bytes (padded slots plus, with integrity
+   on, the checksum side channel), the quantity the paper optimizes, an
+   exact property of the plan;
 2. then the lowest postal time (start-ups matter when bytes tie);
 3. then the preference ``nap < multistep < standard``: the incumbent
    wins exact ties, so a multistep plan with no direct share never
@@ -43,12 +44,14 @@ def build_candidate_plans(indptr: np.ndarray, indices: np.ndarray, part,
 
 def comm_verdict(plans: Dict, direction: str = "forward",
                  bytes_per_val: int = 4, nv: int = 1,
+                 integrity: str = "off",
                  params: PostalParams = BLUE_WATERS_POSTAL) -> Dict:
-    """Score prebuilt candidate plans for one exchange direction."""
+    """Score prebuilt candidate plans for one exchange direction;
+    ``integrity`` charges the checksum wires it adds."""
     candidates: Dict[str, Dict] = {}
     for name, plan in plans.items():
         traffic = planned_traffic(plan, bytes_per_val=bytes_per_val, nv=nv,
-                                  direction=direction)
+                                  direction=direction, integrity=integrity)
         times = postal_comm_time(traffic, params)
         candidates[name] = {
             "injected_inter_bytes": traffic["injected_inter_bytes"],
@@ -69,6 +72,7 @@ def choose_comm(indptr: np.ndarray, indices: np.ndarray, part, topo,
                 pairing: str = "aligned", col_part=None,
                 threshold: Union[int, str] = "auto",
                 bytes_per_val: int = 4, nv: int = 1,
+                integrity: str = "off",
                 params: PostalParams = BLUE_WATERS_POSTAL,
                 plans: Optional[Dict] = None) -> Dict:
     """Verdicts of both directions for one operator's structure.
@@ -82,7 +86,8 @@ def choose_comm(indptr: np.ndarray, indices: np.ndarray, part, topo,
         plans = build_candidate_plans(indptr, indices, part, topo,
                                       pairing=pairing, col_part=col_part,
                                       threshold=threshold)
-    kw = dict(bytes_per_val=bytes_per_val, nv=nv, params=params)
+    kw = dict(bytes_per_val=bytes_per_val, nv=nv, integrity=integrity,
+              params=params)
     ms = plans.get("multistep")
     return {
         "forward": comm_verdict(plans, direction="forward", **kw),

@@ -5,8 +5,9 @@ phase's largest message, so the bytes a strategy *injects* differ from
 the bytes it *needs* to move.  :func:`planned_traffic` costs a plan the
 way the program runs it: per phase, each existing (src, dst) message is
 charged the phase pad; absent slots cost nothing (the full-buffer view
-is ``padded_traffic`` on the compiled plan).  Its payload feeds
-:func:`repro_torch.core.cost_model.postal_comm_time`.
+is ``padded_traffic`` on the compiled plan).  With integrity on, each
+phase also ships one u32 checksum per message slot and rank.  Its
+payload feeds :func:`repro_torch.core.cost_model.postal_comm_time`.
 """
 from __future__ import annotations
 
@@ -15,14 +16,19 @@ from typing import Dict, List, Sequence
 from repro_torch.comm.multistep import MultistepPlan
 from repro_torch.core.comm_graph import NAPPlan, StandardPlan
 
+#: bytes of the checksum side channel per message slot (one u32).
+_CHECKSUM_BYTES_PER_SLOT = 4
+
 
 def _phase_entry(send_lists: Sequence[List], recv_lists: Sequence[List],
                  pad: int, inter: bool, bytes_per_val: int, nv: int,
-                 direction: str) -> Dict:
+                 direction: str, n_slots: int, integrity: str) -> Dict:
     """One exchange phase.  ``pad`` is the phase's slot size in values;
     ``direction`` picks whose buffers set the per-rank maxima (the
     transpose reverses every message, so the forward receiver becomes the
-    bottleneck sender).  Totals are direction-independent."""
+    bottleneck sender).  Totals are direction-independent.  With
+    ``integrity`` on, a phase that carries messages also ships ``n_slots``
+    checksum words, whether or not a slot carries data."""
     rank_lists = send_lists if direction == "forward" else recv_lists
     bpv = bytes_per_val * nv
     n_msgs = sum(len(msgs) for msgs in send_lists)
@@ -35,6 +41,8 @@ def _phase_entry(send_lists: Sequence[List], recv_lists: Sequence[List],
         "max_rank_msgs": int(max((len(msgs) for msgs in rank_lists), default=0)),
         "max_rank_padded_bytes": int(max(
             (len(msgs) * pad * bpv for msgs in rank_lists), default=0)),
+        "checksum_bytes": int(n_slots * _CHECKSUM_BYTES_PER_SLOT
+                              if integrity != "off" and n_msgs > 0 else 0),
         "inter": bool(inter),
     }
 
@@ -61,36 +69,41 @@ def _split_pair(plan: StandardPlan):
 
 
 def planned_traffic(plan, bytes_per_val: int = 4, nv: int = 1,
-                    direction: str = "forward") -> Dict:
+                    direction: str = "forward",
+                    integrity: str = "off") -> Dict:
     """Phase-by-phase injected traffic of a Standard / NAP / Multistep plan.
 
     Returns ``{"strategy", "direction", "bytes_per_val", "phases":
     {name: entry}, "injected_inter_bytes", "effective_inter_bytes",
     "injected_intra_bytes", "effective_intra_bytes"}``; each phase entry
     carries padded and effective totals, per-rank maxima for the
-    direction, and an ``inter`` flag.
+    direction, the integrity side channel's bytes (``checksum_bytes``,
+    counted into the injected totals) and an ``inter`` flag.
     """
     if direction not in ("forward", "transpose"):
         raise ValueError(f"unknown direction {direction!r}")
     phases: Dict[str, Dict] = {}
 
-    def entry(sends, recvs, pad, inter):
+    topo = plan.topology
+
+    def entry(sends, recvs, pad, inter, n_slots):
         return _phase_entry(sends, recvs, pad, inter, bytes_per_val, nv,
-                            direction)
+                            direction, n_slots, integrity)
 
     def nap_phases(nap: NAPPlan) -> None:
-        for name, sends, recvs, inter in (
-                ("full", nap.local_full_sends, nap.local_full_recvs, False),
-                ("init", nap.local_init_sends, nap.local_init_recvs, False),
-                ("inter", nap.inter_sends, nap.inter_recvs, True),
-                ("final", nap.local_final_sends, nap.local_final_recvs, False)):
-            phases[name] = entry(sends, recvs, _pad_of(sends), inter)
+        for name, sends, recvs, inter, n_slots in (
+                ("full", nap.local_full_sends, nap.local_full_recvs, False, topo.ppn),
+                ("init", nap.local_init_sends, nap.local_init_recvs, False, topo.ppn),
+                ("inter", nap.inter_sends, nap.inter_recvs, True, topo.n_nodes),
+                ("final", nap.local_final_sends, nap.local_final_recvs, False,
+                 topo.ppn)):
+            phases[name] = entry(sends, recvs, _pad_of(sends), inter, n_slots)
 
     if isinstance(plan, MultistepPlan):
         strategy = "multistep"
         nap_phases(plan.nap)
         phases["direct"] = entry(plan.direct.sends, plan.direct.recvs,
-                                 _pad_of(plan.direct.sends), True)
+                                 _pad_of(plan.direct.sends), True, topo.n_procs)
     elif isinstance(plan, NAPPlan):
         strategy = "nap"
         nap_phases(plan)
@@ -98,8 +111,8 @@ def planned_traffic(plan, bytes_per_val: int = 4, nv: int = 1,
         strategy = "standard"
         s_inter, s_intra, r_inter, r_intra = _split_pair(plan)
         pad = _pad_of(plan.sends)  # shared across the flat exchange
-        phases["pair_inter"] = entry(s_inter, r_inter, pad, True)
-        phases["pair_intra"] = entry(s_intra, r_intra, pad, False)
+        phases["pair_inter"] = entry(s_inter, r_inter, pad, True, topo.n_procs)
+        phases["pair_intra"] = entry(s_intra, r_intra, pad, False, topo.n_procs)
     else:
         raise TypeError(f"unsupported plan type {type(plan).__name__}")
 
@@ -111,8 +124,10 @@ def planned_traffic(plan, bytes_per_val: int = 4, nv: int = 1,
         "direction": direction,
         "bytes_per_val": int(bytes_per_val),
         "phases": phases,
-        "injected_inter_bytes": total("padded_bytes", True),
+        "injected_inter_bytes": total("padded_bytes", True)
+        + total("checksum_bytes", True),
         "effective_inter_bytes": total("effective_bytes", True),
-        "injected_intra_bytes": total("padded_bytes", False),
+        "injected_intra_bytes": total("padded_bytes", False)
+        + total("checksum_bytes", False),
         "effective_intra_bytes": total("effective_bytes", False),
     }

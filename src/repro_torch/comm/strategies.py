@@ -7,7 +7,7 @@ aggregated node-aware ``nap`` exchange, or the duplication-split
 ``build_plan(indptr, indices, part, topo, pairing=, col_part=,
 threshold=)``; ``"auto"`` is not a strategy but lets
 :func:`repro_torch.comm.autotune.choose_comm` pick one per operator and
-direction.  Only ``pairing="aligned"`` is built.
+direction.
 """
 from __future__ import annotations
 
@@ -15,15 +15,13 @@ import dataclasses
 from typing import Callable, Dict, Tuple
 
 from repro_torch.comm.multistep import build_multistep_plan
-from repro_torch.core.comm_graph import (build_nap_plan, build_standard_plan,
-                                         check_pairing)
+from repro_torch.core.comm_graph import build_nap_plan, build_standard_plan
 from repro_torch.core.integrity import message_phases
 
 
 def _build_standard(indptr, indices, part, topo, pairing="aligned",
                     col_part=None, threshold="auto"):
-    del threshold  # one flat exchange: nothing to split
-    check_pairing(pairing)
+    del pairing, threshold  # one flat exchange: nothing to pair or split
     return build_standard_plan(indptr, indices, part, topo, col_part=col_part)
 
 

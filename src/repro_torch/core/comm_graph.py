@@ -10,9 +10,11 @@ The paper's sets, computed once in numpy "as the matrix is formed":
   (23/24) redistributions.
 
 The sets communicate the *vector* indices ``j`` owned by the sender (the
-semantics the paper's Example 2.1 tables use).  Slots are paired
-``"aligned"``: the receiving local id q equals the sending local id p, so
-the inter-node phase is one exchange over the node axis of the rank grid.
+semantics the paper's Example 2.1 tables use).  Inter-node slots pair
+``"aligned"`` (the receiving local id q equals the sending local id p,
+so the inter-node phase is one exchange over the node axis of the rank
+grid; the device programs need it) or ``"balanced"`` (the paper's T/U
+rule, which the float64 simulators take).
 """
 from __future__ import annotations
 
@@ -102,14 +104,18 @@ def _offproc_pairs(indptr: np.ndarray, indices: np.ndarray,
     return t[uniq], r[uniq], j[uniq]
 
 
-def check_pairing(pairing: str) -> None:
-    """The port builds ``"aligned"`` slot pairing only."""
-    if pairing == "balanced":
-        raise NotImplementedError(
-            "pairing='balanced' (the paper's text rule) is not ported; the "
-            "port builds pairing='aligned' (ROADMAP Queue 1 item 9)")
-    if pairing != "aligned":
-        raise ValueError(f"unknown pairing {pairing!r}")
+def check_pairing(pairing: str, backend: str = "torch") -> None:
+    """The device programs need ``"aligned"`` slot pairing (the exchange
+    over the node axis); the simulate backend takes both pairings."""
+    if pairing not in ("aligned", "balanced"):
+        raise ValueError(f"unknown pairing {pairing!r}; one of "
+                         f"'aligned', 'balanced'")
+    if pairing == "balanced" and backend != "simulate":
+        raise ValueError(
+            f"backend={backend!r} runs pairing='aligned' only (its "
+            f"inter-node exchange pairs slots over the node axis); "
+            f"pairing='balanced', the paper's T/U rule, runs on "
+            f"backend='simulate'")
 
 
 @dataclasses.dataclass
@@ -123,6 +129,11 @@ class StandardPlan:
     sends: List[List[Message]]  # sends[r] = messages rank r sends
     recvs: List[List[Message]]  # recvs[t] = messages rank t receives
     col_partition: Optional[RowPartition] = None
+
+    @property
+    def col_part(self) -> RowPartition:
+        return self.col_partition if self.col_partition is not None \
+            else self.partition
 
     def P(self, r: int) -> List[int]:
         return [m.dst for m in self.sends[r]]
@@ -186,6 +197,11 @@ class NAPPlan:
     local_full_recvs: List[List[Message]]
     col_partition: Optional[RowPartition] = None
 
+    @property
+    def col_part(self) -> RowPartition:
+        return self.col_partition if self.col_partition is not None \
+            else self.partition
+
     def recv_slot_map(self, rank: int, phase: str,
                       pad: int) -> Tuple[np.ndarray, np.ndarray]:
         """Slot map into rank's flat padded recv buffer for one phase.
@@ -248,16 +264,24 @@ def build_nap_plan(indptr: np.ndarray, indices: np.ndarray, part: RowPartition,
                    col_part: Optional[RowPartition] = None,
                    pairs: Optional[Tuple[np.ndarray, np.ndarray,
                                          np.ndarray]] = None) -> NAPPlan:
-    """Build the node-aware plan with ``"aligned"`` slot pairing.
+    """Build the node-aware plan.
 
     ``part`` is the row partition, ``col_part`` the column/x partition
     (defaults to ``part``: the paper's square case).  ``pairs`` supplies
     the deduped off-process triples ``(t, r, j)`` instead of extracting
     them from the structure (the multi-step plan hands over its
-    high-duplication share).  The paper's ``"balanced"`` pairing is not
-    ported.
+    high-duplication share).
+
+    pairing:
+      * ``"aligned"``  — the receiver's local id q equals the sender's
+        local id p, so the inter-node phase is one exchange over the node
+        axis (what the device programs run);
+      * ``"balanced"`` — the paper's rule: send slots in descending-data
+        order from p = 0, receive slots in descending-data order from
+        p = ppn - 1.
     """
-    check_pairing(pairing)
+    if pairing not in ("balanced", "aligned"):
+        raise ValueError(pairing)
     cpart = part if col_part is None else col_part
     ppn, n_nodes, n_procs = topo.ppn, topo.n_nodes, topo.n_procs
     t, r, j = pairs if pairs is not None else \
@@ -278,7 +302,7 @@ def build_nap_plan(indptr: np.ndarray, indices: np.ndarray, part: RowPartition,
         for m, idx in grouped.items():
             node_idx[(int(n), int(m))] = idx
 
-    # ---- T/U slot assignment: send slots by weight, receivers aligned -----
+    # ---- T/U slot assignment: send slots by weight from p = 0 -------------
     send_eps: Dict[Tuple[int, int], List[int]] = {k: [] for k in node_idx}
     recv_eps: Dict[Tuple[int, int], List[int]] = {k: [] for k in node_idx}
     T: List[List[int]] = [[] for _ in range(n_procs)]
@@ -289,11 +313,23 @@ def build_nap_plan(indptr: np.ndarray, indices: np.ndarray, part: RowPartition,
             for (m, _c) in slot:
                 send_eps[(n, m)].append(topo.rank(p, n))
                 T[topo.rank(p, n)].append(m)
-    for (n, m), senders in send_eps.items():
-        for s in senders:
-            q = topo.local_of(s)
-            recv_eps[(n, m)].append(topo.rank(q, m))
-            U[topo.rank(q, m)].append(n)
+    if pairing == "aligned":
+        for (n, m), senders in send_eps.items():
+            for s in senders:
+                q = topo.local_of(s)
+                recv_eps[(n, m)].append(topo.rank(q, m))
+                U[topo.rank(q, m)].append(n)
+    else:
+        # receive slots by weight too, the largest from p = ppn - 1 down
+        node_srcs: List[List[int]] = [[] for _ in range(n_nodes)]
+        for (n, m) in node_idx:
+            node_srcs[m].append(n)
+        for m in range(n_nodes):
+            items = [(n, int(node_idx[(n, m)].size)) for n in sorted(node_srcs[m])]
+            for q, slot in enumerate(_distribute_slots(items, ppn)[::-1]):
+                for (n, _c) in slot:
+                    recv_eps[(n, m)].append(topo.rank(q, m))
+                    U[topo.rank(q, m)].append(n)
 
     # ---- realise inter-node messages (G / I) -------------------------------
     inter_sends: List[List[Message]] = [[] for _ in range(n_procs)]

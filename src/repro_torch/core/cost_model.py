@@ -226,11 +226,13 @@ def postal_comm_time(traffic: Dict, params: PostalParams = BLUE_WATERS_POSTAL
                      ) -> Dict[str, float]:
     """Modeled seconds of one exchange schedule (a ``planned_traffic``
     payload): phases run one after another, each charged at its
-    bottleneck rank's padded bytes."""
+    bottleneck rank's padded bytes plus the integrity side channel when
+    armed."""
     out: Dict[str, float] = {}
     total = 0.0
     for name, ph in traffic["phases"].items():
-        t = postal_phase_time(ph["max_rank_msgs"], ph["max_rank_padded_bytes"],
+        t = postal_phase_time(ph["max_rank_msgs"],
+                              ph["max_rank_padded_bytes"] + ph["checksum_bytes"],
                               ph["inter"], params)
         out[name] = t
         total += t

@@ -3,17 +3,30 @@
 An executor binds one (backend, method) pair to a matrix and a layout
 and exposes what the operator front-end needs: ``forward(v)`` (global
 ``A @ v``, 1-RHS or multi-RHS), ``transpose(u)`` (global ``A.T @ u`` on
-the same plan), ``stats()``, ``cost(machine)`` and ``autotune_report()``.
+the same plan), ``stats()``, ``cost(machine)``, ``autotune_report()``,
+and with integrity on ``queue_fault`` and ``integrity_report()``.
 
-Registered here, both rank-batched programs of
-:mod:`repro_torch.core.spmv_torch` on one device:
+Registered here:
 
 * ``("torch", "nap")`` — the node-aware exchange (Algorithm 3);
 * ``("torch", "standard")`` — the flat exchange (Algorithm 1), the
   paper's baseline;
 * ``("torch", "multistep")`` — the node-aware exchange for columns that
   several processes of a node need, a direct owner -> requester hop for
-  the rest (:mod:`repro_torch.comm.multistep`).
+  the rest (:mod:`repro_torch.comm.multistep`);
+
+all three the rank-batched programs of :mod:`repro_torch.core.spmv_torch`
+on one device, and
+
+* ``("simulate", "nap" | "standard" | "multistep")`` — the exact float64
+  message-passing simulators on the host (:mod:`repro_torch.core.spmv`,
+  :mod:`repro_torch.comm.simulate`), the correctness oracles.
+
+``integrity="detect"`` runs the instrumented programs (wire checksums
+over every message, ABFT over every rank's local compute) and raises
+:class:`repro_torch.core.integrity.IntegrityError` with the attributed
+mismatches; ``"recover"`` retries a failed apply once from the retained
+packed operand, which reproduces the fault-free result bit for bit.
 """
 from __future__ import annotations
 
@@ -23,10 +36,16 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.comm_graph import nap_stats, standard_stats
+from repro_torch.core.comm_graph import (build_nap_plan, build_standard_plan,
+                                         nap_stats, standard_stats)
 from repro_torch.core.cost_model import (MachineParams, multistep_cost,
                                          nap_cost, standard_cost)
+from repro_torch.core.integrity import (IntegrityError, IntegrityState,
+                                        MessageFault, SimWire)
 from repro_torch.core.partition import RowPartition
+from repro_torch.core.spmv import (simulate_nap_spmv, simulate_nap_spmv_transpose,
+                                   simulate_standard_spmv,
+                                   simulate_standard_spmv_transpose)
 from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device
 
@@ -41,6 +60,8 @@ class OperatorSpec:
     device: Optional[str] = None    # None = CUDA; "cpu" only on request
     # duplication threshold of method="multistep" ("auto" or an int >= 1)
     threshold: object = "auto"
+    pairing: str = "aligned"        # "balanced" on the simulate backend only
+    integrity: str = "off"          # "off" | "detect" | "recover"
 
 
 _REGISTRY: Dict[Tuple[str, str], Callable] = {}
@@ -77,6 +98,34 @@ def bind_executor(backend: str, method: str, a, row_part: RowPartition,
     return factory(a, row_part, col_part, topo, spec, plan=plan)
 
 
+def _integrity_state(spec: OperatorSpec, topo: Topology, method: str):
+    return (IntegrityState(spec.integrity, topo, method)
+            if spec.integrity != "off" else None)
+
+
+def _mismatch_error(what: str, mism) -> IntegrityError:
+    return IntegrityError(f"{what}: " + "; ".join(str(m) for m in mism), mism)
+
+
+class _IntegritySurface:
+    """``queue_fault`` and ``integrity_report`` over ``self._integrity``."""
+
+    _integrity: Optional[IntegrityState] = None
+
+    def queue_fault(self, fault: MessageFault) -> None:
+        """Script a deterministic message fault for the NEXT matching
+        apply (fires once; needs ``integrity != "off"``)."""
+        if self._integrity is None:
+            raise ValueError("fault injection requires integrity='detect' "
+                             "or 'recover' on the operator")
+        self._integrity.queue_fault(fault)
+
+    def integrity_report(self) -> Dict[str, object]:
+        if self._integrity is None:
+            return {"mode": "off"}
+        return self._integrity.report()
+
+
 def check_operand(n: int, v) -> np.ndarray:
     """A global [n] vector or [n, nv] multivector, as numpy."""
     if isinstance(v, torch.Tensor):
@@ -87,11 +136,16 @@ def check_operand(n: int, v) -> np.ndarray:
     return v
 
 
-class _TorchExecutor:
+class _TorchExecutor(_IntegritySurface):
     """One method's program on one device.  The plan compiles at the
     first apply; forward packs the operand by ``col_part`` and unpacks
     the result by ``row_part``, the transpose swaps both.  Subclasses
-    give ``_compile()`` and ``_programs()`` (forward, transpose)."""
+    give ``_compile()`` and ``_programs()`` (forward, transpose).
+
+    With integrity on, every apply runs the instrumented program with the
+    fault spec staged once on the device (``[n_nodes, ppn, n_phases,
+    4]`` int32): arming a fault is a ``copy_`` into it, so the program
+    never changes, and the spec is cleared after the apply."""
 
     backend = "torch"
     method = ""
@@ -103,6 +157,8 @@ class _TorchExecutor:
         self.device = resolve_device(spec.device)
         self._plan = plan       # a prebuilt plan of this method, or None
         self._compiled = None
+        self._integrity = _integrity_state(spec, topo, type(self).method)
+        self._fault_spec = None
 
     @property
     def compiled(self):
@@ -116,7 +172,8 @@ class _TorchExecutor:
         shards out, on the executor's device.  ``options`` go to the
         program function (``materialize_x`` forward; ``live_scatter``
         for the standard transpose; ``live_direct`` both ways on the
-        multi-step plan)."""
+        multi-step plan; ``fault_spec`` for the instrumented program,
+        which returns ``(w, chk, abft)``)."""
         forward, transpose = self._programs()
         fn = forward if direction == "forward" else transpose
         c, lc = self.compiled, self.spec.local_compute
@@ -135,9 +192,56 @@ class _TorchExecutor:
 
     def _apply(self, direction: str, v, **options) -> np.ndarray:
         from repro_torch.core.spmv_torch import unpack_vector
-        w = self.program(direction, **options)(self.packed(direction, v))
+        shards = self.packed(direction, v)
+        if self._integrity is not None:
+            w = self._apply_verified(direction, shards, options)
+        else:
+            w = self.program(direction, **options)(shards)
         out_part = self.row_part if direction == "forward" else self.col_part
         return unpack_vector(w.cpu().numpy(), out_part, self.topo)
+
+    def _apply_verified(self, direction: str, shards: torch.Tensor,
+                        options) -> torch.Tensor:
+        """Arm the queued faults of this direction, run the instrumented
+        program, verify its checksums and ABFT on the host; under
+        ``"recover"`` retry once from the retained packed shards with the
+        fault consumed (the same program on the same inputs, so the
+        fault-free result bit for bit).  A mismatch that persists, or any
+        under ``"detect"``, raises :class:`IntegrityError`."""
+        st, c = self._integrity, self.compiled
+        if self._fault_spec is None:     # staged once, never aliasing host arrays
+            self._fault_spec = torch.zeros(st.fetch_spec().shape, dtype=torch.int32,
+                                           device=self.device)
+        n_terms = c.rows_pad + c.packed_x_len
+        prog = self.program(direction, fault_spec=self._fault_spec, **options)
+
+        def run():
+            self._fault_spec.copy_(torch.from_numpy(st.fetch_spec()))
+            w, chk, abft = prog(shards)
+            return w, st.verify(chk.cpu().numpy(), abft.cpu().numpy(),
+                                direction, n_terms)
+
+        st.counters["applies"] += 1
+        st.arm(direction)
+        try:
+            w, mism = run()
+            if not mism:
+                return w
+            if st.mode == "detect":
+                raise _mismatch_error(f"{len(mism)} integrity mismatch(es) on "
+                                      f"{direction} apply", mism)
+            # recover: the faults were consumed at arm time
+            st.counters["retries"] += 1
+            st.disarm()
+            w, mism = run()
+            if mism:
+                raise _mismatch_error(f"integrity mismatch persisted through "
+                                      f"retry on {direction} apply", mism)
+            st.counters["recovered"] += 1
+            return w
+        finally:
+            st.disarm()
+            self._fault_spec.zero_()
 
     def forward(self, v, materialize_x: bool = False) -> np.ndarray:
         return self._apply("forward", v, materialize_x=materialize_x)
@@ -180,7 +284,7 @@ class NapTorchExecutor(_TorchExecutor):
         from repro_torch.core.spmv_torch import padded_traffic
         out = {f"messages_{k}": v for k, v in
                nap_stats(self.compiled.plan).items()}
-        out.update(padded_traffic(self.compiled))
+        out.update(padded_traffic(self.compiled, integrity=self.spec.integrity))
         return out
 
     def cost(self, machine: MachineParams) -> Dict[str, float]:
@@ -209,7 +313,7 @@ class StandardTorchExecutor(_TorchExecutor):
         from repro_torch.core.spmv_torch import padded_traffic
         out = {f"messages_{k}": v for k, v in
                standard_stats(self.compiled.plan).items()}
-        out.update(padded_traffic(self.compiled))
+        out.update(padded_traffic(self.compiled, integrity=self.spec.integrity))
         return out
 
     def cost(self, machine: MachineParams) -> Dict[str, float]:
@@ -241,8 +345,158 @@ class MultistepTorchExecutor(_TorchExecutor):
         from repro_torch.core.spmv_torch import padded_traffic
         out = {f"messages_{k}": v for k, v in
                multistep_stats(self.compiled.ms_plan).items()}
-        out.update(padded_traffic(self.compiled))
+        out.update(padded_traffic(self.compiled, integrity=self.spec.integrity))
         return out
 
     def cost(self, machine: MachineParams) -> Dict[str, float]:
         return multistep_cost(self.compiled.ms_plan, machine)
+
+
+class _SimulateExecutor(_IntegritySurface):
+    """The exact float64 message-passing simulators on the host (numpy;
+    no device); a multi-RHS operand runs column by column.  The plan is
+    built at the first apply."""
+
+    backend = "simulate"
+    method = ""
+    local_compute = "numpy"
+    transpose_local_compute = "numpy"
+
+    def __init__(self, a, row_part: RowPartition, col_part: RowPartition,
+                 topo: Topology, spec: OperatorSpec, plan=None):
+        self.a, self.topo, self.spec = a, topo, spec
+        self.row_part, self.col_part = row_part, col_part
+        self._plan = plan
+        self._integrity = _integrity_state(spec, topo, type(self).method)
+
+    @property
+    def plan(self):
+        if self._plan is None:
+            self._plan = self._build_plan()
+        return self._plan
+
+    def _columnwise(self, fn, v, n: int) -> np.ndarray:
+        v = np.asarray(check_operand(n, v), dtype=np.float64)
+        if v.ndim == 1:
+            return fn(v)
+        return np.stack([fn(v[:, i]) for i in range(v.shape[1])], axis=1)
+
+    def forward(self, v, materialize_x: bool = False) -> np.ndarray:
+        """``materialize_x`` is a device-program switch; the simulators
+        have one packed x and ignore it."""
+        if self._integrity is None:
+            return self._columnwise(self._forward, v, self.a.shape[1])
+        return self._forward_verified(v)
+
+    def _forward_verified(self, v) -> np.ndarray:
+        """Integrity over the numpy mailboxes: one :class:`SimWire` spans
+        the whole (possibly multi-RHS) apply and a scripted fault fires on
+        its first matching message.  Detect raises; recover re-runs
+        clean (the faults are consumed), exact by construction."""
+        st = self._integrity
+        st.counters["applies"] += 1
+        wire = SimWire(self.topo, st.take_pending("forward"))
+        out = self._columnwise(lambda col: self._forward(col, wire=wire), v,
+                               self.a.shape[1])
+        mism = st.note_sim(wire)
+        if not mism:
+            return out
+        if st.mode == "detect":
+            raise _mismatch_error(f"{len(mism)} integrity mismatch(es) on "
+                                  f"forward apply", mism)
+        st.counters["retries"] += 1
+        out = self._columnwise(self._forward, v, self.a.shape[1])
+        st.counters["recovered"] += 1
+        return out
+
+    def transpose(self, u) -> np.ndarray:
+        st = self._integrity
+        if st is not None:
+            if any(f.direction in ("any", "transpose") for f in st.pending):
+                raise NotImplementedError(
+                    "message-fault injection on the transpose direction runs "
+                    "on backend='torch': the simulate transposes reverse the "
+                    "exchange phases algebraically without mailboxes")
+            st.counters["applies"] += 1
+        return self._columnwise(self._transpose, u, self.a.shape[0])
+
+    def autotune_report(self) -> Dict[str, object]:
+        return {"resolved": self.local_compute,
+                "transpose_resolved": self.transpose_local_compute,
+                "note": "the simulate backend runs exact numpy local compute "
+                        "in both directions; the format autotuner applies to "
+                        "the device programs only"}
+
+
+@register_executor("simulate", "nap")
+class NapSimulateExecutor(_SimulateExecutor):
+    method = "nap"
+
+    def _build_plan(self):
+        return build_nap_plan(self.a.indptr, self.a.indices, self.row_part,
+                              self.topo, pairing=self.spec.pairing,
+                              col_part=self.col_part)
+
+    def _forward(self, v, wire=None):
+        return simulate_nap_spmv(self.a, v, self.plan, wire=wire)
+
+    def _transpose(self, u):
+        return simulate_nap_spmv_transpose(self.a, u, self.plan)
+
+    def stats(self) -> Dict[str, object]:
+        return {f"messages_{k}": v for k, v in nap_stats(self.plan).items()}
+
+    def cost(self, machine: MachineParams) -> Dict[str, float]:
+        return nap_cost(self.plan, machine)
+
+
+@register_executor("simulate", "multistep")
+class MultistepSimulateExecutor(_SimulateExecutor):
+    method = "multistep"
+
+    def _build_plan(self):
+        from repro_torch.comm.multistep import build_multistep_plan
+        return build_multistep_plan(self.a.indptr, self.a.indices,
+                                    self.row_part, self.topo,
+                                    pairing=self.spec.pairing,
+                                    col_part=self.col_part,
+                                    threshold=self.spec.threshold)
+
+    def _forward(self, v, wire=None):
+        from repro_torch.comm.simulate import simulate_multistep_spmv
+        return simulate_multistep_spmv(self.a, v, self.plan, wire=wire)
+
+    def _transpose(self, u):
+        from repro_torch.comm.simulate import simulate_multistep_spmv_transpose
+        return simulate_multistep_spmv_transpose(self.a, u, self.plan)
+
+    def stats(self) -> Dict[str, object]:
+        from repro_torch.comm.multistep import multistep_stats
+        return {f"messages_{k}": v for k, v in
+                multistep_stats(self.plan).items()}
+
+    def cost(self, machine: MachineParams) -> Dict[str, float]:
+        return multistep_cost(self.plan, machine)
+
+
+@register_executor("simulate", "standard")
+class StandardSimulateExecutor(_SimulateExecutor):
+    method = "standard"
+
+    def _build_plan(self):
+        return build_standard_plan(self.a.indptr, self.a.indices,
+                                   self.row_part, self.topo,
+                                   col_part=self.col_part)
+
+    def _forward(self, v, wire=None):
+        return simulate_standard_spmv(self.a, v, self.plan, wire=wire)
+
+    def _transpose(self, u):
+        return simulate_standard_spmv_transpose(self.a, u, self.plan)
+
+    def stats(self) -> Dict[str, object]:
+        return {f"messages_{k}": v for k, v in
+                standard_stats(self.plan).items()}
+
+    def cost(self, machine: MachineParams) -> Dict[str, float]:
+        return standard_cost(self.plan, machine)

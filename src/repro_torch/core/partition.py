@@ -3,12 +3,15 @@
 * ``contiguous`` — Eq. (2): rank r owns a contiguous run of rows (the
   remainder rows go to the leading ranks).
 * ``strided``    — row i lives on rank ``i mod n_p``.
+* ``balanced``   — graph-partitioned surrogate for PT-Scotch: recursive
+  min-cut bisection over the matrix adjacency graph.
 * :func:`partition_from_owner` — any ownership map, e.g. one that leaves
   ranks empty.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -81,3 +84,92 @@ def strided_partition(n_rows: int, n_procs: int) -> RowPartition:
     """Sec. 5: row i on process i mod n_p."""
     return partition_from_owner(np.arange(n_rows, dtype=np.int64) % n_procs,
                                 n_procs, "strided")
+
+
+def balanced_partition(indptr: np.ndarray, indices: np.ndarray, n_procs: int,
+                       seed: int = 0, max_iters: int = 8) -> RowPartition:
+    """Greedy KL-flavoured recursive bisection (PT-Scotch stand-in).
+
+    Splits the row set in halves minimising cut edges, recursively, until
+    n_procs parts exist (n_procs must be a power of two for the recursion;
+    otherwise falls back to contiguous on the remainder split).
+    """
+    n_rows = len(indptr) - 1
+    rng = np.random.default_rng(seed)
+    owner = np.zeros(n_rows, dtype=np.int64)
+
+    def bisect(rows: np.ndarray, lo: int, hi: int) -> None:
+        nparts = hi - lo
+        if nparts == 1 or rows.size == 0:
+            owner[rows] = lo
+            return
+        half = nparts // 2
+        target_left = rows.size * half // nparts
+        # BFS growth from a peripheral seed gives a contiguous-ish half.
+        in_set = np.zeros(n_rows, dtype=bool)
+        in_set[rows] = True
+        side = np.full(n_rows, -1, dtype=np.int8)  # 0 = left, 1 = right
+        start = rows[rng.integers(rows.size)]
+        frontier = [start]
+        side[rows] = 1
+        taken = 0
+        seen = np.zeros(n_rows, dtype=bool)
+        seen[start] = True
+        while frontier and taken < target_left:
+            nxt = []
+            for u in frontier:
+                if taken >= target_left:
+                    break
+                side[u] = 0
+                taken += 1
+                for v in indices[indptr[u] : indptr[u + 1]]:
+                    if in_set[v] and not seen[v]:
+                        seen[v] = True
+                        nxt.append(v)
+            frontier = nxt
+        if taken < target_left:  # disconnected: top up arbitrarily
+            rest = rows[side[rows] == 1]
+            need = target_left - taken
+            side[rest[:need]] = 0
+        # one pass of boundary refinement (move vertices that reduce cut, keep balance)
+        for _ in range(max_iters):
+            moved = 0
+            for u in rows:
+                s = side[u]
+                nbr = indices[indptr[u] : indptr[u + 1]]
+                nbr = nbr[in_set[nbr]]
+                if nbr.size == 0:
+                    continue
+                same = int(np.sum(side[nbr] == s))
+                other = nbr.size - same
+                if other > same:
+                    cnt_left = int(np.sum(side[rows] == 0))
+                    if s == 0 and cnt_left - 1 >= target_left - rows.size // (4 * nparts):
+                        side[u] = 1
+                        moved += 1
+                    elif s == 1 and cnt_left + 1 <= target_left + rows.size // (4 * nparts):
+                        side[u] = 0
+                        moved += 1
+            if moved == 0:
+                break
+        left = rows[side[rows] == 0]
+        right = rows[side[rows] == 1]
+        bisect(left, lo, lo + half)
+        bisect(right, lo + half, hi)
+
+    bisect(np.arange(n_rows, dtype=np.int64), 0, n_procs)
+    return partition_from_owner(owner, n_procs, "balanced")
+
+
+def make_partition(kind: str, n_rows: int, n_procs: int,
+                   indptr: Optional[np.ndarray] = None,
+                   indices: Optional[np.ndarray] = None, seed: int = 0) -> RowPartition:
+    if kind == "contiguous":
+        return contiguous_partition(n_rows, n_procs)
+    if kind == "strided":
+        return strided_partition(n_rows, n_procs)
+    if kind == "balanced":
+        if indptr is None or indices is None:
+            raise ValueError("balanced partition needs the matrix structure")
+        return balanced_partition(indptr, indices, n_procs, seed=seed)
+    raise ValueError(f"unknown partition kind {kind!r}")

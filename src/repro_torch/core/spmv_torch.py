@@ -42,6 +42,7 @@ request defers to the ell/coo verdict.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +52,8 @@ from repro_torch.comm.multistep import build_multistep_plan
 from repro_torch.core.comm_graph import (Message, NAPPlan, StandardPlan,
                                          build_nap_plan, build_standard_plan,
                                          lookup_slots)
+from repro_torch.core.integrity import (MULTISTEP_MESSAGE_PHASES,
+                                        NAP_MESSAGE_PHASES, phase_index)
 from repro_torch.core.cost_model import (H100_LOCAL, LOCAL_FORMATS,
                                          LocalComputeParams,
                                          choose_local_format,
@@ -217,6 +220,10 @@ class CompiledNAP(_Staged):
         rows = self.arrays["direct_send"].reshape(-1)[slot].astype(np.int64)
         self.arrays["direct_live_src"] = s * self.cols_pad + rows
         self.arrays["direct_live_dst"] = r * bg.shape[1] + k
+        # the same slots in the padded send table [P_src, P_dst, direct_pad]
+        # and in the transpose's message table [P_dst, P_src, direct_pad]
+        self.arrays["direct_live_slot"] = slot
+        self.arrays["direct_live_msg"] = (r * p + s) * dpad + slot % dpad
         self.arrays["boff_live_gather"] = np.where(bg >= off, off, bg).astype(np.int32)
 
     def resolve_local_compute(self, requested: str) -> str:
@@ -274,6 +281,21 @@ class CompiledNAP(_Staged):
         self.arrays["ell_t_vals"] = vals
         self.ell_t_kmax = kmax
 
+    def ensure_abft(self) -> None:
+        """Emit the ABFT checksum vectors (lazily, once): per rank the
+        COLUMN sums ``c_p = 1^T A_p`` over the packed x domain (forward
+        check: ``sum(y_p) == c_p . x_packed``) and the ROW sums ``A_p 1``
+        over the output rows (transpose check), with their absolute-value
+        twins for the tolerance scale.  Accumulated in float64, in the
+        reference's order, from the f32-rounded values the kernels
+        multiply, then stored f32.  The hot value swap, when it is
+        ported, refreshes them with the values."""
+        if "abft_col" in self.arrays:
+            return
+        offs = (0, self.cols_pad, self.cols_pad + self.pads["bnode"])
+        _emit_abft(self.arrays, [_packed_coo(blk, offs) for blk in self._blocks()],
+                   self.packed_x_len, self.rows_pad)
+
     def ensure_fused(self) -> None:
         """Emit the fused BSR arrays (lazily, once)."""
         if "fused_cols" in self.arrays:
@@ -290,6 +312,29 @@ class CompiledNAP(_Staged):
 # ---------------------------------------------------------------------------
 # Format emission and the format autotuner
 # ---------------------------------------------------------------------------
+
+def _emit_abft(arrays: Dict[str, np.ndarray],
+               per_rank_coo: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+               n_x: int, rows_pad: int) -> None:
+    """The four ABFT vectors from each rank's COO over the packed domain:
+    ``abft_col`` / ``abft_col_abs`` ``[P, n_x]``, ``abft_row`` /
+    ``abft_row_abs`` ``[P, rows_pad]``, summed in float64 in COO order."""
+    n = len(per_rank_coo)
+    col = np.zeros((n, n_x), np.float64)
+    cola = np.zeros((n, n_x), np.float64)
+    row = np.zeros((n, rows_pad), np.float64)
+    rowa = np.zeros((n, rows_pad), np.float64)
+    for r, (rr, cc, vv) in enumerate(per_rank_coo):
+        v32 = vv.astype(np.float32).astype(np.float64)
+        col[r] = np.bincount(cc, weights=v32, minlength=n_x)
+        cola[r] = np.bincount(cc, weights=np.abs(v32), minlength=n_x)
+        row[r] = np.bincount(rr, weights=v32, minlength=rows_pad)
+        rowa[r] = np.bincount(rr, weights=np.abs(v32), minlength=rows_pad)
+    arrays["abft_col"] = col.astype(np.float32)
+    arrays["abft_col_abs"] = cola.astype(np.float32)
+    arrays["abft_row"] = row.astype(np.float32)
+    arrays["abft_row_abs"] = rowa.astype(np.float32)
+
 
 def _packed_coo(blk: LocalBlocks, offs: Tuple[int, int, int]):
     """A rank's three blocks as one COO over the packed column domain."""
@@ -681,6 +726,10 @@ class CompiledStandard(_Staged):
         return self.cols_pad + self.buf_pad
 
     @property
+    def packed_x_len(self) -> int:
+        return self.n_x
+
+    @property
     def chosen_local_compute(self) -> str:
         return str(self.autotune.get("chosen", "coo"))
 
@@ -730,6 +779,13 @@ class CompiledStandard(_Staged):
         self.arrays["ell_t_cols"] = cols
         self.arrays["ell_t_vals"] = vals
         self.ell_t_kmax = kmax
+
+    def ensure_abft(self) -> None:
+        """The ABFT vectors over the two-segment packed domain, as
+        :meth:`CompiledNAP.ensure_abft`."""
+        if "abft_col" in self.arrays:
+            return
+        _emit_abft(self.arrays, self._coo(), self.n_x, self.rows_pad)
 
     def ensure_fused(self) -> None:
         if "fused_cols" in self.arrays:
@@ -909,6 +965,21 @@ def _gather(c: CompiledNAP, x: torch.Tensor, name: str) -> torch.Tensor:
     return x.reshape(-1).index_select(0, idx).reshape(shape)
 
 
+def _gather_columns(c: CompiledNAP, x: torch.Tensor, name: str) -> torch.Tensor:
+    """:func:`_gather`, one rhs column at a time through the nv = 1 row
+    index: for the instrumented literal direct exchange, whose
+    ``[P, P, direct_pad]`` slots at nv = 8 would need a 34 GB element
+    index at the paper's size."""
+    p, seg, nv = x.shape
+    idx = c.flat_index(name, seg)
+    out = torch.empty(tuple(c.arrays[name].shape) + (nv,), dtype=x.dtype,
+                      device=x.device)
+    flat_out, flat_x = out.view(-1, nv), x.reshape(-1, nv)
+    for j in range(nv):
+        flat_out[:, j] = flat_x[:, j].index_select(0, idx)
+    return out
+
+
 def _scatter(c: CompiledNAP, src: torch.Tensor, name: str,
              out_len: int) -> torch.Tensor:
     """Adjoint of :func:`_gather`: sum ``src`` (``arrays[name].shape +
@@ -963,9 +1034,166 @@ def _direct_exchange(buf: torch.Tensor) -> torch.Tensor:
     return buf.transpose(0, 1).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# Integrity: device twins of repro_torch.core.integrity
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+#: words per chunk of the checksum fold: its int64 temporaries stay at
+#: 1 GiB each on the largest buffers (the standard pair exchange)
+_FOLD_CHUNK_WORDS = 1 << 27
+
+
+def _fold(words: torch.Tensor, pos: torch.Tensor, dims) -> torch.Tensor:
+    """``s1 ^ rotl32(s2, 7)`` over ``dims`` of int32 ``words`` at 1-based
+    word positions ``pos`` (broadcast against ``words``).
+
+    PyTorch has no wrapping uint32 reduction, so the words stay signed:
+    a signed word is its unsigned value minus a multiple of 2^32, which
+    leaves both sums unchanged mod 2^32.  ``s1`` sums the words in int64;
+    each product ``word * pos`` (|.| < 2^62) is reduced mod 2^32 before
+    ``s2`` sums it, so no int64 sum can overflow."""
+    s1 = words.sum(dims, dtype=torch.int64) & _MASK32
+    s2 = ((words.long() * pos) & _MASK32).sum(dims) & _MASK32
+    return s1 ^ (((s2 << 7) & _MASK32) | (s2 >> 25))
+
+
+def _msg_checksums(buf: torch.Tensor, lead: int = 1) -> torch.Tensor:
+    """The position-weighted Fletcher fold of
+    :func:`repro_torch.core.integrity.checksum_np`, bit for bit, for every
+    message of ``buf``: its first ``lead`` dims index the messages, the
+    rest is each message's payload in row-major order (``[pad, nv]``),
+    read as 32-bit words (a float64 element is two, low word first).
+    Returns int64 ``buf.shape[:lead]`` holding uint32 values."""
+    shape = tuple(buf.shape[:lead])
+    n = int(np.prod(shape, dtype=np.int64))
+    words = buf.reshape(n, -1).view(torch.int32)
+    pos = torch.arange(1, words.shape[1] + 1, dtype=torch.int64,
+                       device=buf.device)
+    step = max(1, _FOLD_CHUNK_WORDS // max(words.shape[1], 1))
+    out = [_fold(words[i: i + step], pos, 1) for i in range(0, n, step)]
+    return torch.cat(out).reshape(shape)
+
+
+def _pair_checksums(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_msg_checksums` of the standard exchange's column-major
+    buffer ``x [nv, S, R, pad]``: message ``(s, r)``'s element ``(k, c)``
+    is word ``k * nv + c`` of its row-major ``[pad, nv]`` payload.
+    Returns int64 ``[S, R]``."""
+    words = x.view(torch.int32)
+    nv, n_s, n_r, pad = words.shape
+    dev = x.device
+    pos = (torch.arange(pad, dtype=torch.int64, device=dev) * nv)[None, None, None, :] \
+        + torch.arange(1, nv + 1, dtype=torch.int64, device=dev)[:, None, None, None]
+    step = max(1, _FOLD_CHUNK_WORDS // max(nv * n_r * pad, 1))
+    return torch.cat([_fold(words[:, i: i + step], pos, (0, 3))
+                      for i in range(0, n_s, step)])
+
+
+def _fault_rows(row: torch.Tensor, nxt: torch.Tensor,
+                spec: torch.Tensor) -> torch.Tensor:
+    """The scripted fault on one message per rank: ``row`` is the
+    targeted message's payload ``[P, L]`` (row-major), ``nxt`` the next
+    slot's, ``spec`` the ranks' ``(kind, slot, element, bit)`` rows
+    ``[P, 4]``.  Every variant is computed and ``kind`` selects one, so a
+    fault is data and kind 0 returns ``row`` unchanged: bitflip XORs bit
+    ``bit`` of 32-bit word ``element``; zero and drop blank the payload;
+    stale shifts it by one element; duplicate delivers the next slot's."""
+    kind, elem, bit = spec[:, 0:1], spec[:, 2:3], spec[:, 3:4]
+    words = row.view(torch.int32)
+    width = words.shape[1]
+    hit = torch.arange(width, device=row.device)[None, :] == torch.remainder(elem, width)
+    mask = torch.where(hit, torch.bitwise_left_shift(torch.ones_like(bit),
+                                                     bit.clamp(0, 31)), 0)
+    mask = (mask - ((mask >> 31) << 32)).to(torch.int32)   # 2^31 -> -2^31
+    flipped = (words ^ mask).view(row.dtype)
+    zeroed = torch.zeros_like(row)
+    out = row
+    for code, variant in ((1, flipped), (2, zeroed), (3, torch.roll(row, 1, 1)),
+                          (4, zeroed), (5, nxt)):
+        out = torch.where(kind == code, variant, out)
+    return out
+
+
+def _apply_fault(buf: torch.Tensor, spec: torch.Tensor) -> torch.Tensor:
+    """The fault transform at the pack boundary of one exchange:
+    ``buf [P, n_slots, *payload]`` holds every rank's outgoing messages,
+    ``spec [P, 4]`` one fault row per rank.  Only the targeted slot of
+    each rank is read and rewritten (kind 0 rewrites it unchanged), the
+    reference's ``_apply_fault`` applied to every rank; returns ``buf``,
+    made contiguous."""
+    buf = buf.contiguous()
+    p, n = buf.shape[:2]
+    flat = buf.view(p, n, -1)
+    ranks = torch.arange(p, device=buf.device)
+    slot = torch.remainder(spec[:, 1], n)
+    row, nxt = flat[ranks, slot], flat[ranks, torch.remainder(slot + 1, n)]
+    flat[ranks, slot] = _fault_rows(row, nxt, spec)
+    return buf
+
+
+def _stack_chk(pairs: List[Tuple[torch.Tensor, torch.Tensor]],
+               max_slots: int) -> torch.Tensor:
+    """Per-phase (expected, actual) checksums ``[P, n_slots]`` stacked
+    into ``[P, n_phases, 2, max_slots]``, padded slots zero on both rows
+    (padding never reads as a mismatch)."""
+    rows = [torch.stack([torch.nn.functional.pad(t, (0, max_slots - t.shape[1]))
+                         for t in pair], dim=1) for pair in pairs]
+    return torch.stack(rows, dim=1)
+
+
+class _Wire:
+    """The instrumented exchanges of one program run: each message buffer
+    is checksummed by its sender, the armed fault applied, the buffer and
+    its checksum words exchanged, and the checksums recomputed by the
+    receiver.  ``spec`` is the ``[P, n_phases, 4]`` fault spec."""
+
+    def __init__(self, spec: torch.Tensor, method: str):
+        self.spec = spec.reshape(-1, spec.shape[-2], 4).long()
+        self.ph = phase_index(method)
+        self.chks: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def fault(self, phase: str, buf: torch.Tensor) -> torch.Tensor:
+        return _apply_fault(buf, self.spec[:, self.ph[phase]])
+
+    def exchange(self, phase: str, buf: torch.Tensor, fn) -> torch.Tensor:
+        sent = _msg_checksums(buf, 2)
+        recv = fn(self.fault(phase, buf))
+        expect = fn(sent[:, :, None, None])[:, :, 0, 0]
+        self.chks[phase] = (expect, _msg_checksums(recv, 2))
+        return recv
+
+    def chk(self, c, phases: Sequence[str], max_slots: int) -> torch.Tensor:
+        out = _stack_chk([self.chks[p] for p in phases], max_slots)
+        return out.reshape((c.topo.n_nodes, c.topo.ppn) + out.shape[1:])
+
+
+def _exchanged(wire: Optional[_Wire], phase: str, buf: torch.Tensor, fn):
+    """``fn(buf)``, instrumented through ``wire`` when there is one."""
+    return fn(buf) if wire is None else wire.exchange(phase, buf, fn)
+
+
+def _abft(c, y: torch.Tensor, vecs: Tuple[torch.Tensor, torch.Tensor],
+          segs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """ABFT triple ``(sum(y_p), c_p . x, |c_p| . |x|)`` per rank and rhs,
+    ``[n_nodes, ppn, 3, nv]``: ``vecs`` are the checksum vector and its
+    absolute twin over the concatenated ``segs`` (the buffers the local
+    compute read)."""
+    vec, vec_abs = vecs
+    d = s = 0
+    off = 0
+    for x in segs:
+        n = x.shape[1]
+        d = d + torch.bmm(vec[:, None, off: off + n], x)[:, 0]
+        s = s + torch.bmm(vec_abs[:, None, off: off + n], x.abs())[:, 0]
+        off += n
+    out = torch.stack([y.sum(1), d, s], dim=1)
+    return out.reshape((c.topo.n_nodes, c.topo.ppn) + out.shape[1:])
+
+
 def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
-                materialize_x: bool = False,
-                live_direct: bool = True) -> torch.Tensor:
+                materialize_x: bool = False, live_direct: bool = True,
+                fault_spec: Optional[torch.Tensor] = None):
     """w = A @ v on packed shards: ``v_shards`` is COLUMN-partition packed
     ``[n_nodes, ppn, cols_pad(, nv)]``, the result ROW-partition packed
     ``[n_nodes, ppn, rows_pad(, nv)]`` on the plan's device.
@@ -979,6 +1207,19 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
     live slots move: each value is gathered from v_loc straight into its
     place in the off-node buffer.  ``live_direct=False`` runs the literal
     padded exchange (``[P, P, direct_pad]`` slots); the two are bit-equal.
+
+    ``fault_spec`` (int32 ``[n_nodes, ppn, n_phases, 4]``, see
+    :func:`repro_torch.core.integrity.build_fault_spec`) runs the
+    INSTRUMENTED program: every message is checksummed by its sender, the
+    armed fault applied at the pack boundary, the checksum words exchanged
+    with the payload and recomputed by the receiver; the compute fault
+    hits the local result, and the ABFT triple is taken over the buffers
+    the local compute read.  It returns ``(w, chk, abft)``: ``chk`` int64
+    ``[n_nodes, ppn, n_msg_phases, 2, max_slots]`` of uint32 values
+    (sender row 0, receiver row 1), ``abft`` f32 ``[n_nodes, ppn, 3, nv]``.
+    The direct phase then runs its literal padded exchange, whose
+    messages are the reference's.  Without a spec the program is the
+    bare one, launch for launch.
     """
     fmt = c.resolve_local_compute(local_compute)
     if fmt == "bsr":
@@ -988,20 +1229,28 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
     topo, rows_pad = c.topo, c.rows_pad
     v, single = _rank_batch(c, v_shards, c.cols_pad)
     p, _, nv = v.shape
+    ms = c.comm == "multistep"
+    wire = None
+    if fault_spec is not None:
+        c.ensure_abft()
+        wire = _Wire(fault_spec, c.comm)
+        live_direct = False
+    proc = functools.partial(_exchange_proc, topo=topo)
+    node = functools.partial(_exchange_node, topo=topo)
 
     # Phase A+B: intra-node exchanges over "proc".
-    full_recv = _exchange_proc(_gather(c, v, "full_send"), topo)
-    init_recv = _exchange_proc(_gather(c, v, "init_send"), topo)
+    full_recv = _exchanged(wire, "full", _gather(c, v, "full_send"), proc)
+    init_recv = _exchanged(wire, "init", _gather(c, v, "init_send"), proc)
     # Phase C: ONE aggregated inter-node exchange over "node".
     staged = torch.cat([v, init_recv.reshape(p, -1, nv)], dim=1)
-    inter_recv = _exchange_node(_gather(c, staged, "inter_gather"), topo)
+    inter_recv = _exchanged(wire, "inter", _gather(c, staged, "inter_gather"), node)
     # Phase D: intra-node scatter of the received off-node data.
     inter_flat = inter_recv.reshape(p, -1, nv)
-    final_recv = _exchange_proc(_gather(c, inter_flat, "final_send"), topo)
+    final_recv = _exchanged(wire, "final", _gather(c, inter_flat, "final_send"), proc)
     # Buffers of Algorithm 3's three local_spmv calls.
     bnode = _gather(c, full_recv.reshape(p, -1, nv), "bnode_gather")
     comb = [inter_flat, final_recv.reshape(p, -1, nv)]
-    if c.comm != "multistep":
+    if not ms:
         boff = _gather(c, torch.cat(comb, dim=1), "boff_gather")
     elif live_direct:
         # Phase E, live slots: [inter | final | dump] first, then every
@@ -1013,7 +1262,10 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
         boff.view(-1).index_copy_(0, dst, v.reshape(-1).index_select(0, src))
     else:
         # Phase E, literal: the flat exchange of the padded direct slots.
-        direct_recv = _direct_exchange(_gather(c, v, "direct_send"))
+        send = _gather(c, v, "direct_send") if wire is None or nv == 1 \
+            else _gather_columns(c, v, "direct_send")
+        direct_recv = _exchanged(wire, "direct", send, _direct_exchange)
+        del send
         comb.append(direct_recv.reshape(p, -1, nv))
         boff = _gather(c, torch.cat(comb, dim=1), "boff_gather")
     segs = (v, bnode, boff)
@@ -1039,11 +1291,20 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
             vals = c.tensors([f"{key}_vals"])[f"{key}_vals"]
             contrib = vals[..., None] * _gather(c, x, f"{key}_cols")
             w += _scatter(c, contrib, f"{key}_rows", rows_pad)
-    return _unbatch(c, w.contiguous(), single)
+    if wire is None:
+        return _unbatch(c, w.contiguous(), single)
+    # the compute fault hits the local result, after the wire and before
+    # the check, which runs over the buffers the local compute read
+    w = wire.fault("compute", w[:, None])[:, 0]
+    abft = _abft(c, w, tuple(c.tensors(["abft_col", "abft_col_abs"]).values()), segs)
+    phases = MULTISTEP_MESSAGE_PHASES if ms else NAP_MESSAGE_PHASES
+    max_slots = topo.n_procs if ms else max(topo.ppn, topo.n_nodes)
+    return _unbatch(c, w, single), wire.chk(c, phases, max_slots), abft
 
 
 def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
-                  live_direct: bool = True) -> torch.Tensor:
+                  live_direct: bool = True,
+                  fault_spec: Optional[torch.Tensor] = None):
     """z = A.T @ u, the exact adjoint of :func:`nap_forward`: ``u_shards``
     is ROW-partition packed ``[.., rows_pad(, nv)]``, the result
     COLUMN-partition packed ``[.., cols_pad(, nv)]``.
@@ -1055,6 +1316,14 @@ def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
     plan's direct contributions go straight back to their owners' rows:
     by default from the live slots only, ``live_direct=False`` through
     the literal padded exchange (the same sums in the same order).
+
+    ``fault_spec`` runs the instrumented program as in
+    :func:`nap_forward`, phases in reverse order (direct, final, inter,
+    init, full), each reversed message checksummed before the exchange
+    and after it (the direct messages padded, as the literal exchange
+    moves them); the compute fault and the transpose ABFT (``sum`` of
+    the packed contributions against ``(A_p 1) . u_loc``) come before
+    any exchange.  Returns ``(z, chk, abft)``.
     """
     fmt = c.resolve_transpose_local_compute(local_compute)
     if fmt == "ell":
@@ -1065,6 +1334,13 @@ def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
     inter_len = nn * pads["inter"]
     u, single = _rank_batch(c, u_shards, rows_pad)
     p, _, nv = u.shape
+    ms = c.comm == "multistep"
+    wire = None
+    if fault_spec is not None:
+        c.ensure_abft()
+        wire = _Wire(fault_spec, c.comm)
+    proc = functools.partial(_exchange_proc, topo=topo)
+    node = functools.partial(_exchange_node, topo=topo)
 
     if fmt == "ell":
         t = c.tensors(["ell_t_cols", "ell_t_vals"])
@@ -1080,11 +1356,44 @@ def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
             outs.append(_scatter(c, prod, f"{key}_cols", out_len))
         z, c_node, c_off = outs
 
+    abft = None
+    if wire is not None:
+        # compute fault and transpose ABFT over the packed contributions,
+        # before any exchange
+        packed_c = torch.cat([z, c_node, c_off], dim=1) if fmt != "ell" else contrib
+        packed_c = wire.fault("compute", packed_c[:, None])[:, 0]
+        abft = _abft(c, packed_c, tuple(c.tensors(["abft_row", "abft_row_abs"]).values()),
+                     (u,))
+        z = packed_c[:, :cols_pad]
+        c_node = packed_c[:, cols_pad: cols_pad + bnode_pad]
+        c_off = packed_c[:, cols_pad + bnode_pad:]
+
     # reverse of boff = concat(inter | final [| direct])[boff_gather]
     comb_len = inter_len + ppn * pads["final"]
     z_direct = None
-    if c.comm != "multistep":
+    if not ms:
         comb = _scatter(c, c_off, "boff_gather", comb_len)
+    elif wire is not None:
+        # instrumented: the padded direct messages are exchanged and
+        # checksummed whole, but built from and read back at their live
+        # slots, so the sums are the live form's (the literal adjoint's
+        # padding adds zeros to row 0, and its 530M-entry scatter is more
+        # than PyTorch's deterministic index_add_ holds at the paper's size)
+        c.ensure_live_direct()
+        t = c.tensors(["direct_live_src", "direct_live_dst", "direct_live_slot",
+                       "direct_live_msg"])
+        dpad = pads["direct"]
+        comb = _scatter(c, c_off, "boff_live_gather", comb_len + 1)
+        msg = torch.zeros((p * p * dpad, nv), dtype=u.dtype, device=u.device)
+        msg.index_add_(0, t["direct_live_msg"],
+                       c_off.reshape(-1, nv).index_select(0, t["direct_live_dst"]))
+        direct_out_c = wire.exchange("direct", msg.view(p, p, dpad, nv),
+                                     _direct_exchange)
+        del msg
+        z_direct = torch.zeros((p * cols_pad, nv), dtype=u.dtype, device=u.device)
+        z_direct.index_add_(0, t["direct_live_src"], direct_out_c.reshape(-1, nv)
+                            .index_select(0, t["direct_live_slot"]))
+        z_direct = z_direct.reshape(p, cols_pad, nv)
     elif live_direct:
         c.ensure_live_direct()
         comb = _scatter(c, c_off, "boff_live_gather", comb_len + 1)
@@ -1101,27 +1410,34 @@ def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
     inter_c = comb[:, :inter_len]
     final_recv_c = comb[:, inter_len:comb_len].reshape(p, ppn, pads["final"], nv)
     # reverse phase D
-    final_out_c = _exchange_proc(final_recv_c, topo)
+    final_out_c = _exchanged(wire, "final", final_recv_c, proc)
     inter_c = inter_c + _scatter(c, final_out_c, "final_send", inter_len)
     # reverse phase C: into the staged domain concat(v_loc, init_recv)
-    inter_out_c = _exchange_node(inter_c.reshape(p, nn, pads["inter"], nv), topo)
+    inter_out_c = _exchanged(wire, "inter", inter_c.reshape(p, nn, pads["inter"], nv),
+                             node)
     staged_c = _scatter(c, inter_out_c, "inter_gather",
                         cols_pad + ppn * pads["init"])
     z = z + staged_c[:, :cols_pad]
     # reverse phase B: init redistribution back to the owners
-    init_out_c = _exchange_proc(
-        staged_c[:, cols_pad:].reshape(p, ppn, pads["init"], nv), topo)
+    init_out_c = _exchanged(
+        wire, "init", staged_c[:, cols_pad:].reshape(p, ppn, pads["init"], nv), proc)
     z = z + _scatter(c, init_out_c, "init_send", cols_pad)
     # reverse phase A: on-node buffer contributions back to the owners
     full_recv_c = _scatter(c, c_node, "bnode_gather", ppn * pads["full"])
-    full_out_c = _exchange_proc(full_recv_c.reshape(p, ppn, pads["full"], nv), topo)
+    full_out_c = _exchanged(wire, "full",
+                            full_recv_c.reshape(p, ppn, pads["full"], nv), proc)
     z = z + _scatter(c, full_out_c, "full_send", cols_pad)
     if z_direct is not None:
         z = z + z_direct
-    return _unbatch(c, z.contiguous(), single)
+    if wire is None:
+        return _unbatch(c, z.contiguous(), single)
+    phases = MULTISTEP_MESSAGE_PHASES if ms else NAP_MESSAGE_PHASES
+    max_slots = topo.n_procs if ms else max(nn, ppn)
+    return _unbatch(c, z.contiguous(), single), wire.chk(c, phases, max_slots), abft
 
 
-def _exchange_pair(c: CompiledStandard, v: torch.Tensor) -> torch.Tensor:
+def _exchange_pair(c: CompiledStandard, v: torch.Tensor,
+                   wire: Optional["_Wire"] = None) -> torch.Tensor:
     """Algorithm 1's exchange on ``v [P, cols_pad, nv]``: every rank s
     gathers its padded message to each rank r (``send_idx``), the tiled
     all-to-all over ``("node", "proc")`` swaps the two rank axes
@@ -1133,6 +1449,11 @@ def _exchange_pair(c: CompiledStandard, v: torch.Tensor) -> torch.Tensor:
     (``[nv, ...]``) and gathered with one index entry per slot: neither
     an nv-expanded element index nor PyTorch's whole-row gather kernel,
     which ran the nv = 8 forward ~10x slower on the H100 (PERF.md).
+
+    With a ``wire`` the exchange is instrumented: the sender's checksums
+    of its messages (in each message's row-major ``[pad, nv]`` word
+    order), the fault on the send table, the checksums exchanged with it
+    and recomputed from the received table.
     """
     p, _, nv = v.shape
     pad = c.pair_pad
@@ -1144,25 +1465,53 @@ def _exchange_pair(c: CompiledStandard, v: torch.Tensor) -> torch.Tensor:
         return x.index_select(1, idx)
 
     send = take(v.permute(2, 0, 1).reshape(nv, -1), "send_idx", c.cols_pad)
+    if wire is not None:
+        sent = _pair_checksums(send.reshape(nv, p, p, pad))
+        send = _fault_pair(send.reshape(nv, p, p, pad), wire.spec[:, wire.ph["pair"]])
     recv = send.reshape(nv, p, p, pad).transpose(1, 2).contiguous()
     del send
+    if wire is not None:
+        wire.chks["pair"] = (sent.T, _pair_checksums(recv))
     buf = take(recv.reshape(nv, -1), "buf_gather", p * pad)
     return buf.reshape(nv, p, c.buf_pad).permute(1, 2, 0).contiguous()
 
 
+def _fault_pair(send: torch.Tensor, spec: torch.Tensor) -> torch.Tensor:
+    """:func:`_apply_fault` on the column-major send table ``[nv, S, R,
+    pad]``: each sender's targeted message is taken out in its row-major
+    ``[pad, nv]`` order, transformed and written back."""
+    nv, p, _, pad = send.shape
+    ranks = torch.arange(p, device=send.device)
+    slot = torch.remainder(spec[:, 1], p)
+
+    def message(dst):
+        return send[:, ranks, dst].permute(1, 2, 0).reshape(p, pad * nv)
+
+    new = _fault_rows(message(slot), message(torch.remainder(slot + 1, p)), spec)
+    send[:, ranks, slot] = new.reshape(p, pad, nv).permute(2, 0, 1)
+    return send
+
+
 def standard_forward(c: CompiledStandard, v_shards, local_compute: str = "auto",
-                     materialize_x: bool = False) -> torch.Tensor:
+                     materialize_x: bool = False,
+                     fault_spec: Optional[torch.Tensor] = None):
     """w = A @ v by Algorithm 1: every rank gathers one padded message per
     destination rank from v_loc, one flat exchange, the recv buffer is
     gathered from the received slots, then local compute runs over the
     two segments ``(v_loc, buf)``.  Shards as in :func:`nap_forward`;
     ``materialize_x`` concatenates the two segments first (bit-equal on
-    the BSR path)."""
+    the BSR path).  ``fault_spec`` runs the instrumented program and
+    returns ``(w, chk, abft)`` as :func:`nap_forward` does, with the one
+    ``pair`` phase over ``n_procs`` slots."""
     fmt = c.resolve_local_compute(local_compute)
     {"coo": c.ensure_coo, "ell": c.ensure_ell, "bsr": c.ensure_fused}[fmt]()
     v, single = _rank_batch(c, v_shards, c.cols_pad)
     p, _, nv = v.shape
-    segs = (v, _exchange_pair(c, v))
+    wire = None
+    if fault_spec is not None:
+        c.ensure_abft()
+        wire = _Wire(fault_spec, "standard")
+    segs = (v, _exchange_pair(c, v, wire))
     if fmt == "bsr":
         t = c.tensors(["fused_cols", "fused_blocks"])
         bn = c.block_shape[1]
@@ -1181,12 +1530,17 @@ def standard_forward(c: CompiledStandard, v_shards, local_compute: str = "auto",
         vals = c.tensors(["A_vals"])["A_vals"]
         contrib = vals[..., None] * _gather(c, torch.cat(segs, dim=1), "A_cols")
         w = _scatter(c, contrib, "A_rows", c.rows_pad)
-    return _unbatch(c, w.contiguous(), single)
+    if wire is None:
+        return _unbatch(c, w.contiguous(), single)
+    w = wire.fault("compute", w[:, None])[:, 0]
+    abft = _abft(c, w, tuple(c.tensors(["abft_col", "abft_col_abs"]).values()), segs)
+    return _unbatch(c, w, single), wire.chk(c, ("pair",), p), abft
 
 
 def standard_transpose(c: CompiledStandard, u_shards,
                        local_compute: str = "auto",
-                       live_scatter: bool = True) -> torch.Tensor:
+                       live_scatter: bool = True,
+                       fault_spec: Optional[torch.Tensor] = None):
     """z = A.T @ u, the exact adjoint of :func:`standard_forward`: the
     transposed local compute over the packed contribution domain
     ``[z | buf]``, the buffer contributions scattered back into the recv
@@ -1198,12 +1552,21 @@ def standard_transpose(c: CompiledStandard, u_shards,
     slots (``send_counts``), which gives the same sums up to the sign of
     a zero without ~P * P * pair_pad atomics on P addresses.
     ``live_scatter=False`` is the literal adjoint, kept to measure it.
+
+    ``fault_spec`` runs the instrumented program (``(z, chk, abft)``):
+    the compute fault and the ABFT check on the packed contributions,
+    then the ``pair`` exchange of the padded contribution messages,
+    checksummed whole (padding included) on both sides.
     """
     fmt = c.resolve_transpose_local_compute(local_compute)
     (c.ensure_ell_t if fmt == "ell" else c.ensure_coo)()
     u, single = _rank_batch(c, u_shards, c.rows_pad)
     p, _, nv = u.shape
     cols_pad, pair_pad = c.cols_pad, c.pair_pad
+    wire = None
+    if fault_spec is not None:
+        c.ensure_abft()
+        wire = _Wire(fault_spec, "standard")
     if fmt == "ell":
         t = c.tensors(["ell_t_cols", "ell_t_vals"])
         contrib = ell_spmm_packed(t["ell_t_cols"], t["ell_t_vals"], (u,))
@@ -1211,9 +1574,18 @@ def standard_transpose(c: CompiledStandard, u_shards,
         vals = c.tensors(["A_vals"])["A_vals"]
         contrib = _scatter(c, vals[..., None] * _gather(c, u, "A_rows"),
                            "A_cols", c.n_x)
+    abft = None
+    if wire is not None:
+        contrib = wire.fault("compute", contrib[:, None])[:, 0]
+        abft = _abft(c, contrib, tuple(c.tensors(["abft_row", "abft_row_abs"]).values()),
+                     (u,))
     # reverse of buf = recv[buf_gather], then the exchange (an involution)
     recv_c = _scatter(c, contrib[:, cols_pad:], "buf_gather", p * pair_pad)
-    out_c = recv_c.reshape(p, p, pair_pad, nv).transpose(0, 1).contiguous()
+    if wire is None:
+        out_c = recv_c.reshape(p, p, pair_pad, nv).transpose(0, 1).contiguous()
+    else:
+        out_c = wire.exchange("pair", recv_c.reshape(p, p, pair_pad, nv),
+                              lambda b: b.transpose(0, 1).contiguous())
     del recv_c
     # reverse of send = v_loc[send_idx]
     if live_scatter:
@@ -1223,19 +1595,25 @@ def standard_transpose(c: CompiledStandard, u_shards,
         back = back.reshape(p, cols_pad, nv)
     else:
         back = _scatter(c, out_c, "send_idx", cols_pad)
-    return _unbatch(c, (contrib[:, :cols_pad] + back).contiguous(), single)
+    z = _unbatch(c, (contrib[:, :cols_pad] + back).contiguous(), single)
+    if wire is None:
+        return z
+    return z, wire.chk(c, ("pair",), p), abft
 
 
 # ---------------------------------------------------------------------------
 # Traffic accounting
 # ---------------------------------------------------------------------------
 
-def padded_traffic(c) -> Dict[str, object]:
+def padded_traffic(c, integrity: str = "off") -> Dict[str, object]:
     """Padded (what the static exchanges move) vs effective (the plan's
     true payloads) bytes per phase, float32 payloads; the transpose
     direction's per-rank figures come from the recv lists.  NAP plans
     have the phases full / init / inter / final, multi-step plans also
-    "direct", standard plans the one "pair" exchange."""
+    "direct", standard plans the one "pair" exchange.  With ``integrity``
+    on, ``{phase}_checksum`` counts the checksum words the instrumented
+    program exchanges per phase (one u32 per slot and rank) and
+    ``checksum_total`` their sum."""
     topo, plan = c.topo, c.plan
     if plan is None:
         return {}
@@ -1263,5 +1641,10 @@ def padded_traffic(c) -> Dict[str, object]:
             d[f"{name}_effective"] = 4 * sum(m.size for msgs in lists for m in msgs)
             d[f"{name}_max_rank_effective"] = 4 * max(
                 (sum(m.size for m in msgs) for msgs in lists), default=0)
+            if integrity != "off":
+                d[f"{name}_checksum"] = n * n_slots * 4
+    if integrity != "off":
+        out["checksum_total"] = transpose["checksum_total"] = sum(
+            n * n_slots * 4 for n_slots, _, _ in phases.values())
     out["transpose"] = transpose
     return out

@@ -49,3 +49,8 @@ class Topology:
 
     def local_of_array(self, ranks: np.ndarray) -> np.ndarray:
         return np.asarray(ranks) % self.ppn
+
+
+def paper_example_topology() -> Topology:
+    """Example 2.1: six processes across three nodes (ppn = 2)."""
+    return Topology(n_nodes=3, ppn=2)

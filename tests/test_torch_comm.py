@@ -167,11 +167,9 @@ def test_multistep_plan_matches_reference(layout, thr):
 
 
 def _same_traffic(ref, port):
-    """The reference's payload carries its integrity and wire-dtype
-    fields (off and f32 here), which the port does not model yet."""
+    """The reference's payload also names its wire dtype (f32 here),
+    which the port does not model yet."""
     assert ref.pop("wire_dtype") == "f32"
-    for ph in ref["phases"].values():
-        assert ph.pop("checksum_bytes") == 0
     assert ref == port
 
 
@@ -296,13 +294,34 @@ def test_skewed_matrix_takes_multistep():
 
 
 def test_pairing_balanced_raises():
+    """The device backend refuses the paper's balanced pairing, as the
+    reference's shard_map backend does; the simulate backend and the
+    chooser take it (the reference's verdict, exactly)."""
     a = port_sparse.poisson_2d(6)
-    with pytest.raises(NotImplementedError, match="balanced"):
+    with pytest.raises(ValueError, match="balanced"):
         port_api.operator(a, Topology(2, 2), pairing="balanced", device="cpu")
-    with pytest.raises(NotImplementedError, match="balanced"):
-        port_comm.choose_comm(a.indptr, a.indices,
-                              port_partition.contiguous_partition(36, 4),
-                              Topology(2, 2), pairing="balanced")
+    with pytest.raises(ValueError, match="balanced"):
+        port_api.operator(a, Topology(2, 2), comm="auto", pairing="balanced",
+                          device="cpu")
+    with pytest.raises(ValueError, match="pairing"):
+        port_api.operator(a, Topology(2, 2), pairing="diagonal",
+                          backend="simulate")
+    op = port_api.operator(a, Topology(2, 2), pairing="balanced",
+                           backend="simulate")
+    assert op.shape == (36, 36)
+    a_ref = ref_sparse.poisson_2d(6)
+    ref = ref_comm.choose_comm(a_ref.indptr, a_ref.indices,
+                               ref_partition.contiguous_partition(36, 4),
+                               RefTopology(2, 2), pairing="balanced",
+                               params=ref_cost.PostalParams(**dataclasses.asdict(
+                                   port_cost.BLUE_WATERS_POSTAL)))
+    port = port_comm.choose_comm(a.indptr, a.indices,
+                                 port_partition.contiguous_partition(36, 4),
+                                 Topology(2, 2), pairing="balanced")
+    for direction in ("forward", "transpose"):
+        r = dict(ref[direction])
+        assert r.pop("wire_dtype") == "f32"
+        assert r == port[direction], direction
 
 
 _SHARDMAP_PROG = textwrap.dedent("""

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -129,3 +130,33 @@ def test_multistep_and_level_operators_raise_without_cuda(monkeypatch):
     assert ops[0].a.shape == (64, 64) and ops[0].p.shape == levels[0].p.shape
     assert port_api.operator(a, topo, method="multistep",
                              device="cpu").method == "multistep"
+
+
+def test_simulate_and_integrity_import_loads_neither_jax_nor_reference():
+    code = ("import sys, repro_torch.core.spmv, repro_torch.comm.simulate\n"
+            "import repro_torch.core.integrity, repro_torch.core.executors\n"
+            "from repro_torch.core.spmv_torch import _msg_checksums, _apply_fault\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\nprint('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "clean" in proc.stdout
+
+
+def test_simulate_runs_on_the_host_and_integrity_raises_without_cuda(monkeypatch):
+    """The float64 simulators are host numpy and need no GPU; the device
+    backend with integrity on still needs CUDA or ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = poisson_2d(6)
+    topo = Topology(2, 2)
+    for method in ("nap", "standard", "multistep"):
+        op = port_api.operator(a, topo, method=method, backend="simulate",
+                               integrity="detect")
+        assert (op @ np.ones(36)).dtype == np.float64
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port_api.operator(a, topo, method=method, integrity="detect")
+    assert port_api.operator(a, topo, integrity="recover",
+                             device="cpu").integrity_report()["mode"] == "recover"
