@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: the node-aware SpMV,
-the multi-step exchange, wire integrity, the float64 simulate backend
-and the AMG solver path, and the gemma2-2b serving path.
+the multi-step exchange, wire integrity, the float64 simulate backend,
+the distributed SpGEMM and the AMG solver path, and the gemma2-2b
+serving path.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -66,16 +67,45 @@ Phases, each fatal on failure:
    and one scripted wire fault attributed as on the device;
 9. the AMG solver path on the same matrix: the smoothed-aggregation
    hierarchy (theta 0.1, coarse_size 2 x ranks), ``level_operators(...,
-   comm="auto")``, per level the rows, nnz, both directions' exchange
-   and local-format verdicts and the host seconds of chooser and
-   compile; every distributed level's ``A @ v``, ``A.T @ u``, ``P @ x``,
-   ``R @ r`` and lazy ``(R @ A @ P) @ x`` against float64 host products
-   (rtol 1e-4, atol 1e-5 of max |ref|), the ELL kernel against its plain
-   version on each level's arrays, each level's device programs timed;
-   then 10 iterations of AMG-preconditioned CG through the device
-   operators beside the same solver on float64 host matvecs, the true
-   residual of each iteration side by side, and the V-cycle's wall and
-   ELL launches;
+   comm="auto", materialize=True, spgemm_backend="torch")``: every
+   coarse A is the product of two device SpGEMMs (``A @ P``, then
+   ``R @ AP``), held against the host assembly at the reference's
+   chained float32 tolerance (rtol 5e-5 x depth), and the SpGEMM run
+   counter must rise by 2 x (levels - 1); per product the host compile
+   seconds, ``exp_pad``, ``c_nnz_pad``, the value pads, padded vs live
+   value bytes per phase, the inter-node value bytes of the nap and
+   standard plans (the paper's setup traffic), device-program ms (CUDA
+   events, median of 10), peak memory and a bound (the expansion read
+   once, C written once, the live values exchanged once, at 3.35 TB/s);
+   per level the rows, nnz, both directions' exchange and local-format
+   verdicts and the host seconds of chooser and compile; every
+   distributed level's ``A @ v``, ``A.T @ u``, ``P @ x``, ``R @ r`` and
+   lazy ``(R @ A @ P) @ x`` against float64 host products (rtol 1e-4,
+   atol 1e-5 of max |ref|), the ELL kernel against its plain version on
+   each level's arrays, each level's device programs timed; level 0's
+   two products in float64 against host ``csr_matmul`` (rtol 1e-12, atol
+   1e-13 x max |ref|), its ``galerkin(materialize=True)`` against the
+   lazy chain (one apply each, timed side by side) and its standard
+   ``A @ P`` from the live slots of the pair exchange (the literal
+   table's bytes printed); then 10 iterations of AMG-preconditioned CG
+   through the device operators beside the same solver on float64 host
+   matvecs, the true residual of each iteration side by side, and the
+   V-cycle's wall and ELL launches;
+9b. the distributed SpGEMM at the BSR path's grid: level 0's ``A @ P``
+   on the simulate backend bit-equal to ``csr_matmul`` (nap and
+   standard), the device program in float32 (rtol 1e-4, atol 1e-4) and
+   float64 (rtol 1e-12, atol 1e-13),
+   ``smoothed_aggregation_hierarchy(rap=distributed_rap(backend=
+   "torch", cross_check=True))`` with every level's structure equal to
+   the host hierarchy's, and ``integrity="detect"`` with every fault
+   kind on a live edge of every message phase (nap: full, init, inter,
+   final; standard: pair) detected with its ``(phase, node, proc,
+   slot)``, ``"recover"`` bit-equal to the clean product and the clean
+   detect run bit-equal to off (deterministic mode; for the standard
+   method that holds the instrumented program's literal padded pair
+   exchange against the bare program's live slots);
+9c. the port's two examples, ``repro_torch.examples.quickstart`` and
+   ``amg_spmv``, on the card to their final checks;
 10. the decode-attention kernel against its plain version at gemma2-2b's
    decode_32k shapes: B = 8, S = 32768, Hkv = 4, g = 2, D = 256, softcap
    50, lengths ragged in [1, S] (1, 17, 4096, 4097, S and three drawn
@@ -157,6 +187,15 @@ from repro_torch.kernels.decode_attn import (decode_attention_grouped,  # noqa: 
 from repro_torch.kernels.ell_spmv import (ell_spmm_packed,  # noqa: E402
                                           ell_spmm_packed_ref)
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.amg.matmul import csr_matmul  # noqa: E402
+from repro_torch.examples import amg_spmv, quickstart  # noqa: E402
+import repro_torch.spgemm.spgemm_torch as spgemm_torch  # noqa: E402
+from repro_torch.spgemm import (assert_matches_host, build_spgemm_plan,  # noqa: E402
+                                clear_spgemm_cache, compile_spgemm,
+                                distributed_rap, distributed_spgemm,
+                                pack_b_values, spgemm_program,
+                                torch_spgemm_runs, unpack_c_values)
+from repro_torch.spgemm.plan import message_value_size  # noqa: E402
 from repro_torch.models import attention, build_model, count_params  # noqa: E402
 from repro_torch.sparse import BSR, rotated_anisotropic_2d  # noqa: E402
 
@@ -1268,14 +1307,43 @@ def phase_amg(a, topo, gen, seed, full_size):
         chooser.append(time.perf_counter() - t)
         return out
 
+    products = []
+    compile_fn = spgemm_torch.compile_spgemm
+
+    def recorded_compile(a_, b_, *args, **kw):
+        t = time.perf_counter()
+        out = compile_fn(a_, b_, *args, **kw)
+        # host arrays only: the product's device tensors go with ``out``
+        products.append(dict(a=a_, b=b_, compiled=out.unstaged(),
+                             seconds=time.perf_counter() - t))
+        return out
+
     api_mod.choose_comm = timed_choose
+    spgemm_torch.compile_spgemm = recorded_compile
+    runs0 = torch_spgemm_runs()
     t0 = time.perf_counter()
     try:
-        ops = level_operators(levels, topo, comm="auto", device=DEV)
+        ops = level_operators(levels, topo, comm="auto", materialize=True,
+                              spgemm_backend="torch", device=DEV)
     finally:
         api_mod.choose_comm = choose
+        spgemm_torch.compile_spgemm = compile_fn
     t_ops = time.perf_counter() - t0
-    print(f"  level_operators {t_ops:.2f} s (chooser {sum(chooser):.2f} s)")
+    n_products = 2 * (len(levels) - 1)
+    if torch_spgemm_runs() - runs0 != n_products or len(products) != n_products:
+        raise AssertionError(f"materialize=True ran {torch_spgemm_runs() - runs0} "
+                             f"device SpGEMMs, expected {n_products}")
+    print(f"  level_operators(materialize=True, spgemm_backend='torch') {t_ops:.2f} s "
+          f"(chooser {sum(chooser):.2f} s, SpGEMM compile "
+          f"{sum(r['seconds'] for r in products):.2f} s); {n_products} device SpGEMM "
+          f"runs, every coarse A held against the host assembly at rtol 5e-5 x depth")
+    for i in range(1, len(levels)):
+        if ops[i].a is not None:
+            got, want = ops[i].a.a, levels[i].a
+            print(f"  level {i} A from the device products: max abs err / max |host| "
+                  f"{np.abs(got.data - want.data).max() / np.abs(want.data).max():.3e} "
+                  f"(limit: rtol {5e-5 * i:.1e}, atol 0.1 rtol max(1, max |host|))")
+    spgemm_report(products, topo)
     n_dist = sum(e.a is not None for e in ops)
     k = 0
     for i, (lv, e) in enumerate(zip(levels, ops)):
@@ -1320,7 +1388,10 @@ def phase_amg(a, topo, gen, seed, full_size):
     for i, (lv, e) in enumerate(zip(levels, ops)):
         if e.a is None:
             continue
-        sa = scipy_of(lv.a)
+        # the float64 oracle of each SpMV is the matrix its operator holds:
+        # on the coarse levels the device SpGEMM product, held against the
+        # host assembly by level_operators
+        sa = scipy_of(e.a.a)
         v, u = rng.standard_normal(sa.shape[1]), rng.standard_normal(sa.shape[0])
         errs.append(check_level(f"level {i} A @ v", e.a @ v, sa @ v))
         errs.append(check_level(f"level {i} A.T @ u", e.a.T @ u, sa.T @ u))
@@ -1334,8 +1405,11 @@ def phase_amg(a, topo, gen, seed, full_size):
         errs.append(check_level(f"level {i} (R @ A @ P) @ x", e.galerkin() @ x,
                                 sr @ (sa @ (sp_ @ x))))
         held_and_timed(f"level {i} P", e.p, x, r, i == 0)
-    print(f"  every distributed level ({n_dist}) matches its float64 host products: "
-          f"max abs err / max |ref| {max(errs):.3e}")
+    print(f"  every distributed level ({n_dist}) matches the float64 host products of "
+          f"its operators' matrices: max abs err / max |ref| {max(errs):.3e}")
+    gal_counts = spgemm_level0(levels, ops, products, topo, rng)
+    del products
+    free()
 
     # AMG-preconditioned CG, 10 iterations, on the card and with host matvecs
     a0 = scipy_of(levels[0].a)
@@ -1398,8 +1472,307 @@ def phase_amg(a, topo, gen, seed, full_size):
     if counts.get("ell_spmm_packed", 0) < 1:
         raise AssertionError("the AMG path did not launch the ELL kernel")
     del ops, host_ops, levels
+    clear_spgemm_cache()
+    free()
+    return {k: counts.get(k, 0) + gal_counts.get(k, 0) for k in {**counts, **gal_counts}}
+
+
+def spgemm_phase_values(c):
+    """Per exchange phase of a compiled SpGEMM: (padded, live) values."""
+    topo, plan = c.topo, c.plan
+    if c.method == "standard":
+        lists = {"pair": (plan.comm.sends, topo.n_procs)}
+    else:
+        lists = {"full": (plan.comm.local_full_sends, topo.ppn),
+                 "init": (plan.comm.local_init_sends, topo.ppn),
+                 "inter": (plan.comm.inter_sends, topo.n_nodes),
+                 "final": (plan.comm.local_final_sends, topo.ppn)}
+    return {ph: (topo.n_procs * slots * c.vpads[ph],
+                 sum(message_value_size(m, plan.b_counts) for ms in msgs for m in ms))
+            for ph, (msgs, slots) in lists.items()}
+
+
+def spgemm_bound(a, c, itemsize):
+    """The least time of one product: every live expanded product reads its
+    position, output slot and A value (int32, int32, payload) and one
+    value of the domain once, every live C value is written once, and
+    every live exchanged value is read and written once, at 3.35 TB/s."""
+    n_exp = int(c.plan.b_counts[a.indices].sum())
+    live = sum(v for _, v in spgemm_phase_values(c).values())
+    nbytes = n_exp * (8 + 2 * itemsize) + sum(c.c_nnz) * itemsize + 2 * live * itemsize
+    return bound_ms(nbytes, n_exp * 2)[0], n_exp
+
+
+def time_spgemm(c, b, dtype=torch.float32):
+    """Device-program ms (median of 10, B staged on the card) and the peak
+    of allocated memory over one run, in GB, and the run's output.  The
+    product's arrays are staged on a copy of ``c``, freed on return."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    c = c.unstaged()
+    b_dev = torch.from_numpy(pack_b_values(b, c, np_dtype)).to(DEV)
+    run = spgemm_program(c, dtype=dtype)
+    out = run(b_dev)
+    torch.cuda.synchronize()
+    del out
+    torch.cuda.reset_peak_memory_stats()
+    out = run(b_dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = time_ms(lambda: run(b_dev), reps=10)
+    return ms, peak, out
+
+
+def spgemm_report(products, topo):
+    """Per device SpGEMM product of ``level_operators``: host compile s,
+    pads, padded vs live value bytes per phase, the paper's inter-node
+    value bytes for nap and standard, device-program ms, peak and bound."""
+    print("  device SpGEMM products (float32 payloads; bytes at 4 B a value; "
+          "ms: CUDA events, median of 10, B already on the card):")
+    for j, rec in enumerate(products):
+        c, a_, b_ = rec["compiled"], rec["a"], rec["b"]
+        label = f"level {j // 2} {'A @ P' if j % 2 == 0 else 'R @ AP'}"
+        phases = spgemm_phase_values(c)
+        t0 = time.perf_counter()
+        std = build_spgemm_plan(a_, b_, c.row_part, c.mid_part, topo,
+                                method="standard").stats()["inter"]
+        t_std = time.perf_counter() - t0
+        nap = c.plan.stats()["inter"]
+        ms, peak, _ = time_spgemm(c, b_)
+        bound, n_exp = spgemm_bound(a_, c, 4)
+        print(f"  {label} {c.shape} nnz(C) {sum(c.c_nnz)}: compile {rec['seconds']:.2f} s; "
+              f"exp_pad {c.exp_pad} ({n_exp} live products), c_nnz_pad {c.c_nnz_pad}, "
+              f"b_nnz_pad {c.b_nnz_pad}, vpads {c.vpads}; value bytes padded / live "
+              + ", ".join(f"{ph} {4 * pv} / {4 * lv}" for ph, (pv, lv) in phases.items())
+              + f"; inter-node value bytes (8 B a value, the paper's setup traffic) "
+              f"nap {nap.total_bytes} in {nap.total_msgs} messages, standard "
+              f"{std.total_bytes} in {std.total_msgs} ({t_std:.2f} s to plan); "
+              f"device {ms:.4f} ms, bound {bound:.4f} ms ({100 * bound / ms:.1f}%), "
+              f"peak {peak:.3f} GB")
+        free()
+
+
+def spgemm_level0(levels, ops, products, topo, rng):
+    """Level 0's products in float64 against host ``csr_matmul``, its
+    materialized Galerkin operator against the lazy chain, and its
+    standard-method ``A @ P`` through the live-slot pair exchange."""
+    a0, p0 = levels[0].a, levels[0].p
+    t0 = time.perf_counter()
+    ap_host = csr_matmul(a0, p0)
+    print(f"  level 0 host csr_matmul A @ P {time.perf_counter() - t0:.2f} s")
+    for rec, b_, want, label in ((products[0], p0, ap_host, "A @ P"),
+                                 (products[1], ap_host, levels[1].a, "R @ AP")):
+        c = rec["compiled"]
+        ms, peak, out = time_spgemm(c, b_, torch.float64)
+        got = unpack_c_values(out, c)
+        del out
+        if not (np.array_equal(got.indptr, want.indptr)
+                and np.array_equal(got.indices, want.indices)):
+            raise AssertionError(f"level 0 float64 {label}: structure differs")
+        scale = float(np.abs(want.data).max())
+        np.testing.assert_allclose(got.data, want.data, rtol=1e-12, atol=1e-13 * scale)
+        bound, _ = spgemm_bound(rec["a"], c, 8)
+        print(f"  level 0 {label} float64 on the card: max abs err / max |ref| "
+              f"{np.abs(got.data - want.data).max() / scale:.3e} (rtol 1e-12, atol "
+              f"1e-13 x max |ref|); device {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({100 * bound / ms:.1f}%), peak {peak:.3f} GB")
+        free()
+
+    # materialized against lazy Galerkin operator, one apply each
+    t0 = time.perf_counter()
+    gal_m = ops[0].galerkin(materialize=True)
+    t_mat = time.perf_counter() - t0
+    gal_l = ops[0].galerkin()
+    x = rng.standard_normal(gal_m.shape[1])
+    t0 = time.perf_counter()
+    y_m, counts = drive("level 0 materialized R @ A @ P, first apply", lambda: gal_m @ x)
+    t_first = time.perf_counter() - t0
+    y_l = gal_l @ x
+    want = scipy_of(levels[1].a) @ x
+    e_ml = check_level("level 0 materialized vs lazy (R @ A @ P) @ x", y_m, y_l)
+    e_m = check_level("level 0 materialized (R @ A @ P) @ x", y_m, want)
+    ms_m = time_ms(lambda: gal_m @ x, reps=10)
+    ms_l = time_ms(lambda: gal_l @ x, reps=10)
+    print(f"  level 0 R @ A @ P materialized {gal_m.shape}, nnz {gal_m.a.nnz} "
+          f"({gal_m.method}, {gal_m.local_compute}): materialize {t_mat:.2f} s, first "
+          f"apply (with its plan compile) {t_first:.2f} s; one apply (pack + program + "
+          f"unpack, CUDA events, median of 10) materialized {ms_m:.4f} ms vs lazy "
+          f"{ms_l:.4f} ms; results apart by {e_ml:.3e} of max |lazy|, materialized "
+          f"vs float64 host {e_m:.3e}")
+    time_programs(gal_m.executor, [("level 0 materialized R @ A @ P", "forward", x, {})],
+                  profile=False)
+    del gal_m, gal_l
+    free()
+
+    # the standard method's A @ P: its literal [P, P, vpad] table vs live slots
+    fine = products[0]["compiled"].row_part
+    t0 = time.perf_counter()
+    cs = compile_spgemm(a0, p0, fine, fine, topo, method="standard", device=DEV)
+    t_cs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs.ensure_live_pair()
+    t_live = time.perf_counter() - t0
+    p_, vpad = topo.n_procs, cs.vpads["pair"]
+    live = int(cs.arrays["pair_live_src"].size)
+    c_std = distributed_spgemm(a0, p0, fine, fine, topo, method="standard", device=DEV)
+    assert_matches_host(c_std, ap_host, "torch", "level 0 standard A @ P")
+    ms, peak, _ = time_spgemm(cs, p0)
+    bound, _ = spgemm_bound(a0, cs, 4)
+    print(f"  level 0 standard A @ P: compile {t_cs:.2f} s + live slots {t_live:.2f} s; "
+          f"the literal pair table [{p_}, {p_}, {vpad}] is {4 * p_ * p_ * vpad / 1e9:.3f} "
+          f"GB of float32 (+ {8 * p_ * p_ * vpad / 1e9:.3f} GB of int64 gather index) "
+          f"for {live} live values ({4 * live / 1e9:.4f} GB), so it runs from its live "
+          f"slots (recv pad {cs.live_pad}); matches host csr_matmul at rtol 5e-5; "
+          f"device {ms:.4f} ms, bound {bound:.4f} ms ({100 * bound / ms:.1f}%), peak "
+          f"{peak:.3f} GB")
+    del cs, c_std
     free()
     return counts
+
+
+def record_spgemm_messages(c, b):
+    """One clean instrumented run of compiled SpGEMM ``c`` on ``b`` with
+    every message buffer recorded at its fault boundary: ``{phase: [P,
+    slots, words]}``."""
+    rec = {}
+    orig = spmv_torch._Wire.fault
+
+    def fault(self, phase, buf):
+        rec[phase] = buf.reshape(buf.shape[0], buf.shape[1], -1).clone()
+        return orig(self, phase, buf)
+
+    spmv_torch._Wire.fault = fault
+    try:
+        n = len(message_phases(c.method)) + 1
+        spgemm_program(c, integrity=True)(pack_b_values(b, c, np.float32),
+                                          np.zeros((c.topo.n_nodes, c.topo.ppn, n, 4),
+                                                   dtype=np.int32))
+    finally:
+        spmv_torch._Wire.fault = orig
+    torch.cuda.synchronize()
+    return rec
+
+
+def same_csr(x, y):
+    return (np.array_equal(x.indptr, y.indptr) and np.array_equal(x.indices, y.indices)
+            and np.array_equal(x.data, y.data))
+
+
+def phase_spgemm_small(a_b, topo, seed):
+    """[9b] the distributed SpGEMM at the BSR path's grid: simulate bit-equal
+    to ``csr_matmul``, the device program in float32 and float64, the
+    hierarchy assembled by ``distributed_rap`` on the card, and scripted
+    faults on every message phase detected and recovered, the clean
+    instrumented run (for the standard method its literal pair exchange)
+    bit-equal to the bare one (its live slots)."""
+    nb = int(np.sqrt(a_b.shape[0]))
+    print(f"[9b] distributed SpGEMM at n={nb}, Topology(32, 16)")
+    t0 = time.perf_counter()
+    host = smoothed_aggregation_hierarchy(a_b, theta=0.1, coarse_size=2 * topo.n_procs)
+    a, p = host[0].a, host[0].p
+    fine = contiguous_partition(a.shape[0], topo.n_procs)
+    want = csr_matmul(a, p)
+    scale = float(np.abs(want.data).max())
+    print(f"  hierarchy {time.perf_counter() - t0:.2f} s: rows "
+          f"{[lv.a.shape[0] for lv in host]}; level 0 A @ P {a.shape} @ {p.shape}")
+    for method in ("nap", "standard"):
+        t0 = time.perf_counter()
+        sim = distributed_spgemm(a, p, fine, fine, topo, method=method,
+                                 backend="simulate")
+        if not same_csr(sim, want):
+            raise AssertionError(f"simulate {method}: not bit-equal to csr_matmul")
+        print(f"  simulate {method}: bit-equal to csr_matmul ({time.perf_counter() - t0:.2f}"
+              f" s host)")
+        for dtype, tol in ((torch.float32, dict(rtol=1e-4, atol=1e-4)),
+                           (torch.float64, dict(rtol=1e-12, atol=1e-13))):
+            got = distributed_spgemm(a, p, fine, fine, topo, method=method,
+                                     device=DEV, dtype=dtype)
+            if not np.array_equal(got.indices, want.indices):
+                raise AssertionError(f"device {method} {dtype}: structure differs")
+            np.testing.assert_allclose(got.data, want.data, **tol)
+            print(f"  device {method} {str(dtype)[6:]}: max abs err "
+                  f"{np.abs(got.data - want.data).max():.3e} (max |ref| {scale:.3e}; "
+                  f"rtol {tol['rtol']:.0e}, atol {tol['atol']:.0e})")
+    # the whole hierarchy assembled by the device SpGEMM (float32)
+    runs0 = torch_spgemm_runs()
+    t0 = time.perf_counter()
+    dev = smoothed_aggregation_hierarchy(
+        a_b, theta=0.1, coarse_size=2 * topo.n_procs,
+        rap=distributed_rap(topo, backend="torch", device=DEV, cross_check=True))
+    runs = torch_spgemm_runs() - runs0
+    if len(dev) != len(host) or runs != 2 * (len(host) - 1) or not all(
+            np.array_equal(x.a.indptr, y.a.indptr) and np.array_equal(x.a.indices, y.a.indices)
+            for x, y in zip(dev, host)):
+        raise AssertionError("distributed_rap hierarchy: structure differs from host")
+    print(f"  smoothed_aggregation_hierarchy(rap=distributed_rap(backend='torch', "
+          f"cross_check=True)) {time.perf_counter() - t0:.2f} s: {runs} device products, "
+          f"every level's structure equal to the host hierarchy's; values drift "
+          + ", ".join(f"{np.abs(x.a.data - y.a.data).max() / np.abs(y.a.data).max():.2e}"
+                      for x, y in zip(dev[1:], host[1:]))
+          + " of max |host| (float32 products feed the next level's aggregation)")
+    del dev
+    free()
+
+    # integrity: every fault kind on a live edge of every message phase
+    torch.use_deterministic_algorithms(True)
+    try:
+        for method in ("nap", "standard"):
+            off = distributed_spgemm(a, p, fine, fine, topo, method=method, device=DEV)
+            clean = distributed_spgemm(a, p, fine, fine, topo, method=method, device=DEV,
+                                       integrity="detect")
+            if not same_csr(clean, off):
+                raise AssertionError(f"{method}: clean detect run differs from off")
+            c = compile_spgemm(a, p, fine, fine, topo, method=method, device=DEV)
+            rec = record_spgemm_messages(c, p)
+            n = 0
+            for phase in message_phases(method):
+                edges = pick_edges(rec[phase])
+                for kind in FAULT_KINDS:
+                    if edges[kind] is None:
+                        raise AssertionError(f"{method} {phase}: no live edge for {kind}")
+                    s, k, elem = edges[kind]
+                    node, proc, slot = expected_mismatch(phase, s, k, topo.ppn)
+                    fault = MessageFault(phase=phase, kind=kind, node=s // topo.ppn,
+                                         proc=s % topo.ppn, slot=k, element=elem, bit=20)
+                    want_m = [("wire", phase, scope_for(phase, node, proc, slot, topo.ppn),
+                               node, proc, slot, "forward")]
+                    try:
+                        distributed_spgemm(a, p, fine, fine, topo, method=method,
+                                           device=DEV, integrity="detect", faults=[fault])
+                        raise AssertionError(f"{method} {phase} {kind}: not detected")
+                    except IntegrityError as e:
+                        got = [(m.check, m.phase, m.scope, m.node, m.proc, m.slot,
+                                m.direction) for m in e.mismatches]
+                        if got != want_m:
+                            raise AssertionError(f"{method} {phase} {kind}: {got}, "
+                                                 f"expected {want_m}")
+                    rep = {}
+                    rc = distributed_spgemm(a, p, fine, fine, topo, method=method,
+                                            device=DEV, integrity="recover",
+                                            faults=[fault], report=rep)
+                    if not same_csr(rc, clean) or rep["recovered"] != 1:
+                        raise AssertionError(f"{method} {phase} {kind}: recover {rep}")
+                    n += 1
+                print(f"    {method} {phase}: edge {edges['bitflip']}, every kind detected "
+                      f"with its (phase, node, proc, slot) and recovered bit-equal")
+            print(f"  integrity {method}: clean detect bit-equal to off"
+                  + (" (the literal pair exchange vs its live slots)"
+                     if method == "standard" else "")
+                  + f", {n} faults detected and recovered")
+            del rec, c
+            clear_spgemm_cache()
+            free()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_examples():
+    """[9c] the port's two examples on the card, each to its final check."""
+    print("[9c] torch examples on the card")
+    for name, example in (("quickstart", quickstart), ("amg_spmv", amg_spmv)):
+        t0 = time.perf_counter()
+        example.main([])
+        print(f"  example {name}: ran to its final check, {time.perf_counter() - t0:.2f} s")
+    free()
 
 
 # gemma2-2b serving (phases 10-12) ------------------------------------------------
@@ -1744,8 +2117,16 @@ def main():
     print(f"  phase 8 {time.perf_counter() - t0:.1f} s")
     del oracles, nap_ref, nap_det
     free()
+    t0 = time.perf_counter()
     amg = phase_amg(a, topo, gen, args.seed, args.n == 2024)
+    print(f"  phase 9 {time.perf_counter() - t0:.1f} s")
     del a
+    free()
+    t0 = time.perf_counter()
+    phase_spgemm_small(a_b, topo, args.seed)
+    phase_examples()
+    print(f"  phases 9b-9c {time.perf_counter() - t0:.1f} s")
+    del a_b
     free()
 
     # 10-12. gemma2-2b serving ---------------------------------------------------
@@ -1757,7 +2138,8 @@ def main():
 
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it); the AMG solve's launches, forward
-    # and transpose together, count with the forward entry
+    # and transpose together, and the materialized Galerkin operator's
+    # apply count with the forward entry
     by_name["ell_spmm_packed"]["launches"] = sum(
         d.get("ell_spmm_packed", 0) for d in (fwd, s_fwd1, s_fwd8, m_fwd, amg)) \
         + i_ell["forward"]

@@ -147,11 +147,18 @@ def smooth_prolongator(a: CSR, t: CSR, omega_scale: float = 4.0 / 3.0) -> CSR:
 
 def smoothed_aggregation_hierarchy(a: CSR, nullspace: Optional[np.ndarray] = None,
                                    theta: float = 0.0, max_levels: int = 12,
-                                   coarse_size: int = 64) -> List[Level]:
-    """Build the SA-AMG hierarchy; ``levels[0].a`` is the fine matrix and
-    each coarse matrix is the host product ``R (A P)``."""
+                                   coarse_size: int = 64,
+                                   rap=None) -> List[Level]:
+    """Build the SA-AMG hierarchy; ``levels[0].a`` is the fine matrix.
+
+    ``rap`` assembles each coarse matrix, a callable ``rap(r, a, p) ->
+    CSR``; the default is the host product ``R (A P)``.
+    :func:`repro_torch.spgemm.distributed_rap` assembles every coarse
+    level through the node-aware distributed SpGEMM (its float64
+    simulate backend is bit for bit the host product)."""
     if nullspace is None:
         nullspace = np.ones((a.shape[0], 1))
+    galerkin = rap or (lambda r_, a_, p_: csr_matmul(r_, csr_matmul(a_, p_)))
     levels = [Level(a=a)]
     b = nullspace
     while len(levels) < max_levels and levels[-1].a.shape[0] > coarse_size:
@@ -165,6 +172,6 @@ def smoothed_aggregation_hierarchy(a: CSR, nullspace: Optional[np.ndarray] = Non
         levels[-1].p = p
         levels[-1].r = r
         levels[-1].aggregates = agg
-        levels.append(Level(a=csr_matmul(r, csr_matmul(a_l, p))))
+        levels.append(Level(a=galerkin(r, a_l, p)))
         b = bc
     return levels

@@ -38,18 +38,28 @@ class LevelOperators:
     p: Optional[object] = None
     r: Optional[object] = None
 
-    def galerkin(self) -> Optional[object]:
-        """The coarse-grid operator ``R @ A @ P`` as a lazy
+    def galerkin(self, materialize: bool = False,
+                 **materialize_kwargs) -> Optional[object]:
+        """The coarse-grid operator ``R @ A @ P``, or None if a factor is
+        missing.  By default the lazy
         :class:`repro_torch.api.ComposedOperator` (three chained
-        node-aware SpMVs an apply), or None if a factor is missing."""
+        node-aware SpMVs an apply); ``materialize=True`` collapses it
+        through the distributed SpGEMM into a concrete operator on the
+        coarse partitions (one SpMV an apply), with ``materialize_kwargs``
+        passed to :meth:`repro_torch.api.ComposedOperator.materialize`."""
         if self.a is None or self.p is None or self.r is None:
             return None
-        return self.r @ self.a @ self.p
+        composed = self.r @ self.a @ self.p
+        if not materialize:
+            return composed
+        return composed.materialize(**materialize_kwargs)
 
 
 def level_operators(levels: Sequence[Level], topo, *, method: str = "nap",
                     backend: str = "torch", min_rows: Optional[int] = None,
                     parts: Optional[Sequence] = None,
+                    materialize: bool = False,
+                    spgemm_backend: Optional[str] = None, spgemm_dtype=None,
                     comm: Optional[str] = None, device: DeviceLike = None,
                     **kwargs) -> List[LevelOperators]:
     """One :class:`LevelOperators` (A and the rectangular P / R) per level.
@@ -65,6 +75,16 @@ def level_operators(levels: Sequence[Level], topo, *, method: str = "nap",
     each operator's ``autotune_report()["comm"]``).  The operators run
     on ``device`` (CUDA by default); other ``kwargs`` go to
     :func:`repro_torch.api.operator`.
+
+    ``materialize=True`` assembles every coarse matrix through the
+    node-aware distributed SpGEMM (:func:`repro_torch.spgemm.galerkin_rap`
+    on ``spgemm_backend``, by default the operators' ``backend``:
+    ``"torch"`` on ``device`` in ``spgemm_dtype`` payloads, or the host
+    float64 ``"simulate"``) instead of taking the hierarchy's host
+    product: each ``A_c = R (A P)`` chains from the previous distributed
+    product, is held against the hierarchy's host assembly (bit for bit
+    on ``"simulate"``, to float32 round-off growing with the chain depth
+    on ``"torch"``), and the coarse operators are built from it.
     """
     import repro_torch.api as nap
 
@@ -72,12 +92,28 @@ def level_operators(levels: Sequence[Level], topo, *, method: str = "nap",
     if parts is None:
         parts = [contiguous_partition(lvl.a.shape[0], topo.n_procs)
                  for lvl in levels]
+    a_mats = [lvl.a for lvl in levels]
+    spgemm_backend = spgemm_backend or backend
+    if materialize:
+        from repro_torch.spgemm import assert_matches_host, galerkin_rap
+        for i in range(len(levels) - 1):
+            lvl = levels[i]
+            r_mat = lvl.r if lvl.r is not None else lvl.p.transpose()
+            a_mats[i + 1] = galerkin_rap(
+                r_mat, a_mats[i], lvl.p, parts[i], parts[i + 1], topo,
+                method=method if method in ("nap", "standard") else "nap",
+                backend=spgemm_backend, device=device, dtype=spgemm_dtype)
+            # float32 products chain level to level, so the tolerance
+            # against the float64 host hierarchy grows with the depth
+            assert_matches_host(a_mats[i + 1], levels[i + 1].a,
+                                spgemm_backend, f"level {i + 1} A_c",
+                                rtol=5e-5 * (i + 1))
     kw = dict(method=method, backend=backend, comm=comm, device=device, **kwargs)
     ops: List[LevelOperators] = []
     for i, lvl in enumerate(levels):
         entry = LevelOperators()
         if lvl.a.shape[0] >= floor:
-            entry.a = nap.operator(lvl.a, topo, parts[i], **kw)
+            entry.a = nap.operator(a_mats[i], topo, parts[i], **kw)
             if lvl.p is not None:
                 entry.p = nap.operator(lvl.p, topo, row_part=parts[i],
                                        col_part=parts[i + 1], **kw)

@@ -25,6 +25,8 @@ input entries; ``op.T`` swaps the two through the same compiled plan.
 **Composition.**  ``@`` between operators is lazy: ``R @ A @ P`` is a
 :class:`ComposedOperator` that applies the factors right to left, with
 shapes and interface partitions checked when it is composed.
+``.materialize()`` collapses it into one concrete operator through the
+node-aware distributed SpGEMM (:mod:`repro_torch.spgemm`).
 
 **Backends.**  ``backend="torch"`` runs the rank-batched program on the
 GPU; ``device="cpu"`` is the only way off it.  ``backend="simulate"``
@@ -415,6 +417,66 @@ class ComposedOperator:
 
     def autotune_report(self) -> List[object]:
         return [f.autotune_report() for f in self.factors]
+
+    def materialize(self, *, spgemm_backend: Optional[str] = None,
+                    spgemm_method: Optional[str] = None, dtype=None,
+                    cross_check: bool = False) -> NapOperator:
+        """Collapse the lazy chain into ONE concrete :class:`NapOperator`
+        on the outer partitions, multiplying the factors right to left
+        through the node-aware distributed SpGEMM
+        (:mod:`repro_torch.spgemm`): remote B rows route through the same
+        exchanges as the SpMV plans, carrying CSR row blocks.
+
+        The lazy chain pays k SpMVs per apply; the concrete operator pays
+        the SpGEMM once and one SpMV per apply.
+
+        ``spgemm_backend`` is ``"simulate"`` (exact float64 products, bit
+        for bit the host ``csr_matmul`` chain) or ``"torch"`` (the device
+        program, in ``dtype`` payloads: float32 unless
+        ``torch.float64``); it defaults to ``"simulate"`` when any factor
+        runs the simulate backend, else ``"torch"``.  ``spgemm_method``
+        defaults to the leftmost factor's method where the SpGEMM has it
+        (``"nap"`` or ``"standard"``), else ``"nap"``.
+        ``cross_check=True`` holds the product against the host
+        ``csr_matmul`` chain.  The result reuses the leftmost factor's
+        spec (method, backend, local compute, pairing, integrity,
+        threshold) and device, on which the products run too.
+        """
+        from repro_torch.spgemm import assert_matches_host, distributed_spgemm
+
+        factors = self.factors
+        topo = factors[0].topo
+        for f in factors:
+            if (f.topo.n_nodes, f.topo.ppn) != (topo.n_nodes, topo.ppn):
+                raise ValueError("cannot materialize a chain spanning "
+                                 "different topologies")
+        spec = factors[0].spec
+        backend = spgemm_backend or (
+            "simulate" if any(f.spec.backend == "simulate" for f in factors)
+            else "torch")
+        method = spgemm_method or (spec.method if spec.method in ("nap", "standard")
+                                   else "nap")
+
+        def csr_of(f: NapOperator):
+            return f.a.transpose() if f.transposed else f.a
+
+        cur = csr_of(factors[-1])
+        for f in reversed(factors[:-1]):
+            cur = distributed_spgemm(csr_of(f), cur, f.range_part,
+                                     f.domain_part, topo, method=method,
+                                     backend=backend, dtype=dtype,
+                                     device=spec.device)
+        if cross_check:
+            from repro_torch.amg.matmul import csr_matmul
+            want = csr_of(factors[-1])
+            for f in reversed(factors[:-1]):
+                want = csr_matmul(csr_of(f), want)
+            assert_matches_host(cur, want, backend, "materialize")
+        return operator(cur, topo, row_part=self.range_part,
+                        col_part=self.domain_part, method=spec.method,
+                        backend=spec.backend, threshold=spec.threshold,
+                        local_compute=spec.local_compute, pairing=spec.pairing,
+                        integrity=spec.integrity, device=spec.device)
 
     def __repr__(self) -> str:
         return f"ComposedOperator({' @ '.join(repr(f) for f in self.factors)})"

@@ -56,7 +56,7 @@ class CSR:
         return CSR.from_coo(cols, rows, vals, (self.shape[1], self.shape[0]))
 
     def select_rows(self, rows: np.ndarray) -> "CSR":
-        counts = np.diff(self.indptr)[rows]
+        counts = self.indptr[rows + 1] - self.indptr[rows]
         indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
         # each selected row's nnz range as one vectorised gather: start
         # offsets repeated per element plus an intra-row ramp

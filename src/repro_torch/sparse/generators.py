@@ -130,12 +130,21 @@ def _apply_dirichlet(a: CSR, fixed: np.ndarray) -> CSR:
     return CSR.from_coo(rows, cols, vals, a.shape)
 
 
-def random_fixed_nnz(n_rows: int, nnz_per_row: int, seed: int = 0) -> CSR:
+def random_fixed_nnz(n_rows: int, nnz_per_row: int, seed: int = 0,
+                     symmetric_pattern: bool = False) -> CSR:
     """Random matrix, constant nnz/row, values U(-1, 1), diagonal included
-    (the paper's Figs. 11-12 family)."""
+    (the paper's Figs. 11-12 family).  ``symmetric_pattern`` returns
+    ``(A + A.T) / 2``, whose pattern is symmetric."""
     rng = np.random.default_rng(seed)
     cols = rng.integers(0, n_rows, size=(n_rows, nnz_per_row))
     cols[:, 0] = np.arange(n_rows)  # keep a diagonal
     rows = np.repeat(np.arange(n_rows), nnz_per_row)
     vals = rng.uniform(-1.0, 1.0, size=rows.size)
-    return CSR.from_coo(rows, cols.reshape(-1), vals, (n_rows, n_rows))
+    a = CSR.from_coo(rows, cols.reshape(-1), vals, (n_rows, n_rows))
+    if symmetric_pattern:
+        rows1, cols1, vals1 = a.to_coo()
+        rows2, cols2, vals2 = a.transpose().to_coo()
+        a = CSR.from_coo(np.concatenate([rows1, rows2]),
+                         np.concatenate([cols1, cols2]),
+                         np.concatenate([vals1, vals2]) * 0.5, a.shape)
+    return a

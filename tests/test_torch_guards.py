@@ -146,6 +146,53 @@ def test_simulate_and_integrity_import_loads_neither_jax_nor_reference():
     assert "clean" in proc.stdout
 
 
+def test_spgemm_paper_and_examples_import_loads_neither_jax_nor_reference():
+    code = ("import sys, repro_torch.spgemm, repro_torch.spgemm.spgemm_torch\n"
+            "import repro_torch.spgemm.rap, repro_torch.spgemm.simulate\n"
+            "import repro_torch.examples.quickstart, repro_torch.examples.amg_spmv\n"
+            "import repro_torch.sparse.suitesparse_like\n"
+            "import repro_torch.configs.paper_spmv\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\nprint('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "clean" in proc.stdout
+
+
+def test_spgemm_materialize_and_examples_raise_without_cuda(monkeypatch):
+    """The device SpGEMM, ``level_operators(materialize=True)`` and
+    ``distributed_rap`` (whose products default to the device backend),
+    ``materialize`` of device factors and the examples need CUDA or
+    ``device="cpu"``; the simulate backend runs on the host."""
+    from repro_torch.amg import level_operators, smoothed_aggregation_hierarchy
+    from repro_torch.examples import amg_spmv, quickstart
+    from repro_torch.spgemm import distributed_rap, distributed_spgemm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = poisson_2d(8)
+    topo = Topology(2, 2)
+    part = contiguous_partition(64, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed_spgemm(a, a, part, part, topo)
+    assert distributed_spgemm(a, a, part, part, topo, backend="simulate").nnz > 0
+    assert distributed_spgemm(a, a, part, part, topo, device="cpu").nnz > 0
+    for rap in (distributed_rap(topo, backend="torch"), distributed_rap(topo)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            smoothed_aggregation_hierarchy(a, coarse_size=8, rap=rap)
+    levels = smoothed_aggregation_hierarchy(a, coarse_size=8)
+    for kw in (dict(spgemm_backend="torch"), {}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            level_operators(levels, topo, materialize=True, **kw)
+    ops = level_operators(levels, topo, device="cpu", materialize=True,
+                          spgemm_backend="simulate")
+    assert ops[0].galerkin(materialize=True).spec.device == "cpu"
+    for example in (quickstart, amg_spmv):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            example.main([])
+
+
 def test_simulate_runs_on_the_host_and_integrity_raises_without_cuda(monkeypatch):
     """The float64 simulators are host numpy and need no GPU; the device
     backend with integrity on still needs CUDA or ``device="cpu"``."""
