@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: the node-aware SpMV,
 the multi-step exchange, wire integrity, the float64 simulate backend,
-the distributed SpGEMM and the AMG solver path, and the gemma2-2b
-serving path.
+the distributed SpGEMM and the AMG solver path, the solver service, and
+the gemma2-2b serving path.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -106,6 +106,26 @@ Phases, each fatal on failure:
    exchange against the bare program's live slots);
 9c. the port's two examples, ``repro_torch.examples.quickstart`` and
    ``amg_spmv``, on the card to their final checks;
+9d. the solver service (``repro_torch.serve.SolverService``, backend
+   torch, checkpoints every 4 CG iterations) on the main path's matrix
+   and topology: 8 spmv requests run as ONE nv = 8 apply (the ELL
+   launches of one direct ``op @ V``, one plan-cache miss) within rtol
+   1e-4 / atol 1e-5 of the float64 host product; ``update_values`` with
+   an integer SPD matrix of the same structure hot-swaps (no program
+   build, the staged ELL values written in place: same ``data_ptr()``),
+   its products exact, the swap's host seconds beside a fresh
+   ``compile_nap``; each column of an nv = 8 apply against its own
+   nv = 1 apply (printed); node5 dies at CG iteration 8 of two solves:
+   the service evicts it, lands on Topology(31, 16) with an elastic
+   partition, releases the old plan's tensors, restores the iteration-8
+   checkpoint and finishes every request, the spmv bit-equal to the
+   uninterrupted run and the exact product, each solve bit-equal to
+   ``batched_cg`` on an operator compiled on its own on the survivor
+   layout from the restored iterate; rebuild, checkpoint and CG
+   iteration numbers; then at the BSR path's grid a seeded random fault
+   plan (message faults under ``integrity="recover"``) replayed twice
+   with identical logs, stats and results, and a torn checkpoint after
+   which the previous committed step stands;
 10. the decode-attention kernel against its plain version at gemma2-2b's
    decode_32k shapes: B = 8, S = 32768, Hkv = 4, g = 2, D = 256, softcap
    50, lengths ragged in [1, S] (1, 17, 4096, 4097, S and three drawn
@@ -151,6 +171,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -197,6 +218,11 @@ from repro_torch.spgemm import (assert_matches_host, build_spgemm_plan,  # noqa:
                                 torch_spgemm_runs, unpack_c_values)
 from repro_torch.spgemm.plan import message_value_size  # noqa: E402
 from repro_torch.models import attention, build_model, count_params  # noqa: E402
+from repro_torch.checkpoint import load_checkpoint  # noqa: E402
+from repro_torch.core.spmv_torch import clear_compile_cache  # noqa: E402
+from repro_torch.mesh import default_registry  # noqa: E402
+from repro_torch.serve import (FaultPlan, SolverService, batched_cg,  # noqa: E402
+                               dead_node, torn_checkpoint)
 from repro_torch.sparse import BSR, rotated_anisotropic_2d  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor
@@ -283,6 +309,10 @@ def check_oracle(label, got, want, ref="float64 host CSR"):
 
 
 def free():
+    """Drop the compile cache's plans with the phase's operators (the
+    cache would keep their staged tensors alive), then the allocator's
+    cached blocks."""
+    clear_compile_cache()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1775,6 +1805,313 @@ def phase_examples():
     free()
 
 
+# the solver service (phase 9d) ------------------------------------------------
+
+def int_spd(a):
+    """``a``'s structure with integer values: -1 off the diagonal, 9 on
+    it.  The stencil's rows hold at most 9 entries, so the matrix is
+    symmetric, diagonally dominant and SPD (CG applies), and with integer
+    operands every product is exact in float32."""
+    rows = np.repeat(np.arange(a.shape[0]), np.diff(a.indptr))
+    data = np.where(rows == a.indices, 9.0, -1.0)
+    return type(a)(indptr=a.indptr, indices=a.indices, data=data, shape=a.shape)
+
+
+class timed_calls:
+    """Wrap ``owner.name`` for the block, recording each call's host seconds."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.seconds = owner, name, []
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.owner, self.name)
+
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def service_op(svc):
+    """The service's one cached operator (read without touching the plan
+    cache's hit counters)."""
+    (entry,) = svc.plans._entries.values()
+    return entry["op"]
+
+
+def dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def cg_iteration(op, P, X, R):
+    """The body of one ``batched_cg`` iteration (the shared apply, then
+    per-column reductions and updates on the host), for its wall and
+    busy share."""
+    AP = op @ P
+    alpha = (R * R).sum(axis=0) / (P * AP).sum(axis=0)
+    return X + alpha * P, R - alpha * AP
+
+
+def phase_service(a, a_b, topo, seed):
+    """[9d] the solver service at full size: batching, a hot value swap,
+    a node lost mid-solve, then scripted scenarios at the BSR grid."""
+    n = int(np.sqrt(a.shape[0]))
+    print(f"[9d] solver service: n={n} ({a.shape[0]} rows, {a.nnz} nnz), "
+          f"Topology({topo.n_nodes}, {topo.ppn}), backend torch, checkpoint "
+          f"every 4 iterations, node5 scripted to die at CG iteration 8")
+    rng = np.random.default_rng(seed + 9)
+    clear_compile_cache()
+    reg = default_registry()
+    ell_launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        svc = SolverService(topo, backend="torch", checkpoint_dir=tmp,
+                            checkpoint_every=4, max_attempts=6, device=DEV,
+                            fault_plan=FaultPlan.of(dead_node(1, "node5",
+                                                              at_iteration=8)))
+        svc.register_matrix("diffusion", a)
+
+        # 1. eight spmv requests, one nv = 8 apply
+        V = rng.standard_normal((a.shape[0], 8))
+        tickets = [svc.submit(f"tenant{i % 3}", "diffusion", V[:, i])
+                   for i in range(8)]
+        with timed_calls(spmv_torch, "compile_nap") as comp:
+            t0 = time.perf_counter()
+            rep, cnt = drive("service step: 8 spmv requests", svc.step)
+            t_step = time.perf_counter() - t0
+        if rep["executed"] != 8 or svc.plans.stats["misses"] != 1:
+            raise AssertionError(f"8 requests did not run as one batch: {rep}, "
+                                 f"{svc.plans.stats}")
+        want = host_apply(a, V)
+        got = np.stack([t.result() for t in tickets], axis=1)
+        check_oracle("8 batched spmv requests", got, want)
+        op = service_op(svc)
+        w_direct, cnt_direct = drive("direct op @ V nv=8", lambda: op @ V)
+        if cnt.get("ell_spmm_packed", 0) != cnt_direct.get("ell_spmm_packed", -1):
+            raise AssertionError(f"the batch is not one nv=8 apply: {cnt} vs "
+                                 f"{cnt_direct}")
+        if not np.array_equal(w_direct, got):
+            raise AssertionError("the direct apply differs from the service's")
+        ell_launches += cnt.get("ell_spmm_packed", 0)
+        ms = time_programs(op.executor, [("service nv=8", "forward", V, {})],
+                           profile=False)
+        print(f"  step 1: 8 requests in one nv=8 apply ({cnt['ell_spmm_packed']} "
+              f"ELL launches, as one direct apply); first compile_nap "
+              f"{comp.seconds[0]:.2f} s; step wall {t_step:.2f} s; device "
+              f"program {ms['service nv=8']:.4f} ms")
+        del w_direct
+
+        # 2. a hot value swap at full size
+        a_int = int_spd(a)
+        V_int = rng.integers(-8, 9, size=(a.shape[0], 8)).astype(np.float64)
+        builds = op.trace_counts()
+        vals = op.executor.compiled._tensors["ell_vals"]
+        ptr = vals.data_ptr()
+        svc.update_values("diffusion", a_int)
+        tickets = [svc.submit(f"tenant{i % 3}", "diffusion", V_int[:, i])
+                   for i in range(8)]
+        with timed_calls(spmv_torch.CompiledNAP, "swap_values") as swap:
+            t0 = time.perf_counter()
+            _, cnt = drive("service step: hot swap + 8 spmv requests", svc.step)
+            t_step = time.perf_counter() - t0
+        ell_launches += cnt.get("ell_spmm_packed", 0)
+        st = svc.plans.stats
+        if (st["hot_swaps"], st["misses"]) != (1, 1) or op.trace_counts() != builds:
+            raise AssertionError(f"the value update recompiled: {st}, builds "
+                                 f"{builds} -> {op.trace_counts()}")
+        now = op.executor.compiled._tensors["ell_vals"]
+        if now is not vals or now.data_ptr() != ptr:
+            raise AssertionError("the swap replaced the staged ELL values")
+        got = np.stack([t.result() for t in tickets], axis=1)
+        if not np.array_equal(got, host_apply(a_int, V_int)):
+            raise AssertionError("the swapped values' product is not exact")
+        t0 = time.perf_counter()
+        fresh = spmv_torch.compile_nap(a_int, svc.matrices["diffusion"]["row_part"],
+                                       topo, cache=False, device=DEV)
+        fresh.ensure_ell()
+        t_fresh = time.perf_counter() - t0
+        del fresh
+        print(f"  step 2: hot swap {swap.seconds[0]:.2f} s of host time (values, "
+              f"ELL refresh, in-place copy) vs a fresh compile_nap + ensure_ell "
+              f"{t_fresh:.2f} s; builds {builds} flat; ell_vals data_ptr "
+              f"unchanged; 8 integer products exact; step wall {t_step:.2f} s")
+        # batched equals solo: each column of the nv=8 apply against its own
+        # nv=1 apply (float operands, so the summation order shows)
+        w8 = op @ V
+        diff = max(float(np.abs(w8[:, i] - op @ V[:, i]).max()) for i in range(8))
+        print(f"  batched vs solo (float operands, nv=8 columns vs nv=1 "
+              f"applies): {'bit-equal' if diff == 0 else f'max |diff| {diff:.3e}'}")
+        del w8
+
+        # 3. node loss mid-solve
+        b_int = rng.integers(-8, 9, size=a.shape[0]).astype(np.float64)
+        B = rng.integers(-8, 9, size=(a.shape[0], 2)).astype(np.float64)
+        w_ref = op @ b_int                  # the uninterrupted run, 32 x 16
+        if not np.array_equal(w_ref, host_apply(a_int, b_int)):
+            raise AssertionError("the uninterrupted spmv is not exact")
+        old_ns = op.executor.compiled._tensors
+        held_before = reg.resident_bytes()
+        t_spmv = svc.submit("tenant0", "diffusion", b_int, kind="spmv")
+        solves = [svc.submit(f"tenant{1 + i}", "diffusion", B[:, i], kind="solve",
+                             tol=1e-5, maxiter=40, deadline=1e6) for i in range(2)]
+        ck = svc.ckpt
+        with timed_calls(ck, "save") as saves, timed_calls(ck, "restore") as restores:
+            t0 = time.perf_counter()
+            _, cnt = drive("service run: node loss mid-solve",
+                           lambda: svc.run(max_steps=40))
+            t_run = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ell_launches += cnt.get("ell_spmm_packed", 0)
+        print("  service log:\n    " + "\n    ".join(svc.log))
+        new_topo = svc.topo
+        part = svc.matrices["diffusion"]["row_part"]
+        if not (t_spmv.status == "done" and all(t.status == "done" for t in solves)
+                and svc.stats["recoveries"] == 1 and "node5" not in svc.nodes
+                and (new_topo.n_nodes, new_topo.ppn) == (topo.n_nodes - 1, topo.ppn)
+                and part.kind == "elastic"):
+            raise AssertionError(f"recovery failed: {svc.report()['stats']}, "
+                                 f"{[t.status for t in [t_spmv] + solves]}")
+        if not any("restored checkpointed iterates (iteration 8)" in line
+                   for line in svc.log):
+            raise AssertionError("the iteration-8 checkpoint was not restored")
+        if not (np.array_equal(t_spmv.result(), w_ref)
+                and np.array_equal(t_spmv.result(), host_apply(a_int, b_int))):
+            raise AssertionError("the spmv across the node loss is not bit-equal")
+        if not (old_ns.released and old_ns.resident_bytes() == 0):
+            raise AssertionError("the evicted plan still holds device tensors")
+        held_after = reg.resident_bytes()
+        X0 = np.stack([t.request.x0 for t in solves], axis=1)
+        got = np.stack([t.result() for t in solves], axis=1)
+        iters = [t.request.iters for t in solves]
+        # the oracle: compiled on its own, natively on the survivor layout,
+        # from the restored iterate
+        clear_compile_cache()
+        op_o = operator(a_int, new_topo, row_part=part, device=DEV)
+        X, it_o, rel = batched_cg(op_o, B, tol=1e-5, maxiter=40, X0=X0)
+        if not np.array_equal(got, X):
+            raise AssertionError("the recovered solves differ from the survivor "
+                                 f"oracle (max |diff| {np.abs(got - X).max():.3e})")
+        true_rel = [float(np.linalg.norm(host_apply(a_int, X[:, i]) - B[:, i])
+                          / np.linalg.norm(B[:, i])) for i in range(2)]
+        print(f"  step 3: node5 evicted, Topology({new_topo.n_nodes}, "
+              f"{new_topo.ppn}) kind {part.kind}; spmv bit-equal to the "
+              f"uninterrupted run and the exact product; solves bit-equal to the "
+              f"survivor oracle ({iters} iterations after the restore, true "
+              f"relative residuals {true_rel[0]:.3e} {true_rel[1]:.3e}); run "
+              f"{t_run:.2f} s wall")
+        ckpt_bytes = dir_bytes(max(Path(tmp).glob("step_*")))
+        print(f"  last_recover_rebuild_s {svc.stats['last_recover_rebuild_s']:.2f} "
+              f"(survivor partition, plan release, compile_nap on the survivors, "
+              f"restore); checkpoint save {statistics.median(saves.seconds):.3f} s "
+              f"median of {len(saves.seconds)}, restore "
+              f"{statistics.median(restores.seconds):.3f} s, "
+              f"{ckpt_bytes} bytes in the last step on disk; peak memory allocated "
+              f"{peak:.3f} GB; registry resident {held_before / 1e9:.3f} GB "
+              f"before the rebuild, {held_after / 1e9:.3f} GB after; released "
+              f"{svc.plans.stats.get('buffer_bytes_released', 0) / 1e9:.3f} GB")
+        op_s = service_op(svc)
+        P = rng.standard_normal((a.shape[0], 2))
+        t0 = time.perf_counter()
+        cg_iteration(op_s, P, P, P)
+        wall = (time.perf_counter() - t0) * 1e3
+        profile_program("one CG iteration (nv=2 apply + host updates)",
+                        lambda: cg_iteration(op_s, P, P, P), wall)
+        # the profiler may drop kernels late in the script (PERF.md §7): the
+        # apply's device program by CUDA events, as a share of the wall
+        ms = time_programs(op_s.executor, [("CG apply nv=2", "forward", P, {})],
+                           profile=False)["CG apply nv=2"]
+        print(f"  one CG iteration: {wall:.2f} ms of wall, its device program "
+              f"{ms:.4f} ms by CUDA events ({100 * ms / wall:.2f}%; pack / "
+              f"unpack copies and float64 host updates take the rest)")
+        print(f"  report: {json.dumps(svc.report()['stats'])}; plan cache "
+              f"{json.dumps(svc.plans.stats)}")
+        del svc, op, op_s, op_o, old_ns, vals, now, X, X0, got
+    free()
+    service_scenarios(a_b, topo, seed)
+    return ell_launches
+
+
+def scenario(a, topo, plan, tmp, integrity):
+    """One scripted scenario at the BSR grid: spmv and solve requests
+    from three tenants, run to the end."""
+    rng = np.random.default_rng(17)
+    svc = SolverService(topo, backend="torch", checkpoint_dir=tmp,
+                        checkpoint_every=3, fault_plan=plan, integrity=integrity,
+                        max_attempts=6, device=DEV)
+    svc.register_matrix("m", a)
+    tickets = [svc.submit(f"t{i % 3}", "m",
+                          rng.integers(-8, 9, a.shape[0]).astype(np.float64),
+                          kind="spmv" if i % 2 else "solve", tol=1e-5, maxiter=30)
+               for i in range(6)]
+    svc.run(max_steps=60)
+    stats = dict(svc.report()["stats"])
+    stats.pop("last_recover_rebuild_s")
+    return svc, tickets, stats
+
+
+def service_scenarios(a_b, topo, seed):
+    """Phase 9d, part 4: a seeded random fault plan (message faults under
+    integrity="recover" included) replayed twice, and a torn checkpoint."""
+    a = int_spd(a_b)
+    nodes = [f"node{i}" for i in range(topo.n_nodes)]
+    runs = []
+    for _ in range(2):
+        plan = FaultPlan.random(seed, nodes, n_steps=6, n_events=4, ppn=topo.ppn)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+            svc, tickets, stats = scenario(a, topo, plan, tmp, "recover")
+            runs.append((list(svc.log), stats,
+                         [(t.status, t.reason) for t in tickets],
+                         service_op(svc).integrity_report(),
+                         [t.result() if t.status == "done" else None
+                          for t in tickets]))
+        del svc
+    (log1, st1, tk1, ir1, res1), (log2, st2, tk2, ir2, res2) = runs
+    same = (log1 == log2 and st1 == st2 and tk1 == tk2 and ir1 == ir2 and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and np.array_equal(x, y))
+        for x, y in zip(res1, res2)))
+    if not same:
+        raise AssertionError("the replayed fault scenario differs")
+    print(f"  scripted plan (seed {seed}, {len(plan)} events: "
+          f"{[(e.step, e.kind, e.node) for e in plan.events]}) replayed twice "
+          f"at n={int(np.sqrt(a.shape[0]))}: logs, stats, integrity reports and "
+          f"results identical; tickets {tk1}; stats {json.dumps(st1)}; the "
+          f"serving operator's integrity counters "
+          f"{ {k: ir1[k] for k in ('applies', 'faults_injected', 'retries', 'recovered')} }")
+    # a torn checkpoint: the previous committed step stands
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        svc = SolverService(topo, backend="torch", checkpoint_dir=tmp,
+                            checkpoint_every=4, device=DEV,
+                            fault_plan=FaultPlan.of(torn_checkpoint(2)))
+        svc.register_matrix("m", a)
+        b = np.random.default_rng(seed).integers(-8, 9, a.shape[0]).astype(np.float64)
+        first = svc.submit("t", "m", b, kind="solve", tol=1e-30, maxiter=8)
+        svc.step()                   # saves 1 and 2 commit (iterations 4, 8)
+        second = svc.submit("t", "m", b, kind="solve", tol=1e-30, maxiter=4)
+        svc.step()                   # save 3 tears before _COMMITTED
+        _, extra = svc.ckpt.restore()
+        try:
+            load_checkpoint(tmp, step=3)
+            torn_loads = True
+        except FileNotFoundError:
+            torn_loads = False
+        if not (first.status == second.status == "done"
+                and svc.stats["torn_saves"] == 1 and extra["iteration"] == 8
+                and not torn_loads):
+            raise AssertionError(f"torn checkpoint: {svc.stats}, {extra}")
+        print(f"  torn checkpoint: save 3 tore before _COMMITTED, restore "
+              f"returns the committed step (iteration {extra['iteration']}), "
+              f"both solves done")
+        del svc
+    free()
+
+
 # gemma2-2b serving (phases 10-12) ------------------------------------------------
 ATTN_REPLACES = "src/repro/kernels/decode_attn/kernel.py:71"
 ATTN_SOURCE = "src/repro_torch/csrc/decode_attn.cu"
@@ -2120,13 +2457,15 @@ def main():
     t0 = time.perf_counter()
     amg = phase_amg(a, topo, gen, args.seed, args.n == 2024)
     print(f"  phase 9 {time.perf_counter() - t0:.1f} s")
-    del a
     free()
     t0 = time.perf_counter()
     phase_spgemm_small(a_b, topo, args.seed)
     phase_examples()
     print(f"  phases 9b-9c {time.perf_counter() - t0:.1f} s")
-    del a_b
+    t0 = time.perf_counter()
+    svc_ell = phase_service(a, a_b, topo, args.seed)
+    print(f"  phase 9d {time.perf_counter() - t0:.1f} s")
+    del a, a_b
     free()
 
     # 10-12. gemma2-2b serving ---------------------------------------------------
@@ -2138,11 +2477,11 @@ def main():
 
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it); the AMG solve's launches, forward
-    # and transpose together, and the materialized Galerkin operator's
-    # apply count with the forward entry
+    # and transpose together, the materialized Galerkin operator's apply
+    # and the solver service's applies count with the forward entry
     by_name["ell_spmm_packed"]["launches"] = sum(
         d.get("ell_spmm_packed", 0) for d in (fwd, s_fwd1, s_fwd8, m_fwd, amg)) \
-        + i_ell["forward"]
+        + i_ell["forward"] + svc_ell
     by_name["ell_spmm_packed:transpose"]["launches"] = sum(
         d.get("ell_spmm_packed", 0) for d in (tr, s_tr, m_tr)) + i_ell["transpose"]
     by_name["fused_bsr_spmm_packed"]["launches"] = (

@@ -78,7 +78,7 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
              method: str = "nap", backend: str = "torch",
              comm: Optional[str] = None, threshold: object = "auto",
              local_compute: str = "auto", pairing: str = "aligned",
-             integrity: str = "off",
+             integrity: str = "off", cache: bool = True,
              device: DeviceLike = None) -> "NapOperator":
     """Build a :class:`NapOperator` for the ``[m, n]`` matrix ``a``.
 
@@ -101,8 +101,10 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
     rule of the node-aware plans: ``"aligned"``, or the paper's
     ``"balanced"`` on the simulate backend.  ``integrity`` is ``"off"``,
     ``"detect"`` or ``"recover"`` (module docstring); the chooser then
-    charges the checksum wires.  ``device`` defaults to CUDA and raises
-    when it is absent; the simulate backend runs on the host.
+    charges the checksum wires.  ``cache`` compiles the device plans
+    through the compile cache (:func:`repro_torch.core.spmv_torch.
+    clear_compile_cache`).  ``device`` defaults to CUDA and raises when
+    it is absent; the simulate backend runs on the host.
     """
     m, n = a.shape
     if topo is None:
@@ -155,7 +157,7 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
                         local_compute=local_compute,
                         device=None if device is None else str(device),
                         threshold=threshold, pairing=pairing,
-                        integrity=integrity)
+                        integrity=integrity, cache=cache)
     exec_ = bind_executor(backend, method, a, row_part, col_part, topo, spec,
                           plan=plans.get(method))
     t_exec = None
@@ -259,6 +261,40 @@ class NapOperator:
             return self._parent
         return dataclasses.replace(self, transposed=not self.transposed,
                                    _parent=self)
+
+    # -- hot value swap ----------------------------------------------------
+    def swap_values(self, a_new) -> None:
+        """Swap the matrix VALUES behind this operator without recompiling.
+
+        ``a_new`` must have the exact sparsity structure of the current
+        matrix (same shape, indptr, indices; always the untransposed
+        orientation, even on a ``.T`` view, which shares the executors
+        and picks the new values up).  On the torch backend the compiled
+        plan writes the new values into its staged tensors in place, so
+        no program is built again: :meth:`trace_counts` stays flat.  The
+        serve layer's plan cache keys on structure alone and relies on
+        this for value updates.
+        """
+        self.executor.swap_values(a_new)
+        if self.transpose_executor is not None:
+            self.transpose_executor.swap_values(a_new)
+        self.a = a_new
+        if self._parent is not None:
+            self._parent.a = a_new
+
+    def trace_counts(self):
+        """Program builds per direction, ``{"forward": n, "transpose":
+        m}`` on the torch backend (a direction appears once it has run),
+        empty on simulate.  Flat counts across a :meth:`swap_values`
+        show that the swap reused the compiled program."""
+        counts = dict(self.executor.trace_counts())
+        if self.transpose_executor is not None:
+            counts.pop("transpose", None)
+            counts.update(
+                {k: v for k, v
+                 in self.transpose_executor.trace_counts().items()
+                 if k == "transpose"})
+        return counts
 
     @property
     def local_compute(self) -> str:
@@ -476,7 +512,8 @@ class ComposedOperator:
                         col_part=self.domain_part, method=spec.method,
                         backend=spec.backend, threshold=spec.threshold,
                         local_compute=spec.local_compute, pairing=spec.pairing,
-                        integrity=spec.integrity, device=spec.device)
+                        integrity=spec.integrity, cache=spec.cache,
+                        device=spec.device)
 
     def __repr__(self) -> str:
         return f"ComposedOperator({' @ '.join(repr(f) for f in self.factors)})"

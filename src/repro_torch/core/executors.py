@@ -4,7 +4,9 @@ An executor binds one (backend, method) pair to a matrix and a layout
 and exposes what the operator front-end needs: ``forward(v)`` (global
 ``A @ v``, 1-RHS or multi-RHS), ``transpose(u)`` (global ``A.T @ u`` on
 the same plan), ``stats()``, ``cost(machine)``, ``autotune_report()``,
-and with integrity on ``queue_fault`` and ``integrity_report()``.
+``swap_values(a_new)`` and ``trace_counts()`` (the hot value swap and
+the program builds it must leave flat), and with integrity on
+``queue_fault`` and ``integrity_report()``.
 
 Registered here:
 
@@ -62,6 +64,7 @@ class OperatorSpec:
     threshold: object = "auto"
     pairing: str = "aligned"        # "balanced" on the simulate backend only
     integrity: str = "off"          # "off" | "detect" | "recover"
+    cache: bool = True              # compile through the plan compile cache
 
 
 _REGISTRY: Dict[Tuple[str, str], Callable] = {}
@@ -159,6 +162,7 @@ class _TorchExecutor(_IntegritySurface):
         self._compiled = None
         self._integrity = _integrity_state(spec, topo, type(self).method)
         self._fault_spec = None
+        self._builds: Dict[str, int] = {}
 
     @property
     def compiled(self):
@@ -192,13 +196,40 @@ class _TorchExecutor(_IntegritySurface):
 
     def _apply(self, direction: str, v, **options) -> np.ndarray:
         from repro_torch.core.spmv_torch import unpack_vector
+        before = None if self._compiled is None else self._compiled.builds
         shards = self.packed(direction, v)
         if self._integrity is not None:
             w = self._apply_verified(direction, shards, options)
         else:
             w = self.program(direction, **options)(shards)
+        # the first apply of a direction builds its program, and so does
+        # any apply that compiled the plan or staged an index tensor (a
+        # new nv stages new element indices)
+        built = (before is None or direction not in self._builds
+                 or self._compiled.builds != before)
+        self._builds[direction] = self._builds.get(direction, 0) + int(built)
         out_part = self.row_part if direction == "forward" else self.col_part
         return unpack_vector(w.cpu().numpy(), out_part, self.topo)
+
+    def swap_values(self, a_new) -> None:
+        """Hot-swap the matrix VALUES (the sparsity must be identical):
+        the compiled plan writes its new value arrays into the staged
+        tensors in place, so both directions' programs run on with no
+        build.  Before the first apply there is no plan yet, and the
+        swap only replaces the matrix the compile will read."""
+        if self._compiled is None:
+            from repro_torch.core.spmv_torch import check_same_structure
+            check_same_structure(self.a, a_new)
+        else:
+            self._compiled.swap_values(a_new)
+        self.a = a_new
+
+    def trace_counts(self) -> Dict[str, int]:
+        """Program builds per direction that has run: its first apply and
+        every apply that compiled the plan or staged one of its index
+        tensors (the port's analogue of the reference's jit traces).  A
+        hot value swap leaves them flat."""
+        return dict(self._builds)
 
     def _apply_verified(self, direction: str, shards: torch.Tensor,
                         options) -> torch.Tensor:
@@ -273,6 +304,7 @@ class NapTorchExecutor(_TorchExecutor):
     def _compile(self):
         from repro_torch.core.spmv_torch import compile_nap
         return compile_nap(self.a, self.row_part, self.topo, plan=self._plan,
+                           cache=self.spec.cache,
                            local_compute=self.spec.local_compute,
                            col_part=self.col_part, device=self.device)
 
@@ -300,7 +332,7 @@ class StandardTorchExecutor(_TorchExecutor):
     def _compile(self):
         from repro_torch.core.spmv_torch import compile_standard
         return compile_standard(self.a, self.row_part, self.topo,
-                                plan=self._plan,
+                                plan=self._plan, cache=self.spec.cache,
                                 local_compute=self.spec.local_compute,
                                 col_part=self.col_part, device=self.device)
 
@@ -330,7 +362,7 @@ class MultistepTorchExecutor(_TorchExecutor):
     def _compile(self):
         from repro_torch.core.spmv_torch import compile_multistep
         return compile_multistep(self.a, self.row_part, self.topo,
-                                 plan=self._plan,
+                                 plan=self._plan, cache=self.spec.cache,
                                  local_compute=self.spec.local_compute,
                                  col_part=self.col_part,
                                  threshold=self.spec.threshold,
@@ -419,6 +451,16 @@ class _SimulateExecutor(_IntegritySurface):
                     "exchange phases algebraically without mailboxes")
             st.counters["applies"] += 1
         return self._columnwise(self._transpose, u, self.a.shape[0])
+
+    def swap_values(self, a_new) -> None:
+        """Hot-swap the matrix VALUES; the plan is pure structure and is
+        reused as it is.  Same structural contract as the device backend."""
+        from repro_torch.core.spmv_torch import check_same_structure
+        check_same_structure(self.a, a_new)
+        self.a = a_new
+
+    def trace_counts(self) -> Dict[str, int]:
+        return {}   # nothing is built: exact numpy execution
 
     def autotune_report(self) -> Dict[str, object]:
         return {"resolved": self.local_compute,

@@ -7,6 +7,8 @@
   min-cut bisection over the matrix adjacency graph.
 * :func:`partition_from_owner` — any ownership map, e.g. one that leaves
   ranks empty.
+* :func:`survivor_partition` — ``elastic``: the survivors of a rank loss
+  keep their rows and take the orphans in a waterfill.
 """
 from __future__ import annotations
 
@@ -159,6 +161,40 @@ def balanced_partition(indptr: np.ndarray, indices: np.ndarray, n_procs: int,
 
     bisect(np.arange(n_rows, dtype=np.int64), 0, n_procs)
     return partition_from_owner(owner, n_procs, "balanced")
+
+
+def survivor_partition(part: RowPartition, dead_ranks) -> RowPartition:
+    """Repartition after rank loss (the serve layer's elastic rebuild).
+
+    Surviving ranks KEEP every row they own, so only the dead ranks'
+    orphaned rows move.  Each survivor's intake comes from a waterfill
+    (top up the lightest survivor, ties to the lowest new rank), then the
+    orphans are dealt out in ascending global order in runs of those
+    counts: deterministic.  Ranks renumber compactly in surviving order,
+    matching ``ElasticPolicy.survivor_topology``'s shrunken topology.
+    """
+    dead = sorted({int(r) for r in dead_ranks})
+    for r in dead:
+        if not 0 <= r < part.n_procs:
+            raise ValueError(f"dead rank {r} outside [0, {part.n_procs})")
+    survivors = [r for r in range(part.n_procs) if r not in set(dead)]
+    if not survivors:
+        raise ValueError("no surviving ranks to repartition onto")
+    n_new = len(survivors)
+    remap = np.full(part.n_procs, -1, dtype=np.int64)
+    remap[survivors] = np.arange(n_new)
+    mapped = remap[part.owner]
+    alive = mapped >= 0
+    owner = np.empty(part.n_rows, dtype=np.int64)
+    owner[alive] = mapped[alive]
+    orphans = np.flatnonzero(~alive)
+    loads = np.bincount(mapped[alive], minlength=n_new).astype(np.int64)
+    add = np.zeros(n_new, dtype=np.int64)
+    for _ in range(orphans.size):
+        i = int(np.argmin(loads + add))
+        add[i] += 1
+    owner[orphans] = np.repeat(np.arange(n_new), add)
+    return partition_from_owner(owner, n_new, "elastic")
 
 
 def make_partition(kind: str, n_rows: int, n_procs: int,

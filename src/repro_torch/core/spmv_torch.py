@@ -43,12 +43,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.comm.multistep import build_multistep_plan
+from repro_torch.comm.multistep import build_multistep_plan, resolve_threshold
 from repro_torch.core.comm_graph import (Message, NAPPlan, StandardPlan,
                                          build_nap_plan, build_standard_plan,
                                          lookup_slots)
@@ -64,6 +65,7 @@ from repro_torch.core.topology import Topology
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.bsr_spmv.fused import fused_bsr_spmm, fused_bsr_spmm_packed
 from repro_torch.kernels.ell_spmv.kernel import ell_spmm_packed
+from repro_torch.mesh.buffers import default_registry
 from repro_torch.sparse.bsr import BSR
 from repro_torch.sparse.csr import CSR
 from repro_torch.sparse.ell import ELL, stack_ell
@@ -107,19 +109,44 @@ def _resolve_transpose_local_compute(requested: str, compile_requested: str,
     return str(t.get("chosen", "coo")) if isinstance(t, dict) else "coo"
 
 
+#: Value tensors of the compiled plans: they derive from the matrix
+#: values, so a hot swap (:meth:`CompiledNAP.swap_values`) writes the new
+#: values into them in place.  Every other staged tensor is structure.
+VALUE_ARRAY_NAMES = frozenset({
+    "on_proc_vals", "on_node_vals", "off_node_vals",
+    "ell_vals", "ell_t_vals", "fused_blocks", "A_vals",
+    "abft_col", "abft_col_abs", "abft_row", "abft_row_abs"})
+
+
+def _plan_namespace():
+    """A fresh buffer namespace for one compiled plan's staged tensors."""
+    return default_registry().namespace("spmv-plan")
+
+
 class _Staged:
     """Device staging shared by the compiled plans: ``arrays`` (host
-    numpy) become tensors on ``device`` once per name."""
+    numpy) become tensors on ``device`` once per name, in ``_tensors``
+    (a :class:`repro_torch.mesh.buffers.BufferNamespace` for the SpMV
+    plans).  ``builds`` counts the stagings of structure (index)
+    tensors: the port's analogue of a program trace, which a hot value
+    swap must not add to."""
 
     arrays: Dict[str, np.ndarray]
     device: torch.device
     _tensors: Dict[object, torch.Tensor]
+    builds = 0
+
+    def _stage(self, key, value):
+        if key not in VALUE_ARRAY_NAMES:
+            self.builds += 1
+        self._tensors[key] = value
+        return value
 
     def tensors(self, names: Sequence[str]) -> Dict[str, torch.Tensor]:
         """Device copies of the named host arrays, staged once per name."""
         for k in names:
             if k not in self._tensors:
-                self._tensors[k] = torch.from_numpy(self.arrays[k]).to(self.device)
+                self._stage(k, torch.from_numpy(self.arrays[k]).to(self.device))
         return {k: self._tensors[k] for k in names}
 
     def flat_index(self, name: str, seg_len: int, nv: int = 1) -> torch.Tensor:
@@ -134,7 +161,7 @@ class _Staged:
                                 dtype=torch.int64) * seg_len
             flat = (idx.long().reshape(idx.shape[0], -1) + base[:, None]).reshape(-1)
             del idx
-            self._tensors[key] = _elements(flat, nv)
+            self._stage(key, _elements(flat, nv))
         return self._tensors[key]
 
 
@@ -174,7 +201,14 @@ class CompiledNAP(_Staged):
     comm: str = "nap"
     ms_plan: Optional[object] = None
     _tensors: Dict[object, torch.Tensor] = dataclasses.field(
-        default_factory=dict, repr=False, compare=False)
+        default_factory=_plan_namespace, repr=False, compare=False)
+    # the matrix whose VALUES the plan carries (the swap_values target)
+    a_ref: Optional[CSR] = dataclasses.field(default=None, repr=False,
+                                             compare=False)
+    # compile-cache key to retire on a value swap (the cache keys on the
+    # original values, which a swapped plan no longer carries)
+    _cache_token: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                                      compare=False)
 
     def __post_init__(self) -> None:
         if self.col_part is None:
@@ -288,8 +322,8 @@ class CompiledNAP(_Staged):
         over the output rows (transpose check), with their absolute-value
         twins for the tolerance scale.  Accumulated in float64, in the
         reference's order, from the f32-rounded values the kernels
-        multiply, then stored f32.  The hot value swap, when it is
-        ported, refreshes them with the values."""
+        multiply, then stored f32.  The hot value swap refreshes them
+        with the values."""
         if "abft_col" in self.arrays:
             return
         offs = (0, self.cols_pad, self.cols_pad + self.pads["bnode"])
@@ -307,6 +341,99 @@ class CompiledNAP(_Staged):
         self.arrays["fused_cols"] = fc
         self.arrays["fused_blocks"] = fb
         self.bsr_layout.update(layout)
+
+    def swap_values(self, a_new: CSR) -> List[str]:
+        """Hot-swap the matrix VALUES in place; the sparsity must be
+        identical.
+
+        Rebuilds every value array (the COO blocks and each materialised
+        lazy format and ABFT vector) against the SAME pads and index
+        maps, writes each one that is already staged into its device
+        tensor with ``copy_`` (same shape, dtype and ``data_ptr()``;
+        index tensors are not touched, so :attr:`builds` stays flat) and
+        retires the plan from the compile cache, which keys on the old
+        values.  The multi-step plan swaps the same way: its direct
+        exchange is structure.  Returns the changed array names.
+        """
+        check_same_structure(self.a_ref, a_new)
+        blocks = split_all_blocks(a_new, self.part, self.topo,
+                                  col_part=self.col_part)
+        self.local_blocks = blocks
+        changed = []
+        for key_c in _COO_KEYS:
+            self.arrays[f"{key_c}_vals"] = _pad_to(
+                [getattr(b, key_c).to_coo()[2].astype(np.float32)
+                 for b in blocks],
+                self.pads[f"nnz_{key_c}"], fill=0.0)
+            changed.append(f"{key_c}_vals")
+        changed += _swap_refresh_lazy(self, [
+            ("ell_cols", "ell_vals", self.ensure_ell),
+            ("ell_t_cols", "ell_t_vals", self.ensure_ell_t),
+            ("fused_cols", "fused_blocks", self.ensure_fused)])
+        changed += _swap_refresh_abft(self)
+        _swap_finish(self, a_new, changed)
+        return changed
+
+
+def check_same_structure(old: Optional[CSR], a_new: CSR) -> None:
+    """Raise unless ``a_new`` has ``old``'s sparsity structure (the
+    contract of every ``swap_values``)."""
+    if old is None:
+        raise ValueError("compiled plan lost its matrix reference; "
+                         "recompile instead of swapping values")
+    if (tuple(a_new.shape) != tuple(old.shape)
+            or not np.array_equal(a_new.indptr, old.indptr)
+            or not np.array_equal(a_new.indices, old.indices)):
+        raise ValueError(
+            "swap_values requires an identical sparsity structure (same "
+            "shape, indptr, indices); a structural change needs a recompile")
+
+
+def _swap_refresh_lazy(compiled, formats) -> List[str]:
+    """Re-emit each MATERIALISED lazy format from the refreshed values.
+    The structural companions (cols) regenerate equal, so their staged
+    tensors stay; only the value names report changed."""
+    changed = []
+    for cols_name, vals_name, ensure in formats:
+        if cols_name in compiled.arrays:
+            del compiled.arrays[cols_name], compiled.arrays[vals_name]
+            ensure()
+            changed.append(vals_name)
+    return changed
+
+
+#: The ABFT vectors: value arrays, refreshed by a swap like the formats'.
+_ABFT_NAMES = ("abft_col", "abft_col_abs", "abft_row", "abft_row_abs")
+
+
+def _swap_refresh_abft(compiled) -> List[str]:
+    """Re-emit the ABFT checksum vectors if they were materialised."""
+    if "abft_col" not in compiled.arrays:
+        return []
+    for k in _ABFT_NAMES:
+        del compiled.arrays[k]
+    compiled.ensure_abft()
+    return list(_ABFT_NAMES)
+
+
+def _swap_finish(compiled, a_new: CSR, changed: List[str]) -> None:
+    """Write the changed value arrays into their staged tensors in place
+    (the torch form of the reference's zero-retrace swap: programs keep
+    reading the same tensors) and retire the compile-cache entry."""
+    for name in changed:
+        if name not in compiled._tensors:
+            continue                    # staged at its first use
+        staged = compiled._tensors[name]
+        new = torch.from_numpy(compiled.arrays[name])
+        if staged.shape != new.shape or staged.dtype != new.dtype:
+            raise RuntimeError(f"swap_values: {name} changed from "
+                               f"{tuple(staged.shape)} {staged.dtype} to "
+                               f"{tuple(new.shape)} {new.dtype}")
+        staged.copy_(new)
+    compiled.a_ref = a_new
+    if compiled._cache_token is not None:
+        _COMPILE_CACHE.pop(compiled._cache_token, None)
+        compiled._cache_token = None
 
 
 # ---------------------------------------------------------------------------
@@ -469,13 +596,57 @@ def _transpose_format_stats(per_rank_rc_t: List[Tuple[np.ndarray, np.ndarray]],
 
 
 # ---------------------------------------------------------------------------
-# Plan compilation
+# Plan compilation (cached)
 # ---------------------------------------------------------------------------
+
+_COMPILE_CACHE: Dict[tuple, _Staged] = {}
+_COMPILE_CACHE_MAX = 16  # LRU bound: an entry holds its plan's staged tensors
+
+
+def clear_compile_cache() -> None:
+    _COMPILE_CACHE.clear()
+
+
+def _cache_put(key: tuple, compiled: _Staged) -> None:
+    """Insert, evicting the least recently used entries first; an evicted
+    plan releases its staged tensors (a live operator that still holds it
+    stages them again at its next apply)."""
+    while len(_COMPILE_CACHE) >= _COMPILE_CACHE_MAX:
+        _COMPILE_CACHE.pop(next(iter(_COMPILE_CACHE)))._tensors.release()
+    _COMPILE_CACHE[key] = compiled
+    compiled._cache_token = key
+
+
+def _cache_get(key: tuple) -> Optional[_Staged]:
+    hit = _COMPILE_CACHE.pop(key, None)
+    if hit is not None:
+        _COMPILE_CACHE[key] = hit  # re-insert: dict order is the LRU order
+    return hit
+
+
+def _cache_key(a: CSR, part: RowPartition, topo: Topology,
+               block_shape: Tuple[int, int], local_compute: str,
+               tuner: LocalComputeParams, tag: str,
+               col_part: Optional[RowPartition],
+               device: torch.device) -> tuple:
+    """The reference's key (structure, VALUES, partitions, topology,
+    block shape, local compute, tuner, plan family) plus the device the
+    plan stages on."""
+    h = hashlib.sha1()
+    arrs = [a.indptr, a.indices, a.data, part.owner]
+    if col_part is not None:
+        arrs.append(col_part.owner)
+    for arr in arrs:
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return (tag, h.hexdigest(), a.shape, topo.n_nodes, topo.ppn,
+            tuple(block_shape), str(local_compute), tuner.signature(),
+            str(device))
+
 
 def compile_nap(a: CSR, part: RowPartition, topo: Topology,
                 plan: Optional[NAPPlan] = None,
                 block_shape: Tuple[int, int] = (8, 128),
-                local_compute: str = "auto",
+                cache: bool = True, local_compute: str = "auto",
                 tuner: LocalComputeParams = H100_LOCAL,
                 col_part: Optional[RowPartition] = None,
                 device: DeviceLike = None) -> CompiledNAP:
@@ -484,19 +655,31 @@ def compile_nap(a: CSR, part: RowPartition, topo: Topology,
     ``part`` is the ROW partition, ``col_part`` the COLUMN/x partition
     (defaults to ``part``); ``plan`` a prebuilt :class:`NAPPlan` of the
     same layout.  ``device`` is where :meth:`CompiledNAP.tensors` stages
-    the arrays: CUDA unless ``"cpu"`` is asked for.
+    the arrays: CUDA unless ``"cpu"`` is asked for.  With ``cache`` (and
+    no ``plan``) an equal matrix, layout and configuration on the same
+    device returns the cached plan (:func:`clear_compile_cache`).
     """
     device = resolve_device(device)
     _check_layout(a, part, col_part, local_compute)
+    key = None
+    if plan is None and cache:
+        key = _cache_key(a, part, topo, block_shape, local_compute, tuner,
+                         "nap", col_part, device)
+        hit = _cache_get(key)
+        if hit is not None:
+            return hit
     if plan is None:
         plan = build_nap_plan(a.indptr, a.indices, part, topo, col_part=col_part)
-    return _compile_node_aware(a, part, topo, plan, None, block_shape,
-                               local_compute, tuner, col_part, device)
+    compiled = _compile_node_aware(a, part, topo, plan, None, block_shape,
+                                   local_compute, tuner, col_part, device)
+    if key is not None:
+        _cache_put(key, compiled)
+    return compiled
 
 
 def compile_multistep(a: CSR, part: RowPartition, topo: Topology,
                       plan=None, block_shape: Tuple[int, int] = (8, 128),
-                      local_compute: str = "auto",
+                      cache: bool = True, local_compute: str = "auto",
                       tuner: LocalComputeParams = H100_LOCAL,
                       col_part: Optional[RowPartition] = None,
                       threshold="auto", device: DeviceLike = None) -> CompiledNAP:
@@ -507,16 +690,28 @@ def compile_multistep(a: CSR, part: RowPartition, topo: Topology,
     :func:`compile_nap` builds them, a ``direct_send [n_procs, n_procs,
     direct_pad]`` gather for the flat fifth exchange, and ``boff_gather``
     resolving off-node columns against ``[inter | final | direct]``.
-    ``plan`` supplies a prebuilt :class:`MultistepPlan`.
+    ``plan`` supplies a prebuilt :class:`MultistepPlan`; ``cache`` as in
+    :func:`compile_nap`, the resolved threshold part of the key.
     """
     device = resolve_device(device)
     _check_layout(a, part, col_part, local_compute)
+    thr = resolve_threshold(threshold, topo)
+    key = None
+    if plan is None and cache:
+        key = _cache_key(a, part, topo, block_shape, local_compute, tuner,
+                         f"multistep:{thr}", col_part, device)
+        hit = _cache_get(key)
+        if hit is not None:
+            return hit
     if plan is None:
         plan = build_multistep_plan(a.indptr, a.indices, part, topo,
-                                    col_part=col_part, threshold=threshold)
-    return _compile_node_aware(a, part, topo, plan.nap, plan.direct,
-                               block_shape, local_compute, tuner, col_part,
-                               device, ms_plan=plan)
+                                    col_part=col_part, threshold=thr)
+    compiled = _compile_node_aware(a, part, topo, plan.nap, plan.direct,
+                                   block_shape, local_compute, tuner, col_part,
+                                   device, ms_plan=plan)
+    if key is not None:
+        _cache_put(key, compiled)
+    return compiled
 
 
 def _check_layout(a: CSR, part: RowPartition, col_part: Optional[RowPartition],
@@ -651,7 +846,7 @@ def _compile_node_aware(a: CSR, part: RowPartition, topo: Topology,
                        local_blocks=blocks, autotune=autotune,
                        requested_local_compute=local_compute,
                        comm="nap" if direct is None else "multistep",
-                       ms_plan=ms_plan)
+                       ms_plan=ms_plan, a_ref=a)
 
 
 def compiled_from_reference(arrays: Dict[str, np.ndarray], pads: Dict[str, int],
@@ -712,7 +907,11 @@ class CompiledStandard(_Staged):
     requested_local_compute: str = "auto"
     ell_t_kmax: int = 0
     _tensors: Dict[object, torch.Tensor] = dataclasses.field(
-        default_factory=dict, repr=False, compare=False)
+        default_factory=_plan_namespace, repr=False, compare=False)
+    a_ref: Optional[CSR] = dataclasses.field(default=None, repr=False,
+                                             compare=False)
+    _cache_token: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                                      compare=False)
 
     def __post_init__(self) -> None:
         if self.col_part is None:
@@ -809,25 +1008,62 @@ class CompiledStandard(_Staged):
                    + np.arange(ends[-1]) - np.repeat(ends - k, k))
             rows = (self.arrays["send_idx"].reshape(-1)[pos].astype(np.int64)
                     + pos // (p * pad) * self.cols_pad)
-            self._tensors["live_send"] = (torch.from_numpy(pos).to(self.device),
-                                          torch.from_numpy(rows).to(self.device))
+            self._stage("live_send", (torch.from_numpy(pos).to(self.device),
+                                      torch.from_numpy(rows).to(self.device)))
         return self._tensors["live_send"]
+
+    def swap_values(self, a_new: CSR) -> List[str]:
+        """Hot-swap the matrix VALUES in place; the sparsity must be
+        identical.  As :meth:`CompiledNAP.swap_values`, over the
+        two-segment domain: ``per_rank_coo`` refreshes and every
+        materialised format re-emits against the same pads."""
+        check_same_structure(self.a_ref, a_new)
+        blocks = split_all_blocks(a_new, self.part, self.topo,
+                                  col_part=self.col_part)
+        self.per_rank_coo = [_standard_coo(blk, self.cols_pad) for blk in blocks]
+        changed = _swap_refresh_lazy(self, [
+            ("A_rows", "A_vals", self.ensure_coo),
+            ("ell_cols", "ell_vals", self.ensure_ell),
+            ("ell_t_cols", "ell_t_vals", self.ensure_ell_t),
+            ("fused_cols", "fused_blocks", self.ensure_fused)])
+        changed += _swap_refresh_abft(self)
+        _swap_finish(self, a_new, changed)
+        return changed
+
+
+def _standard_coo(blk: LocalBlocks, cols_pad: int):
+    """A rank's three blocks as one COO over ``[v_loc | buf]``."""
+    rr0, cc0, vv0 = blk.on_proc.to_coo()
+    rr1, cc1, vv1 = blk.on_node.to_coo()
+    rr2, cc2, vv2 = blk.off_node.to_coo()
+    return (np.concatenate([rr0, rr1, rr2]),
+            np.concatenate([cc0, cols_pad + cc1,
+                            cols_pad + blk.on_node_cols.size + cc2]),
+            np.concatenate([vv0, vv1, vv2]))
 
 
 def compile_standard(a: CSR, part: RowPartition, topo: Topology,
                      plan: Optional[StandardPlan] = None,
                      block_shape: Tuple[int, int] = (8, 128),
-                     local_compute: str = "auto",
+                     cache: bool = True, local_compute: str = "auto",
                      tuner: LocalComputeParams = H100_LOCAL,
                      col_part: Optional[RowPartition] = None,
                      device: DeviceLike = None) -> CompiledStandard:
     """Compile Algorithm 1's flat plan to static rank-stacked arrays.
 
     ``part`` is the ROW partition, ``col_part`` the COLUMN/x partition
-    (defaults to ``part``); ``plan`` and ``device`` as in :func:`compile_nap`.
+    (defaults to ``part``); ``plan``, ``cache`` and ``device`` as in
+    :func:`compile_nap`.
     """
     device = resolve_device(device)
     _check_layout(a, part, col_part, local_compute)
+    key = None
+    if plan is None and cache:
+        key = _cache_key(a, part, topo, block_shape, local_compute, tuner,
+                         "standard", col_part, device)
+        hit = _cache_get(key)
+        if hit is not None:
+            return hit
     cpart = part if col_part is None else col_part
     if plan is None:
         plan = build_standard_plan(a.indptr, a.indices, part, topo,
@@ -861,27 +1097,23 @@ def compile_standard(a: CSR, part: RowPartition, topo: Topology,
         cols_all = np.concatenate([blk.on_node_cols, blk.off_node_cols])
         buf_gather[r, : cols_all.size] = lookup_slots(
             plan.recv_slot_map(r, pair_pad), cols_all)
-        rr0, cc0, vv0 = blk.on_proc.to_coo()
-        rr1, cc1, vv1 = blk.on_node.to_coo()
-        rr2, cc2, vv2 = blk.off_node.to_coo()
-        per_rank_coo.append((
-            np.concatenate([rr0, rr1, rr2]),
-            np.concatenate([cc0, cols_pad + cc1,
-                            cols_pad + blk.on_node_cols.size + cc2]),
-            np.concatenate([vv0, vv1, vv2])))
+        per_rank_coo.append(_standard_coo(blk, cols_pad))
     autotune = _format_stats_from_coo(
         [(rr, cc) for rr, cc, _ in per_rank_coo], rows_pad, n_x,
         nnz_pad, (bm, bn), tuner)
     autotune["transpose"] = _transpose_format_stats(
         [(cc, rr) for rr, cc, _ in per_rank_coo], n_x, rows_pad,
         nnz_pad, (bm, bn), tuner)
-    return CompiledStandard(
+    compiled = CompiledStandard(
         topo=topo, part=part, col_part=cpart, rows_pad=rows_pad,
         cols_pad=cols_pad, buf_pad=buf_pad, pair_pad=pair_pad, nnz_pad=nnz_pad,
         block_shape=tuple(block_shape),
         arrays=dict(send_idx=send_idx, buf_gather=buf_gather), device=device,
         send_counts=send_counts, per_rank_coo=per_rank_coo, plan=plan,
-        autotune=autotune, requested_local_compute=local_compute)
+        autotune=autotune, requested_local_compute=local_compute, a_ref=a)
+    if key is not None:
+        _cache_put(key, compiled)
+    return compiled
 
 
 def compiled_standard_from_reference(
@@ -1023,8 +1255,8 @@ def _live_direct(c: CompiledNAP, nv: int) -> Tuple[torch.Tensor, torch.Tensor]:
     key = ("live_direct", nv)
     if key not in c._tensors:
         t = c.tensors(["direct_live_src", "direct_live_dst"])
-        c._tensors[key] = (_elements(t["direct_live_src"], nv),
-                           _elements(t["direct_live_dst"], nv))
+        c._stage(key, (_elements(t["direct_live_src"], nv),
+                       _elements(t["direct_live_dst"], nv)))
     return c._tensors[key]
 
 

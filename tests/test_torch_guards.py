@@ -207,3 +207,38 @@ def test_simulate_runs_on_the_host_and_integrity_raises_without_cuda(monkeypatch
             port_api.operator(a, topo, method=method, integrity="detect")
     assert port_api.operator(a, topo, integrity="recover",
                              device="cpu").integrity_report()["mode"] == "recover"
+
+
+def test_serve_checkpoint_runtime_mesh_import_loads_neither_jax_nor_reference():
+    code = ("import sys, repro_torch.serve, repro_torch.checkpoint\n"
+            "import repro_torch.runtime, repro_torch.mesh\n"
+            "import repro_torch.serve.service, repro_torch.serve.plancache\n"
+            "import repro_torch.serve.faultplan, repro_torch.checkpoint.store\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\nprint('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "clean" in proc.stdout
+
+
+def test_solver_service_and_plan_cache_raise_without_cuda(monkeypatch):
+    """The service and its plan cache default to the device programs on
+    CUDA; ``device="cpu"`` or the simulate backend run without it."""
+    from repro_torch.serve import PlanCache, SolverService
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    topo = Topology(2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SolverService(topo)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PlanCache(topo)
+    a = poisson_2d(6)
+    for svc in (SolverService(topo, device="cpu"),
+                SolverService(topo, backend="simulate")):
+        svc.register_matrix("p", a)
+        t = svc.submit("t", "p", np.ones(36))
+        svc.run()
+        np.testing.assert_allclose(t.result(), a.to_dense() @ np.ones(36))
+    assert PlanCache(topo, device="cpu").backend == "torch"

@@ -657,6 +657,9 @@ def test_recover_bit_identical_with_strikes(method):
 def test_bare_program_is_unchanged(monkeypatch):
     """Without a fault spec no instrumentation runs: no wire, no ABFT
     arrays, one ELL launch a direction, a tensor (not a triple) back."""
+    # the compile cache shares one plan between integrity modes; start
+    # from none, so the plans below are the bare operators' own
+    port_spmv.clear_compile_cache()
     dense = _matrix()
     calls = []
     orig = port_spmv.ell_spmm_packed
