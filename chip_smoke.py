@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: the node-aware SpMV,
 the multi-step exchange, wire integrity, the float64 simulate backend,
-the distributed SpGEMM and the AMG solver path, the solver service, and
-the gemma2-2b serving path.
+the distributed SpGEMM and the AMG solver path, the solver service, the
+multi-process mesh, and the gemma2-2b serving path.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -126,6 +126,29 @@ Phases, each fatal on failure:
    plan (message faults under ``integrity="recover"``) replayed twice
    with identical logs, stats and results, and a torn checkpoint after
    which the previous committed step stands;
+9e. the multi-process mesh on the main path's matrix and topology: two
+   processes started by ``repro_torch.mesh.launcher.launch`` (this
+   script re-entered with ``--mesh-child``) share the card over gloo,
+   each owning 16 of the 32 nodes (256 ranks); per process the NAP
+   forward at nv = 1 and 8 and transpose, the multistep forward and
+   transpose and the standard forward at nv = 1, each bit-equal to the
+   single-process results of phases 4, 7 and 6 (transposes in
+   deterministic mode on both sides) and to the other process's, and
+   within rtol 1e-4 / atol 1e-5 of the float64 host product; then
+   ``operator(a)`` with no topology (discovered Topology(2, 16)); per
+   process and apply the wall, ELL launches, peak, bytes sent to the
+   other process and staged through pinned host memory, device-program
+   ms (CUDA events, median of 10, or one call above 1 s) beside the
+   single-process ones, host compile s; one process over NCCL (run in
+   phase 4, while its plan is live: this process attached as a 1-process
+   NCCL job, the nap forward bit-equal to phase 4's, NCCL's node and
+   split all-to-alls and a stage / all-gather round trip on device
+   tensors against the one-process permutations); last
+   ``measure_phase_walls`` over the two processes (the main path's
+   plans and the discovered one) and ``PostalParams.calibrated`` fitted
+   to them per process (one exchange of the process's buffer a record)
+   beside the Blue Waters constants, with the card's name and power
+   limit;
 10. the decode-attention kernel against its plain version at gemma2-2b's
    decode_32k shapes: B = 8, S = 32768, Hkv = 4, g = 2, D = 256, softcap
    50, lengths ragged in [1, S] (1, 17, 4096, 4097, S and three drawn
@@ -167,7 +190,9 @@ for a short first call after a kernel change.
 """
 import argparse
 import gc
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -190,7 +215,8 @@ from repro_torch.amg import (LevelOperators, amg_vcycle, cg_solve,  # noqa: E402
 from repro_torch.api import operator  # noqa: E402
 from repro_torch.comm import choose_comm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.cost_model import BLUE_WATERS  # noqa: E402
+from repro_torch.core.cost_model import (BLUE_WATERS,  # noqa: E402
+                                         BLUE_WATERS_POSTAL, PostalParams)
 from repro_torch.core.integrity import (FAULT_KINDS, IntegrityError,  # noqa: E402
                                         MessageFault, message_phases, scope_for)
 from repro_torch.core.partition import contiguous_partition  # noqa: E402
@@ -220,10 +246,14 @@ from repro_torch.spgemm.plan import message_value_size  # noqa: E402
 from repro_torch.models import attention, build_model, count_params  # noqa: E402
 from repro_torch.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.core.spmv_torch import clear_compile_cache  # noqa: E402
-from repro_torch.mesh import default_registry  # noqa: E402
+from repro_torch.mesh import (attach, default_registry, detach,  # noqa: E402
+                              fetch_mesh_array, launch, mesh_env, mesh_for,
+                              pick_coordinator, stage_mesh_array)
+from repro_torch.mesh.comm import live_all_to_all, node_all_to_all  # noqa: E402
+from repro_torch.mesh.scaling import measure_phase_walls  # noqa: E402
 from repro_torch.serve import (FaultPlan, SolverService, batched_cg,  # noqa: E402
                                dead_node, torn_checkpoint)
-from repro_torch.sparse import BSR, rotated_anisotropic_2d  # noqa: E402
+from repro_torch.sparse import BSR, CSR, rotated_anisotropic_2d  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor
 # cores (all kernels run f32 FMAs on the CUDA cores).
@@ -703,9 +733,9 @@ def phase_nap(op, a, oracles):
     check_oracle("forward nv=1", w1, oracles["w1"])
     check_oracle("forward nv=8", w8, oracles["w8"])
     check_oracle("transpose nv=1", z1, oracles["z1"])
-    time_programs(ex, [("forward nv=1", "forward", v1, {}),
-                       ("forward nv=8", "forward", v8, {}),
-                       ("transpose nv=1", "transpose", u1, {})])
+    ms = time_programs(ex, [("forward nv=1", "forward", v1, {}),
+                            ("forward nv=8", "forward", v8, {}),
+                            ("transpose nv=1", "transpose", u1, {})])
     print(f"  host: first forward pair (pack + program + unpack, nv=1 and "
           f"nv=8) {t_fwd:.2f} s")
     # the NAP results phase 7 holds multistep with threshold=1 against:
@@ -715,7 +745,8 @@ def phase_nap(op, a, oracles):
         z1_det = op.T @ u1
     finally:
         torch.use_deterministic_algorithms(False)
-    return fwd, tr, dict(w1=w1, z1=z1_det)
+    return fwd, tr, dict(w1=w1, w8=w8, z1=z1_det, ms=ms,
+                         nccl=nccl_one_process(op, v1, w1))
 
 
 def phase_bsr(op_b, a_b, oracles):
@@ -736,8 +767,9 @@ def phase_bsr(op_b, a_b, oracles):
     return cnt_p, cnt_c
 
 
-def phase_standard(a, a_b, topo, part, oracles, nap_summary, full_size):
-    """[6] Algorithm 1 at full size, then its fused-BSR forward."""
+def phase_standard(a, a_b, topo, part, oracles, nap_summary, full_size, keep):
+    """[6] Algorithm 1 at full size, then its fused-BSR forward.  ``keep``
+    receives the forward at nv = 1 and the device-program ms (phase 9e)."""
     print(f"[6] standard method: n={int(np.sqrt(a.shape[0]))}, Topology(32, 16)")
     op = operator(a, topo, part, method="standard")
     t0 = time.perf_counter()
@@ -768,7 +800,7 @@ def phase_standard(a, a_b, topo, part, oracles, nap_summary, full_size):
     v1, v8, u1 = oracles["v1"], oracles["v8"], oracles["u1"]
     w1, fwd1 = drive("forward nv=1", lambda: op @ v1)
     check_oracle("forward nv=1", w1, oracles["w1"])
-    del w1
+    keep["w1"] = w1
     w8, fwd8 = drive("forward nv=8", lambda: op @ v8)
     check_oracle("forward nv=8", w8, oracles["w8"])
     del w8
@@ -782,7 +814,7 @@ def phase_standard(a, a_b, topo, part, oracles, nap_summary, full_size):
     ell = [d.get("ell_spmm_packed", 0) for d in (fwd1, fwd8, tr)]
     if min(ell) < 1:
         raise AssertionError(f"the standard path did not launch the ELL kernel: {ell}")
-    time_programs(op.executor, [
+    keep["ms"] = time_programs(op.executor, [
         ("forward nv=1", "forward", v1, {}),
         ("forward nv=8", "forward", v8, {}),
         ("transpose nv=1", "transpose", u1, {}),
@@ -863,10 +895,12 @@ def print_verdict(label, verdict, seconds):
               + f"; {v['postal_params']}); {seconds:.2f} s")
 
 
-def phase_multistep(a, topo, part, oracles, nap_ref, gen, full_size):
+def phase_multistep(a, topo, part, oracles, nap_ref, gen, full_size, keep):
     """[7] the multi-step exchange on the main path's matrix.  ``nap_ref``
     holds phase 4's NAP results (forward nv=1, deterministic transpose)
-    and the NAP operator's ``local_compute``."""
+    and the NAP operator's ``local_compute``; ``keep`` receives the
+    forward at nv = 1, a deterministic transpose and the device-program
+    ms (phase 9e)."""
     print(f"[7] multistep: n={int(np.sqrt(a.shape[0]))}, Topology(32, 16)")
     t0 = time.perf_counter()
     verdict = choose_comm(a.indptr, a.indices, part, topo)
@@ -909,6 +943,8 @@ def phase_multistep(a, topo, part, oracles, nap_ref, gen, full_size):
     if fwd.get("ell_spmm_packed", 0) < 2 or tr.get("ell_spmm_packed", 0) < 1:
         raise AssertionError(f"the multistep path did not launch the ELL kernel: {fwd}, {tr}")
     del w8, z1
+    with deterministic():
+        keep.update(w1=w1, z1=op.T @ u1)
     ell_held("multistep", c, "forward", gen)
     ell_held("multistep", c, "transpose", gen)
     # the literal padded exchange, run once and timed beside the live one
@@ -920,11 +956,11 @@ def phase_multistep(a, topo, part, oracles, nap_ref, gen, full_size):
         raise AssertionError("live and literal direct exchanges differ")
     print("  live-slot and literal direct exchanges bit-equal (forward nv=1)")
     del w_lit, shards
-    time_programs(ex, [("forward nv=1", "forward", v1, {}),
-                       ("forward nv=8", "forward", v8, {}),
-                       ("transpose nv=1", "transpose", u1, {}),
-                       ("forward nv=1 literal direct", "forward", v1,
-                        {"live_direct": False})])
+    keep["ms"] = time_programs(ex, [("forward nv=1", "forward", v1, {}),
+                                    ("forward nv=8", "forward", v8, {}),
+                                    ("transpose nv=1", "transpose", u1, {}),
+                                    ("forward nv=1 literal direct", "forward", v1,
+                                     {"live_direct": False})])
     print(f"  Blue Waters model (not a card time): multistep total "
           f"{op.cost(BLUE_WATERS)['total']:.6e} s")
     del op, ex, c
@@ -2112,6 +2148,329 @@ def service_scenarios(a_b, topo, seed):
     free()
 
 
+# the multi-process mesh (phase 9e) ----------------------------------------------
+
+MESH_PROCS = 2
+#: what each process of the gloo run applies per method: forwards at nv = 1
+#: and 8, the transpose (deterministic); the standard method's padded
+#: [512, 512, 2025] pair table only at nv = 1
+MESH_RUNS = {"nap": ("f1", "f8", "t1"), "multistep": ("f1", "t1"),
+             "standard": ("f1",)}
+
+
+def draw_operands(rng, n):
+    """The main path's operands in the order main draws them: the mesh
+    phase's children draw them again from the seed."""
+    return dict(v1=rng.standard_normal(n), v8=rng.standard_normal((n, 8)),
+                u1=rng.standard_normal(n))
+
+
+def digest(x):
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+
+def all_max(x):
+    """The largest of every process's ``x``: a decision all take alike."""
+    import torch.distributed as dist
+    vals = [None] * dist.get_world_size()
+    dist.all_gather_object(vals, x)
+    return max(vals)
+
+
+def mesh_apply(pid, label, mesh, fn):
+    """One apply in a child of the mesh phase: its ELL launches, the
+    process's device-memory peak, the host wall (pack, program with the
+    host staging, all-gather, unpack) and what the communicator sent to
+    the other process and staged through pinned host memory."""
+    before = dict(mesh.stats)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rec = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+           "launches": dict(launches),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **{k: mesh.stats[k] - before[k] for k in mesh.stats}}
+    print(f"  [p{pid}] {label}: wall {rec['wall_ms']:.2f} ms, launches "
+          f"{rec['launches']}, peak {rec['peak_gb']:.3f} GB, sent across "
+          f"processes node {rec['sent_bytes_node']} B + node x proc "
+          f"{rec['sent_bytes_nodexproc']} B, staged {rec['staged_bytes']} B, "
+          f"{rec['collectives']} collectives", flush=True)
+    return out, rec
+
+
+def mesh_program_ms(pid, op, runs, x):
+    """Device-program ms per run (CUDA events, pack/unpack excluded), in
+    lockstep across the processes (each program holds collectives): the
+    median of 10, or one timed call when an apply takes more than 1 s on
+    any process."""
+    out = {}
+    for run in runs:
+        direction = "transpose" if run == "t1" else "forward"
+        ex = op.executor
+        shards = ex.packed(direction, x[{"f1": "v1", "f8": "v8", "t1": "u1"}[run]])
+        prog = ex.program(direction)
+        once = time_ms(lambda: prog(shards), reps=1, warmup=1)
+        reps = 1 if all_max(once) > 1e3 else 10
+        out[run] = once if reps == 1 else time_ms(lambda: prog(shards), reps=10,
+                                                  warmup=0)
+        out[f"{run}_reps"] = reps
+        del shards
+    print(f"  [p{pid}] device program ms (CUDA events, pack/unpack excluded): "
+          + ", ".join(f"{r} {out[r]:.4f} (x{out[f'{r}_reps']})" for r in runs),
+          flush=True)
+    return out
+
+
+def mesh_child(spec_file):
+    """One process of phase 9e, started by ``launch`` with the REPRO_MESH_*
+    variables: attach, build the main path's operators over the node block
+    this process owns, apply, time, calibrate; write the results (process
+    0) and a report with the digests of every result (each process)."""
+    spec = json.loads(Path(spec_file).read_text())
+    info = attach(verbose=True)
+    pid = info["process_id"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with np.load(spec["matrix"]) as z:
+        a = CSR(z["indptr"], z["indices"], z["data"], tuple(int(d) for d in z["shape"]))
+    topo = Topology(32, 16)
+    part = contiguous_partition(a.shape[0], topo.n_procs)
+    x = draw_operands(np.random.default_rng(spec["seed"]), a.shape[0])
+    mesh = mesh_for(topo)
+    print(f"  [p{pid}] {info['backend']} on {info['device']} "
+          f"({torch.cuda.get_device_name()}), owns nodes {mesh.nodes} = ranks "
+          f"{mesh.ranks} of {topo}", flush=True)
+    results, report = {}, {"pid": pid, "methods": {}, "walls": {}}
+    for method, runs in spec["runs"].items():
+        t0 = time.perf_counter()
+        op = operator(a, topo, part, method=method)
+        c = op.executor.compiled
+        if (op.local_compute, op.T.local_compute) != ("ell", "ell"):
+            op = operator(a, topo, part, method=method, local_compute="ell")
+            c = op.executor.compiled
+        c.ensure_ell()
+        if "t1" in runs:
+            c.ensure_ell_t()
+        rec = {"compile_s": time.perf_counter() - t0}
+        print(f"  [p{pid}] {method}: host compile {rec['compile_s']:.2f} s",
+              flush=True)
+        for run in runs:
+            v = x[{"f1": "v1", "f8": "v8", "t1": "u1"}[run]]
+            with deterministic(run == "t1"):
+                w, rec[run] = mesh_apply(pid, f"{method} {run}", mesh,
+                                         (lambda: op.T @ v) if run == "t1"
+                                         else (lambda: op @ v))
+            results[f"{method}/{run}"] = w
+        rec["device_ms"] = mesh_program_ms(pid, op, runs, x)
+        plan = c.ms_plan if method == "multistep" else c.plan
+        report["walls"][method] = measure_phase_walls(plan, topo, device=DEV)
+        report["methods"][method] = rec
+        del op, c
+        free()
+    t0 = time.perf_counter()
+    op = operator(a)                      # Topology(processes, REPRO_MESH_LOCAL_DEVICES)
+    op.executor.compiled.ensure_ell()
+    report["discovered"] = [op.topo.n_nodes, op.topo.ppn]
+    print(f"  [p{pid}] discovered {op.topo}: host compile "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    results["discovered/f1"], report["discovered_f1"] = mesh_apply(
+        pid, f"discovered {op.topo} f1", mesh_for(op.topo), lambda: op @ x["v1"])
+    # its small exchanges (32 ranks) widen the calibration's range of sizes
+    report["walls"]["discovered"] = measure_phase_walls(
+        op.executor.compiled.plan, op.topo, device=DEV)
+    del op
+    free()
+    report["digests"] = {k: digest(w) for k, w in results.items()}
+    out = Path(spec["out"])
+    if pid == 0:
+        np.savez(out / "results.npz", **results)
+    (out / f"report_{pid}.json").write_text(json.dumps(report))
+    detach()
+    print(f"  [p{pid}] done", flush=True)
+
+
+def run_mesh_children(tmp, a, seed):
+    """Launch the gloo children of phase 9e (this script with
+    ``--mesh-child``) on the card with the main path's matrix (a file, so
+    they need not generate it again); echo their lines; return their
+    reports and process 0's results.  A child that fails fails the phase
+    (LaunchError)."""
+    matrix = Path(tmp) / "a.npz"
+    np.savez(matrix, indptr=a.indptr, indices=a.indices, data=a.data,
+             shape=np.asarray(a.shape))
+    spec_file = Path(tmp) / "spec.json"
+    spec_file.write_text(json.dumps(dict(matrix=str(matrix), seed=seed,
+                                         runs=MESH_RUNS, out=str(tmp))))
+    res = launch(str(Path(__file__).resolve()), MESH_PROCS,
+                 args=["--mesh-child", str(spec_file)], local_devices=16,
+                 env={"REPRO_MESH_BACKEND": "gloo"}, timeout_s=900)
+    for pid in range(MESH_PROCS):
+        for line in res.output(pid).splitlines():
+            if line.startswith(("  [p", "[mesh.attach]")):
+                print(line)
+    reports = [json.loads((Path(tmp) / f"report_{pid}.json").read_text())
+               for pid in range(MESH_PROCS)]
+    with np.load(Path(tmp) / "results.npz") as z:
+        results = {k: z[k] for k in z.files}
+    for k, w in results.items():
+        if any(r["digests"][k] != digest(w) for r in reports):
+            raise AssertionError(f"{k}: the processes returned different results")
+    return reports, results
+
+
+def nccl_one_process(op, v1, w1):
+    """Phase 9e's NCCL check, run in this process while phase 4's plan is
+    live (a child would compile it again): attach as a 1-process NCCL job
+    through ``repro_torch.mesh.attach``, apply the operator again (one
+    process owns every node: no collective, the one-process program) and
+    run the communicator's NCCL calls on device tensors in this 1-rank
+    group: the node all-to-all against the in-device permutation, the
+    split all-to-all of the multistep direct phase against its input,
+    and a stage / all-gather fetch round trip; then leave the group.
+    NCCL across processes needs one card a process (not here)."""
+    env = mesh_env(pick_coordinator(), 1, 0, op.topo.ppn)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        info = attach(backend="nccl")
+        reset_launches()
+        w = op @ v1
+        ell = launches["ell_spmm_packed"]
+        mesh = mesh_for(op.topo)
+        g = torch.randn((op.topo.n_procs, op.topo.n_nodes, 254, 1), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(1))
+        equal = torch.equal(node_all_to_all(g, op.topo, mesh),
+                            node_all_to_all(g, op.topo))
+        rows = g.reshape(-1, 254)
+        equal &= torch.equal(live_all_to_all(rows, [rows.shape[0]],
+                                             [rows.shape[0]], mesh), rows)
+        host = g.cpu().numpy().reshape(op.topo.n_nodes, op.topo.ppn, -1)
+        equal &= np.array_equal(
+            fetch_mesh_array(stage_mesh_array(host, mesh, device=DEV), mesh), host)
+        out = dict(backend=info["backend"], bit_equal=np.array_equal(w, w1),
+                   a2a_equal=equal, stats=dict(mesh.stats), ell=ell)
+    finally:
+        detach()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+def phase_mesh(a, seed, keep):
+    """[9e] the main path over two processes sharing the card (gloo), the
+    discovered topology, phase 4's NCCL check, and the postal model fitted
+    to exchange walls measured here.  ``keep`` holds phases 4, 6 and 7's
+    single-process results (and phase 4's NCCL check) and the float64
+    oracles.  Returns the ELL launches of the phase's applies, forward and
+    transpose, summed over the processes."""
+    print(f"[9e] mesh: {MESH_PROCS} processes share the card over gloo, each "
+          f"owning 16 of Topology(32, 16)'s nodes (256 ranks); "
+          f"n={int(np.sqrt(a.shape[0]))}")
+    t0 = time.perf_counter()
+    ell = {"forward": 0, "transpose": 0}
+    oracles = keep["oracles"]
+    want = {"nap/f1": keep["nap"]["w1"], "nap/f8": keep["nap"]["w8"],
+            "nap/t1": keep["nap"]["z1"], "multistep/f1": keep["multistep"]["w1"],
+            "multistep/t1": keep["multistep"]["z1"],
+            "standard/f1": keep["standard"]["w1"]}
+    exact = {"f1": "w1", "f8": "w8", "t1": "z1"}
+    names = {"f1": "forward nv=1", "f8": "forward nv=8", "t1": "transpose nv=1"}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        reports, results = run_mesh_children(tmp, a, seed)
+    for key, w in want.items():
+        got = results[key]
+        if not np.array_equal(got, w):
+            raise AssertionError(f"{key}: {MESH_PROCS} processes differ from the "
+                                 f"single-process result (max abs "
+                                 f"{np.abs(got - w).max():.3e})")
+        check_oracle(f"{MESH_PROCS} processes {key}", got,
+                     oracles[exact[key.split('/')[1]]])
+    print(f"  {MESH_PROCS} processes: nap f1 / f8 / t1, multistep f1 / t1 and "
+          f"standard f1 bit-equal to phases 4, 7 and 6 (transposes in "
+          f"deterministic mode on both sides), on every process")
+    for r in reports:
+        if r["discovered"] != [MESH_PROCS, 16]:
+            raise AssertionError(f"p{r['pid']} discovered {r['discovered']}")
+    check_oracle(f"discovered Topology({MESH_PROCS}, 16) f1",
+                 results["discovered/f1"], oracles["w1"])
+    for r in reports:
+        counts = [r["methods"][m][run]["launches"].get("ell_spmm_packed", 0)
+                  for m, runs in MESH_RUNS.items() for run in runs]
+        counts.append(r["discovered_f1"]["launches"].get("ell_spmm_packed", 0))
+        if min(counts) < 1:
+            raise AssertionError(f"p{r['pid']}: an apply did not launch the ELL "
+                                 f"kernel: {counts}")
+        for m, runs in MESH_RUNS.items():
+            for run in runs:
+                ell["transpose" if run == "t1" else "forward"] += \
+                    r["methods"][m][run]["launches"]["ell_spmm_packed"]
+        ell["forward"] += r["discovered_f1"]["launches"]["ell_spmm_packed"]
+        for m, runs in MESH_RUNS.items():
+            ms = r["methods"][m]["device_ms"]
+            print(f"  p{r['pid']} {m} device program ms, {MESH_PROCS} processes vs "
+                  f"one (phases 4/6/7): " + ", ".join(
+                      f"{run} {ms[run]:.4f}{' (one call)' if ms[f'{run}_reps'] == 1 else ''}"
+                      f" vs {keep[m]['ms'][names[run]]:.4f}" for run in runs))
+
+    # one process over NCCL (checked in phase 4, while its plan was live)
+    nccl = keep["nap"]["nccl"]
+    if nccl["backend"] != "nccl" or not nccl["bit_equal"]:
+        raise AssertionError(f"one NCCL process differs from phase 4: {nccl}")
+    if not nccl["a2a_equal"]:
+        raise AssertionError("NCCL's all-to-alls or all-gather differ from the "
+                             "one-process permutations")
+    if nccl["ell"] < 1:
+        raise AssertionError("the NCCL process's apply did not launch the ELL kernel")
+    ell["forward"] += nccl["ell"]
+    print(f"  one NCCL process (phase 4's plan): nap f1 bit-equal to phase 4, "
+          f"{nccl['ell']} ELL launch; NCCL's node and split all-to-alls and "
+          f"the stage / all-gather round trip bit-equal on device tensors in "
+          f"the 1-rank group ({nccl['stats']}; NCCL across processes needs "
+          f"one card a process: not run here)")
+
+    # the postal model fitted to walls measured across the two processes.
+    # A record's n_msgs / nbytes charge one bottleneck rank, as the
+    # reference's do, but its wall times a whole process exchanging its
+    # ranks' padded buffer in one call; so the fit charges what the
+    # process moves: one exchange (alpha is its start-up) of proc_bytes.
+    walls = [w for ws in reports[0]["walls"].values() for w in ws]
+    fit = PostalParams.calibrated(
+        [dict(w, n_msgs=1, nbytes=w["proc_bytes"]) for w in walls],
+        name="h100_gloo_2proc")
+    for w in walls:
+        across = 0 if w["axis"] == "proc" else w["proc_bytes"] // MESH_PROCS
+        level = "inter" if w["inter"] else "intra"
+        model = (getattr(fit, f"alpha_{level}")
+                 + w["proc_bytes"] / getattr(fit, f"beta_{level}"))
+        print(f"  wall {w['phase']:>6} ({level}, axis {w['axis']}, "
+              f"{w['n_slots']} slots x pad {w['pad']}): bottleneck rank n_msgs "
+              f"{w['n_msgs']}, nbytes {w['nbytes']}; {w['seconds'] * 1e3:.4f} ms "
+              f"(fit {model * 1e3:.4f}); per process {w['proc_bytes']} B "
+              f"exchanged ({w['proc_bytes'] / w['seconds'] / 1e9:.3f} GB/s), "
+              f"{across} B across")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    for p in (fit, BLUE_WATERS_POSTAL):
+        print(f"  postal {p.name}: " + ", ".join(
+            f"{k} {getattr(p, k):.6e}"
+            + (" (fit not positive: the Blue Waters default, not fitted)"
+               if p is fit and getattr(p, k) == getattr(BLUE_WATERS_POSTAL, k)
+               else "")
+            for k in ("alpha_inter", "beta_inter", "alpha_intra", "beta_intra"))
+            + (" (alpha s a process's exchange, beta B/s of its buffer)"
+               if p is fit else " (alpha s a message, beta B/s a rank)"))
+    print(f"  (fitted on {smi}: inter = across the two processes, intra = "
+          f"inside one; Blue Waters is the paper's Cray model)")
+    print(f"  phase 9e {time.perf_counter() - t0:.1f} s")
+    return ell
+
+
 # gemma2-2b serving (phases 10-12) ------------------------------------------------
 ATTN_REPLACES = "src/repro/kernels/decode_attn/kernel.py:71"
 ATTN_SOURCE = "src/repro_torch/csrc/decode_attn.cu"
@@ -2355,7 +2714,12 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's register and shared-memory report")
+    ap.add_argument("--mesh-child", metavar="SPEC",
+                    help="run one process of phase 9e (set by its launcher)")
     args = ap.parse_args()
+    if args.mesh_child:
+        mesh_child(args.mesh_child)
+        return
     global T_START
     T_START = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2419,9 +2783,7 @@ def main():
           f"fused_blocks {cb.arrays['fused_blocks'].nbytes / 1e9:.3f} GB")
 
     t0 = time.perf_counter()
-    oracles = dict(v1=rng.standard_normal(a.shape[0]),
-                   v8=rng.standard_normal((a.shape[0], 8)),
-                   u1=rng.standard_normal(a.shape[0]),
+    oracles = dict(draw_operands(rng, a.shape[0]),
                    vb=rng.standard_normal(a_b.shape[0]))
     oracles.update(w1=host_apply(a, oracles["v1"]), w8=host_apply(a, oracles["v8"]),
                    z1=host_apply(a, oracles["u1"], transpose=True),
@@ -2432,6 +2794,9 @@ def main():
     entries = phase_kernels(c, cb, a, a_b, oracles, gen)
     by_name = {e["name"]: e for e in entries}
     fwd, tr, nap_ref = phase_nap(op, a, oracles)
+    # phases 4, 6 and 7's results and the float64 oracles, for phase 9e
+    keep = dict(nap=nap_ref, standard={}, multistep={},
+                oracles={k: oracles[k] for k in ("w1", "w8", "z1")})
     nap_ref["local_compute"] = op.spec.local_compute
     nap_padded, nap_effective = traffic_bytes(op.stats())
     nap_summary = dict(padded=nap_padded, effective=nap_effective,
@@ -2442,10 +2807,11 @@ def main():
     del op_b, cb
     free()
     s_fwd1, s_fwd8, s_tr = phase_standard(a, a_b, topo, part, oracles,
-                                          nap_summary, args.n == 2024)
+                                          nap_summary, args.n == 2024,
+                                          keep["standard"])
     free()
     m_fwd, m_tr = phase_multistep(a, topo, part, oracles, nap_ref, gen,
-                                  args.n == 2024)
+                                  args.n == 2024, keep["multistep"])
     free()
     t0 = time.perf_counter()
     i_ell, i_bsr, nap_det = phase_integrity(a, topo, part, oracles, a_b)
@@ -2465,7 +2831,9 @@ def main():
     t0 = time.perf_counter()
     svc_ell = phase_service(a, a_b, topo, args.seed)
     print(f"  phase 9d {time.perf_counter() - t0:.1f} s")
-    del a, a_b
+    free()
+    mesh_ell = phase_mesh(a, args.seed, keep)
+    del a, a_b, keep
     free()
 
     # 10-12. gemma2-2b serving ---------------------------------------------------
@@ -2478,12 +2846,14 @@ def main():
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it); the AMG solve's launches, forward
     # and transpose together, the materialized Galerkin operator's apply
-    # and the solver service's applies count with the forward entry
+    # and the solver service's applies count with the forward entry; the
+    # mesh phase's are those of its child processes
     by_name["ell_spmm_packed"]["launches"] = sum(
         d.get("ell_spmm_packed", 0) for d in (fwd, s_fwd1, s_fwd8, m_fwd, amg)) \
-        + i_ell["forward"] + svc_ell
+        + i_ell["forward"] + svc_ell + mesh_ell["forward"]
     by_name["ell_spmm_packed:transpose"]["launches"] = sum(
-        d.get("ell_spmm_packed", 0) for d in (tr, s_tr, m_tr)) + i_ell["transpose"]
+        d.get("ell_spmm_packed", 0) for d in (tr, s_tr, m_tr)) + i_ell["transpose"] \
+        + mesh_ell["transpose"]
     by_name["fused_bsr_spmm_packed"]["launches"] = (
         cnt_p.get("fused_bsr_spmm_packed", 0) + i_bsr.get("fused_bsr_spmm_packed", 0))
     by_name["fused_bsr_spmm"]["launches"] = cnt_c.get("fused_bsr_spmm", 0)

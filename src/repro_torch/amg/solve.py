@@ -19,6 +19,7 @@ from repro_torch.amg.hierarchy import Level, _diag
 from repro_torch.core.integrity import IntegrityError
 from repro_torch.core.partition import contiguous_partition
 from repro_torch.device import DeviceLike
+from repro_torch.mesh.buffers import refuse_multiprocess
 from repro_torch.sparse.csr import CSR
 
 
@@ -88,6 +89,7 @@ def level_operators(levels: Sequence[Level], topo, *, method: str = "nap",
     """
     import repro_torch.api as nap
 
+    refuse_multiprocess("the AMG level operators")
     floor = topo.n_procs if min_rows is None else min_rows
     if parts is None:
         parts = [contiguous_partition(lvl.a.shape[0], topo.n_procs)

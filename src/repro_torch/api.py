@@ -72,7 +72,8 @@ __all__ = ["operator", "NapOperator", "ComposedOperator", "IntegrityError",
 INTEGRITY_MODES = ("off", "detect", "recover")
 
 
-def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
+def operator(a, topo: Optional[Topology] = None,
+             part: Optional[RowPartition] = None, *,
              row_part: Optional[RowPartition] = None,
              col_part: Optional[RowPartition] = None,
              method: str = "nap", backend: str = "torch",
@@ -82,7 +83,12 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
              device: DeviceLike = None) -> "NapOperator":
     """Build a :class:`NapOperator` for the ``[m, n]`` matrix ``a``.
 
-    ``topo`` is the (n_nodes, ppn) rank grid.  ``row_part`` lays out the
+    ``topo`` is the (n_nodes, ppn) rank grid; None discovers it from the
+    running job (:func:`repro_torch.mesh.discover.discover_topology`: one
+    node per process of a ``torch.distributed`` job, ppn from
+    ``REPRO_MESH_LOCAL_DEVICES``).  In a multi-process job each process
+    runs the node block it owns, ``n_nodes / processes`` whole nodes, and
+    every process returns the whole result.  ``row_part`` lays out the
     m output rows (contiguous by default); ``col_part`` the n input
     entries (``row_part`` when the matrix is square, else contiguous).
     Ranks may own no entry.  ``part`` sets both and needs ``m == n``.
@@ -107,8 +113,6 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
     it is absent; the simulate backend runs on the host.
     """
     m, n = a.shape
-    if topo is None:
-        raise ValueError("pass the rank grid topo= explicitly")
     if part is not None:
         if row_part is not None or col_part is not None:
             raise ValueError("pass either part= (square sugar) or "
@@ -118,6 +122,9 @@ def operator(a, topo: Topology, part: Optional[RowPartition] = None, *,
                 f"part= is the square-case sugar (sets row AND col "
                 f"partition); a is {a.shape} — pass row_part=/col_part=")
         row_part = col_part = part
+    if topo is None:
+        from repro_torch.mesh.discover import discover_topology
+        topo = discover_topology()
     if row_part is None:
         row_part = contiguous_partition(m, topo.n_procs)
     if col_part is None:

@@ -33,6 +33,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
+import numpy as np
+
 from repro_torch.core.comm_graph import Message, NAPPlan, StandardPlan
 
 SHORT_CUTOFF = 512        # bytes
@@ -191,24 +193,59 @@ def compute_time(nnz: int, flop_rate: float = 2.0e9) -> float:
 class PostalParams:
     """Flat two-level postal model: a start-up alpha per message plus the
     padded bytes at rate beta, for network (inter-node) and intra-node
-    hops."""
+    hops.  The defaults are the rendezvous rows of :data:`BLUE_WATERS`
+    (paper Tables 3-4): start-up and per-process rate of a large message
+    between nodes and on a node, a model of that Cray machine, not of the
+    GPU; :meth:`calibrated` fits the four constants to measured walls."""
 
-    name: str
-    alpha_inter: float
-    beta_inter: float
-    alpha_intra: float
-    beta_intra: float
+    name: str = "blue_waters_postal"
+    alpha_inter: float = BLUE_WATERS.inter["rend"].alpha
+    beta_inter: float = BLUE_WATERS.inter["rend"].b_max
+    alpha_intra: float = BLUE_WATERS.intra["rend"].alpha
+    beta_intra: float = BLUE_WATERS.intra["rend"].b_max
+
+    @classmethod
+    def calibrated(cls, walls: List[Dict], name: str = "calibrated"
+                   ) -> "PostalParams":
+        """Fit the postal constants from MEASURED per-phase exchange walls.
+
+        ``walls`` are records with ``n_msgs`` (bottleneck-rank messages),
+        ``nbytes`` (bottleneck-rank padded bytes), ``inter`` (the level)
+        and ``seconds``, as :func:`repro_torch.mesh.scaling.
+        measure_phase_walls` emits them.  Each level solves the
+        least-squares system ``seconds ~ alpha * n_msgs + nbytes / beta``
+        over its records.  A level with fewer than two usable records, or
+        a fit with a non-positive coefficient (noise at micro-benchmark
+        scale), keeps that constant from ``PostalParams()``, so a partial
+        calibration degrades to the defaults instead of producing a
+        nonsense machine model.
+        """
+        d = cls()
+        fitted = {"inter": (d.alpha_inter, d.beta_inter),
+                  "intra": (d.alpha_intra, d.beta_intra)}
+        for level in ("inter", "intra"):
+            recs = [w for w in walls
+                    if bool(w["inter"]) == (level == "inter")
+                    and w["n_msgs"] > 0 and w["seconds"] > 0]
+            if len(recs) < 2:
+                continue
+            design = np.array([[r["n_msgs"], r["nbytes"]] for r in recs],
+                              dtype=np.float64)
+            t = np.array([r["seconds"] for r in recs], dtype=np.float64)
+            coef, *_ = np.linalg.lstsq(design, t, rcond=None)
+            alpha, inv_beta = float(coef[0]), float(coef[1])
+            da, db = fitted[level]
+            fitted[level] = (alpha if alpha > 0 else da,
+                             1.0 / inv_beta if inv_beta > 0 else db)
+        return cls(name=name,
+                   alpha_inter=fitted["inter"][0],
+                   beta_inter=fitted["inter"][1],
+                   alpha_intra=fitted["intra"][0],
+                   beta_intra=fitted["intra"][1])
 
 
-#: The rendezvous rows of :data:`BLUE_WATERS` (paper Tables 3-4): start-up
-#: and per-process rate of a large message between nodes and on a node.
-#: A model of that Cray machine, not of the GPU.
-BLUE_WATERS_POSTAL = PostalParams(
-    name="blue_waters_postal",
-    alpha_inter=BLUE_WATERS.inter["rend"].alpha,
-    beta_inter=BLUE_WATERS.inter["rend"].b_max,
-    alpha_intra=BLUE_WATERS.intra["rend"].alpha,
-    beta_intra=BLUE_WATERS.intra["rend"].b_max)
+#: :class:`PostalParams` at its defaults: the comm chooser's constants.
+BLUE_WATERS_POSTAL = PostalParams()
 
 
 def postal_phase_time(n_msgs: int, nbytes: float, inter: bool,

@@ -18,7 +18,10 @@ Registered here:
   the rest (:mod:`repro_torch.comm.multistep`);
 
 all three the rank-batched programs of :mod:`repro_torch.core.spmv_torch`
-on one device, and
+on one device (in a multi-process job, over the node block this process
+owns: operands staged by :func:`repro_torch.mesh.buffers.input_stager`,
+results all-gathered by :func:`~repro_torch.mesh.buffers.fetch_mesh_array`),
+and
 
 * ``("simulate", "nap" | "standard" | "multistep")`` — the exact float64
   message-passing simulators on the host (:mod:`repro_torch.core.spmv`,
@@ -50,6 +53,7 @@ from repro_torch.core.spmv import (simulate_nap_spmv, simulate_nap_spmv_transpos
                                    simulate_standard_spmv_transpose)
 from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device
+from repro_torch.mesh.buffers import fetch_mesh_array, input_stager
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,7 +188,10 @@ class _TorchExecutor(_IntegritySurface):
         return lambda s: fn(c, s, local_compute=lc, **options)
 
     def packed(self, direction: str, v) -> torch.Tensor:
-        """Pack a global operand into device shards for :meth:`program`."""
+        """Pack a global operand into device shards for :meth:`program`:
+        for a plan that owns a node block of a multi-process job (its
+        ``mesh``), the block's shards
+        (:func:`repro_torch.mesh.buffers.input_stager`)."""
         from repro_torch.core.spmv_torch import pack_vector
         c = self.compiled
         if direction == "forward":
@@ -192,9 +199,14 @@ class _TorchExecutor(_IntegritySurface):
         else:
             part, pad, n = self.row_part, c.rows_pad, self.a.shape[0]
         shards = pack_vector(check_operand(n, v), part, self.topo, pad)
-        return torch.from_numpy(shards).to(self.device)
+        stage = input_stager(c.mesh, self.device)
+        if stage is None:
+            return torch.from_numpy(shards).to(self.device)
+        return stage(shards)
 
     def _apply(self, direction: str, v, **options) -> np.ndarray:
+        """One apply: pack, run the program, fetch (in a multi-process job
+        every process returns the whole result) and unpack."""
         from repro_torch.core.spmv_torch import unpack_vector
         before = None if self._compiled is None else self._compiled.builds
         shards = self.packed(direction, v)
@@ -209,7 +221,8 @@ class _TorchExecutor(_IntegritySurface):
                  or self._compiled.builds != before)
         self._builds[direction] = self._builds.get(direction, 0) + int(built)
         out_part = self.row_part if direction == "forward" else self.col_part
-        return unpack_vector(w.cpu().numpy(), out_part, self.topo)
+        return unpack_vector(fetch_mesh_array(w, self._compiled.mesh), out_part,
+                             self.topo)
 
     def swap_values(self, a_new) -> None:
         """Hot-swap the matrix VALUES (the sparsity must be identical):

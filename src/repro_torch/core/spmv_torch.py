@@ -28,7 +28,12 @@ exact axis permutation of the send buffer:
   -> ``recv[r, s] = send[s, r]`` (swap axes 0 and 1), since the ranks
   are ordered node-major.
 
-All are involutions, so the transpose programs re-apply them.  Gathers
+All are involutions, so the transpose programs re-apply them; they live
+in :mod:`repro_torch.mesh.comm`.  In a multi-process job a process owns a
+block of whole nodes (``CompiledNAP.mesh``): every process compiles the
+whole host layout but stages and runs only its block's ranks, the
+``proc`` exchanges stay in the process, and the ``node`` and ``("node",
+"proc")`` exchanges cross processes through the communicator.  Gathers
 are rank-batched over flat indices (``idx + rank * len``) and the
 transpose's scatters are ``index_add_``.  Local compute goes through the
 CUDA ELL / fused BSR kernels (their plain versions on CPU tensors) or
@@ -65,7 +70,9 @@ from repro_torch.core.topology import Topology
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.bsr_spmv.fused import fused_bsr_spmm, fused_bsr_spmm_packed
 from repro_torch.kernels.ell_spmv.kernel import ell_spmm_packed
-from repro_torch.mesh.buffers import default_registry
+from repro_torch.mesh.buffers import ProcessMesh, default_registry, plan_mesh
+from repro_torch.mesh.comm import (live_all_to_all, node_all_to_all,
+                                   proc_all_to_all, rank_all_to_all)
 from repro_torch.sparse.bsr import BSR
 from repro_torch.sparse.csr import CSR
 from repro_torch.sparse.ell import ELL, stack_ell
@@ -123,18 +130,48 @@ def _plan_namespace():
     return default_registry().namespace("spmv-plan")
 
 
+#: Host arrays that are not stacked over ranks (flat positions over the
+#: whole rank-batched domain): a plan that owns a rank block never stages
+#: them (its programs use the block forms, :func:`_live_direct_block`).
+_FLAT_ARRAY_NAMES = frozenset({"direct_live_src", "direct_live_dst",
+                               "direct_live_slot", "direct_live_msg"})
+
+
 class _Staged:
     """Device staging shared by the compiled plans: ``arrays`` (host
     numpy) become tensors on ``device`` once per name, in ``_tensors``
     (a :class:`repro_torch.mesh.buffers.BufferNamespace` for the SpMV
     plans).  ``builds`` counts the stagings of structure (index)
     tensors: the port's analogue of a program trace, which a hot value
-    swap must not add to."""
+    swap must not add to.
+
+    ``mesh`` (a :class:`repro_torch.mesh.buffers.ProcessMesh`) is set
+    when this process owns a block of the ranks of a multi-process job:
+    the host arrays stay whole (every process compiles the whole layout)
+    and only the block's rows of each ``[n_procs, ...]`` array are staged
+    and indexed.  None: the whole layout, one process."""
 
     arrays: Dict[str, np.ndarray]
     device: torch.device
     _tensors: Dict[object, torch.Tensor]
     builds = 0
+    mesh: Optional[ProcessMesh] = None
+
+    @property
+    def n_local_procs(self) -> int:
+        """Ranks this process batches: the mesh's block, else all."""
+        return self.topo.n_procs if self.mesh is None else self.mesh.n_local_procs
+
+    def owned(self, name: str) -> np.ndarray:
+        """The host array ``name``, cut to the owned rank block."""
+        arr = self.arrays[name]
+        if self.mesh is None:
+            return arr
+        if name in _FLAT_ARRAY_NAMES:
+            raise ValueError(f"{name} indexes the whole rank-batched domain; "
+                             f"a plan that owns a rank block cannot stage it")
+        r0, r1 = self.mesh.ranks
+        return arr[r0:r1]
 
     def _stage(self, key, value):
         if key not in VALUE_ARRAY_NAMES:
@@ -143,20 +180,22 @@ class _Staged:
         return value
 
     def tensors(self, names: Sequence[str]) -> Dict[str, torch.Tensor]:
-        """Device copies of the named host arrays, staged once per name."""
+        """Device copies of the named host arrays (the owned block's rows),
+        staged once per name."""
         for k in names:
             if k not in self._tensors:
-                self._stage(k, torch.from_numpy(self.arrays[k]).to(self.device))
+                self._stage(k, torch.from_numpy(self.owned(k)).to(self.device))
         return {k: self._tensors[k] for k in names}
 
     def flat_index(self, name: str, seg_len: int, nv: int = 1) -> torch.Tensor:
         """``arrays[name] + rank * seg_len`` as flat int64: the rank-batched
-        row index into a ``[n_procs * seg_len, nv]`` tensor.  With
-        ``nv > 1`` it is the element index ``row * nv + column`` into the
-        flattened tensor instead.  Built once per (name, length, nv)."""
+        row index into a ``[n_procs * seg_len, nv]`` tensor (ranks counted
+        from the start of the owned block).  With ``nv > 1`` it is the
+        element index ``row * nv + column`` into the flattened tensor
+        instead.  Built once per (name, length, nv)."""
         key = (name, seg_len, nv)
         if key not in self._tensors:
-            idx = torch.from_numpy(self.arrays[name]).to(self.device)
+            idx = torch.from_numpy(self.owned(name)).to(self.device)
             base = torch.arange(idx.shape[0], device=idx.device,
                                 dtype=torch.int64) * seg_len
             flat = (idx.long().reshape(idx.shape[0], -1) + base[:, None]).reshape(-1)
@@ -209,6 +248,9 @@ class CompiledNAP(_Staged):
     # original values, which a swapped plan no longer carries)
     _cache_token: Optional[tuple] = dataclasses.field(default=None, repr=False,
                                                       compare=False)
+    # the owned rank block of a multi-process job (None: every rank)
+    mesh: Optional[ProcessMesh] = dataclasses.field(default=None, repr=False,
+                                                    compare=False)
 
     def __post_init__(self) -> None:
         if self.col_part is None:
@@ -424,7 +466,7 @@ def _swap_finish(compiled, a_new: CSR, changed: List[str]) -> None:
         if name not in compiled._tensors:
             continue                    # staged at its first use
         staged = compiled._tensors[name]
-        new = torch.from_numpy(compiled.arrays[name])
+        new = torch.from_numpy(compiled.owned(name))
         if staged.shape != new.shape or staged.dtype != new.dtype:
             raise RuntimeError(f"swap_values: {name} changed from "
                                f"{tuple(staged.shape)} {staged.dtype} to "
@@ -628,10 +670,11 @@ def _cache_key(a: CSR, part: RowPartition, topo: Topology,
                block_shape: Tuple[int, int], local_compute: str,
                tuner: LocalComputeParams, tag: str,
                col_part: Optional[RowPartition],
-               device: torch.device) -> tuple:
+               device: torch.device, mesh: Optional[ProcessMesh]) -> tuple:
     """The reference's key (structure, VALUES, partitions, topology,
     block shape, local compute, tuner, plan family) plus the device the
-    plan stages on."""
+    plan stages on and, in a multi-process job, the owned block and the
+    process group (a block plan is never a whole plan)."""
     h = hashlib.sha1()
     arrs = [a.indptr, a.indices, a.data, part.owner]
     if col_part is not None:
@@ -640,7 +683,7 @@ def _cache_key(a: CSR, part: RowPartition, topo: Topology,
         h.update(np.ascontiguousarray(arr).tobytes())
     return (tag, h.hexdigest(), a.shape, topo.n_nodes, topo.ppn,
             tuple(block_shape), str(local_compute), tuner.signature(),
-            str(device))
+            str(device), None if mesh is None else mesh.key)
 
 
 def compile_nap(a: CSR, part: RowPartition, topo: Topology,
@@ -661,10 +704,11 @@ def compile_nap(a: CSR, part: RowPartition, topo: Topology,
     """
     device = resolve_device(device)
     _check_layout(a, part, col_part, local_compute)
+    mesh = plan_mesh(topo)
     key = None
     if plan is None and cache:
         key = _cache_key(a, part, topo, block_shape, local_compute, tuner,
-                         "nap", col_part, device)
+                         "nap", col_part, device, mesh)
         hit = _cache_get(key)
         if hit is not None:
             return hit
@@ -672,6 +716,7 @@ def compile_nap(a: CSR, part: RowPartition, topo: Topology,
         plan = build_nap_plan(a.indptr, a.indices, part, topo, col_part=col_part)
     compiled = _compile_node_aware(a, part, topo, plan, None, block_shape,
                                    local_compute, tuner, col_part, device)
+    compiled.mesh = mesh
     if key is not None:
         _cache_put(key, compiled)
     return compiled
@@ -696,10 +741,11 @@ def compile_multistep(a: CSR, part: RowPartition, topo: Topology,
     device = resolve_device(device)
     _check_layout(a, part, col_part, local_compute)
     thr = resolve_threshold(threshold, topo)
+    mesh = plan_mesh(topo)
     key = None
     if plan is None and cache:
         key = _cache_key(a, part, topo, block_shape, local_compute, tuner,
-                         f"multistep:{thr}", col_part, device)
+                         f"multistep:{thr}", col_part, device, mesh)
         hit = _cache_get(key)
         if hit is not None:
             return hit
@@ -709,6 +755,7 @@ def compile_multistep(a: CSR, part: RowPartition, topo: Topology,
     compiled = _compile_node_aware(a, part, topo, plan.nap, plan.direct,
                                    block_shape, local_compute, tuner, col_part,
                                    device, ms_plan=plan)
+    compiled.mesh = mesh
     if key is not None:
         _cache_put(key, compiled)
     return compiled
@@ -912,6 +959,8 @@ class CompiledStandard(_Staged):
                                              compare=False)
     _cache_token: Optional[tuple] = dataclasses.field(default=None, repr=False,
                                                       compare=False)
+    mesh: Optional[ProcessMesh] = dataclasses.field(default=None, repr=False,
+                                                    compare=False)
 
     def __post_init__(self) -> None:
         if self.col_part is None:
@@ -999,7 +1048,8 @@ class CompiledStandard(_Staged):
     def live_send_slots(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The live slots of the send table, built once from
         ``send_counts``: their flat positions in ``[P, P, pair_pad]`` and
-        the flat ``[P * cols_pad]`` rows they carry."""
+        the flat ``[P * cols_pad]`` rows they carry (the owned block's
+        senders only, both counted from the block's first rank)."""
         if "live_send" not in self._tensors:
             p, pad = self.topo.n_procs, self.pair_pad
             k = self.send_counts.reshape(-1).astype(np.int64)
@@ -1008,6 +1058,12 @@ class CompiledStandard(_Staged):
                    + np.arange(ends[-1]) - np.repeat(ends - k, k))
             rows = (self.arrays["send_idx"].reshape(-1)[pos].astype(np.int64)
                     + pos // (p * pad) * self.cols_pad)
+            if self.mesh is not None:
+                # the live slots are sender-major: the block's are one run
+                r0, r1 = self.mesh.ranks
+                mine = (pos >= r0 * p * pad) & (pos < r1 * p * pad)
+                pos = pos[mine] - r0 * p * pad
+                rows = rows[mine] - r0 * self.cols_pad
             self._stage("live_send", (torch.from_numpy(pos).to(self.device),
                                       torch.from_numpy(rows).to(self.device)))
         return self._tensors["live_send"]
@@ -1057,10 +1113,11 @@ def compile_standard(a: CSR, part: RowPartition, topo: Topology,
     """
     device = resolve_device(device)
     _check_layout(a, part, col_part, local_compute)
+    mesh = plan_mesh(topo)
     key = None
     if plan is None and cache:
         key = _cache_key(a, part, topo, block_shape, local_compute, tuner,
-                         "standard", col_part, device)
+                         "standard", col_part, device, mesh)
         hit = _cache_get(key)
         if hit is not None:
             return hit
@@ -1110,7 +1167,8 @@ def compile_standard(a: CSR, part: RowPartition, topo: Topology,
         block_shape=tuple(block_shape),
         arrays=dict(send_idx=send_idx, buf_gather=buf_gather), device=device,
         send_counts=send_counts, per_rank_coo=per_rank_coo, plan=plan,
-        autotune=autotune, requested_local_compute=local_compute, a_ref=a)
+        autotune=autotune, requested_local_compute=local_compute, a_ref=a,
+        mesh=mesh)
     if key is not None:
         _cache_put(key, compiled)
     return compiled
@@ -1169,23 +1227,10 @@ def unpack_vector(w: np.ndarray, part: RowPartition, topo: Topology) -> np.ndarr
 # Rank-batched device program
 # ---------------------------------------------------------------------------
 
-def _exchange_proc(buf: torch.Tensor, topo: Topology) -> torch.Tensor:
-    """Tiled all-to-all over ``proc``: ``[P, ppn, pad, nv]`` per rank."""
-    nn, ppn = topo.n_nodes, topo.ppn
-    s = buf.shape
-    return buf.reshape((nn, ppn, ppn) + s[2:]).transpose(1, 2).reshape(s)
-
-
-def _exchange_node(buf: torch.Tensor, topo: Topology) -> torch.Tensor:
-    """Tiled all-to-all over ``node``: ``[P, nn, pad, nv]`` per rank."""
-    nn, ppn = topo.n_nodes, topo.ppn
-    s = buf.shape
-    return buf.reshape((nn, ppn, nn) + s[2:]).permute(2, 1, 0, 3, 4).reshape(s)
-
-
 def _gather(c: CompiledNAP, x: torch.Tensor, name: str) -> torch.Tensor:
-    """``x[r][arrays[name][r]]`` for every rank r: ``x`` is ``[P, L, nv]``,
-    the result ``arrays[name].shape + (nv,)``.
+    """``x[r][arrays[name][r]]`` for every rank r (of the owned block):
+    ``x`` is ``[P, L, nv]``, the result ``[P] + arrays[name].shape[1:] +
+    (nv,)``.
 
     Gathers single elements of the flattened ``x``: a gather of whole
     rows of nv > 1 floats takes PyTorch's vectorized row-gather kernel,
@@ -1193,7 +1238,7 @@ def _gather(c: CompiledNAP, x: torch.Tensor, name: str) -> torch.Tensor:
     """
     nv = x.shape[-1]
     idx = c.flat_index(name, x.shape[1], nv)
-    shape = tuple(c.arrays[name].shape) + (nv,)
+    shape = (x.shape[0],) + tuple(c.arrays[name].shape[1:]) + (nv,)
     return x.reshape(-1).index_select(0, idx).reshape(shape)
 
 
@@ -1204,8 +1249,8 @@ def _gather_columns(c: CompiledNAP, x: torch.Tensor, name: str) -> torch.Tensor:
     index at the paper's size."""
     p, seg, nv = x.shape
     idx = c.flat_index(name, seg)
-    out = torch.empty(tuple(c.arrays[name].shape) + (nv,), dtype=x.dtype,
-                      device=x.device)
+    out = torch.empty((p,) + tuple(c.arrays[name].shape[1:]) + (nv,),
+                      dtype=x.dtype, device=x.device)
     flat_out, flat_x = out.view(-1, nv), x.reshape(-1, nv)
     for j in range(nv):
         flat_out[:, j] = flat_x[:, j].index_select(0, idx)
@@ -1224,17 +1269,26 @@ def _scatter(c: CompiledNAP, src: torch.Tensor, name: str,
 
 def _rank_batch(c: CompiledNAP, shards, pad: int) -> Tuple[torch.Tensor, bool]:
     """``[nn, ppn, pad(, nv)]`` shards -> f32 ``[P, pad, nv]`` on the plan's
-    device, and whether the caller passed a single vector."""
+    device, and whether the caller passed a single vector.  A plan that
+    owns a rank block takes the block's shards ``[n_local_nodes, ...]``."""
     t = torch.as_tensor(shards)
     single = t.dim() == 3
     t = t.to(device=c.device, dtype=torch.float32)
-    return t.reshape(c.topo.n_procs, pad, -1).contiguous(), single
+    return t.reshape(c.n_local_procs, pad, -1).contiguous(), single
 
 
 def _unbatch(c: CompiledNAP, w: torch.Tensor, single: bool) -> torch.Tensor:
-    topo = c.topo
-    out = w.reshape(topo.n_nodes, topo.ppn, w.shape[1], w.shape[2])
+    out = w.reshape(-1, c.topo.ppn, w.shape[1], w.shape[2])
     return out[..., 0] if single else out
+
+
+def _check_integrity_layout(c) -> None:
+    """The instrumented programs run in one process only."""
+    if c.mesh is not None:
+        raise NotImplementedError(
+            "integrity across processes (the checksum and fault exchanges "
+            "over the communicator) is not ported yet: ROADMAP Queue 1 "
+            "item 4b; run integrity in one process")
 
 
 _COO_KEYS = ("on_proc", "on_node", "off_node")
@@ -1260,10 +1314,35 @@ def _live_direct(c: CompiledNAP, nv: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return c._tensors[key]
 
 
-def _direct_exchange(buf: torch.Tensor) -> torch.Tensor:
-    """Tiled all-to-all over ``("node", "proc")``: ``[P_src, P_dst, pad,
-    nv]`` -> ``recv[r, s] = send[s, r]`` (ranks are node-major)."""
-    return buf.transpose(0, 1).contiguous()
+def _live_direct_block(c: CompiledNAP, nv: int):
+    """The live direct slots of the owned rank block, for the exchange
+    across processes: ``(src, dst, send_counts, recv_counts)``.
+
+    ``src`` holds, grouped by destination process, the block's v_loc
+    element indices of the values it sends (``send_counts`` per
+    process), ``dst`` the block's off-node buffer element indices of the
+    values it receives, grouped by source process (``recv_counts``).
+    Both keep the literal exchange's slot order within each group, so the
+    transpose's sums run in the one-process order.  Staged once per nv."""
+    key = ("live_direct_block", nv)
+    if key not in c._tensors:
+        c.ensure_live_direct()
+        mesh, boff_pad = c.mesh, c.arrays["boff_gather"].shape[1]
+        src, dst = c.arrays["direct_live_src"], c.arrays["direct_live_dst"]
+        s, r = src // c.cols_pad, dst // boff_pad
+        r0, r1 = mesh.ranks
+        per = mesh.n_local_procs
+        send = (s >= r0) & (s < r1)
+        order = np.argsort(r[send] // per, kind="stable")
+        recv = (r >= r0) & (r < r1)
+        src_b = (src[send] - r0 * c.cols_pad)[order]
+        dst_b = dst[recv] - r0 * boff_pad
+        counts = (np.bincount(r[send] // per, minlength=mesh.world) * nv,
+                  np.bincount(s[recv] // per, minlength=mesh.world) * nv)
+        c._stage(key, (_elements(torch.from_numpy(src_b).to(c.device), nv),
+                       _elements(torch.from_numpy(dst_b).to(c.device), nv),
+                       [int(k) for k in counts[0]], [int(k) for k in counts[1]]))
+    return c._tensors[key]
 
 
 # ---------------------------------------------------------------------------
@@ -1437,8 +1516,14 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
     A multi-step plan (``c.comm == "multistep"``) adds phase E, the
     direct exchange of its low-duplication columns.  By default only its
     live slots move: each value is gathered from v_loc straight into its
-    place in the off-node buffer.  ``live_direct=False`` runs the literal
-    padded exchange (``[P, P, direct_pad]`` slots); the two are bit-equal.
+    place in the off-node buffer (across processes, through one
+    all-to-all of the live values).  ``live_direct=False`` runs the
+    literal padded exchange (``[P, P, direct_pad]`` slots); the two are
+    bit-equal.
+
+    A plan that owns a rank block of a multi-process job (``c.mesh``)
+    takes and returns the block's shards; the ``node`` exchange and the
+    direct phase cross processes through :mod:`repro_torch.mesh.comm`.
 
     ``fault_spec`` (int32 ``[n_nodes, ppn, n_phases, 4]``, see
     :func:`repro_torch.core.integrity.build_fault_spec`) runs the
@@ -1464,11 +1549,12 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
     ms = c.comm == "multistep"
     wire = None
     if fault_spec is not None:
+        _check_integrity_layout(c)
         c.ensure_abft()
         wire = _Wire(fault_spec, c.comm)
         live_direct = False
-    proc = functools.partial(_exchange_proc, topo=topo)
-    node = functools.partial(_exchange_node, topo=topo)
+    proc = functools.partial(proc_all_to_all, ppn=topo.ppn)
+    node = functools.partial(node_all_to_all, topo=topo, mesh=c.mesh)
 
     # Phase A+B: intra-node exchanges over "proc".
     full_recv = _exchanged(wire, "full", _gather(c, v, "full_send"), proc)
@@ -1490,13 +1576,20 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
         c.ensure_live_direct()
         comb.append(torch.zeros((p, 1, nv), dtype=v.dtype, device=v.device))
         boff = _gather(c, torch.cat(comb, dim=1), "boff_live_gather")
-        src, dst = _live_direct(c, nv)
-        boff.view(-1).index_copy_(0, dst, v.reshape(-1).index_select(0, src))
+        if c.mesh is None:
+            src, dst = _live_direct(c, nv)
+            vals = v.reshape(-1).index_select(0, src)
+        else:
+            src, dst, n_send, n_recv = _live_direct_block(c, nv)
+            vals = live_all_to_all(v.reshape(-1).index_select(0, src),
+                                   n_send, n_recv, c.mesh)
+        boff.view(-1).index_copy_(0, dst, vals)
     else:
         # Phase E, literal: the flat exchange of the padded direct slots.
         send = _gather(c, v, "direct_send") if wire is None or nv == 1 \
             else _gather_columns(c, v, "direct_send")
-        direct_recv = _exchanged(wire, "direct", send, _direct_exchange)
+        direct_recv = _exchanged(wire, "direct", send,
+                                 functools.partial(rank_all_to_all, mesh=c.mesh))
         del send
         comb.append(direct_recv.reshape(p, -1, nv))
         boff = _gather(c, torch.cat(comb, dim=1), "boff_gather")
@@ -1556,12 +1649,14 @@ def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
     moves them); the compute fault and the transpose ABFT (``sum`` of
     the packed contributions against ``(A_p 1) . u_loc``) come before
     any exchange.  Returns ``(z, chk, abft)``.
+
+    A rank-block plan (``c.mesh``) runs as :func:`nap_forward` does.
     """
     fmt = c.resolve_transpose_local_compute(local_compute)
     if fmt == "ell":
         c.ensure_ell_t()
     topo, pads = c.topo, c.pads
-    nn, ppn = topo.n_nodes, topo.ppn
+    nn, ppn, n_procs = topo.n_nodes, topo.ppn, topo.n_procs
     cols_pad, rows_pad, bnode_pad = c.cols_pad, c.rows_pad, pads["bnode"]
     inter_len = nn * pads["inter"]
     u, single = _rank_batch(c, u_shards, rows_pad)
@@ -1569,10 +1664,11 @@ def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
     ms = c.comm == "multistep"
     wire = None
     if fault_spec is not None:
+        _check_integrity_layout(c)
         c.ensure_abft()
         wire = _Wire(fault_spec, c.comm)
-    proc = functools.partial(_exchange_proc, topo=topo)
-    node = functools.partial(_exchange_node, topo=topo)
+    proc = functools.partial(proc_all_to_all, ppn=ppn)
+    node = functools.partial(node_all_to_all, topo=topo, mesh=c.mesh)
 
     if fmt == "ell":
         t = c.tensors(["ell_t_cols", "ell_t_vals"])
@@ -1620,7 +1716,7 @@ def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
         msg.index_add_(0, t["direct_live_msg"],
                        c_off.reshape(-1, nv).index_select(0, t["direct_live_dst"]))
         direct_out_c = wire.exchange("direct", msg.view(p, p, dpad, nv),
-                                     _direct_exchange)
+                                     rank_all_to_all)
         del msg
         z_direct = torch.zeros((p * cols_pad, nv), dtype=u.dtype, device=u.device)
         z_direct.index_add_(0, t["direct_live_src"], direct_out_c.reshape(-1, nv)
@@ -1629,15 +1725,23 @@ def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
     elif live_direct:
         c.ensure_live_direct()
         comb = _scatter(c, c_off, "boff_live_gather", comb_len + 1)
-        src, dst = _live_direct(c, 1)
         z_direct = torch.zeros((p * cols_pad, nv), dtype=u.dtype, device=u.device)
-        z_direct.index_add_(0, src, c_off.reshape(-1, nv).index_select(0, dst))
+        if c.mesh is None:
+            src, dst = _live_direct(c, 1)
+            vals = c_off.reshape(-1, nv).index_select(0, dst)
+        else:
+            # back along the forward's live slots: receivers send, owners sum
+            src, dst, n_send, n_recv = _live_direct_block(c, 1)
+            vals = live_all_to_all(c_off.reshape(-1, nv).index_select(0, dst),
+                                   n_recv, n_send, c.mesh)
+        z_direct.index_add_(0, src, vals)
         z_direct = z_direct.reshape(p, cols_pad, nv)
     else:
         dpad = pads["direct"]
-        comb = _scatter(c, c_off, "boff_gather", comb_len + p * dpad)
+        comb = _scatter(c, c_off, "boff_gather", comb_len + n_procs * dpad)
         # reverse phase E: the flat exchange is its own adjoint
-        direct_out_c = _direct_exchange(comb[:, comb_len:].reshape(p, p, dpad, nv))
+        direct_out_c = rank_all_to_all(
+            comb[:, comb_len:].reshape(p, n_procs, dpad, nv), c.mesh)
         z_direct = _scatter(c, direct_out_c, "direct_send", cols_pad)
     inter_c = comb[:, :inter_len]
     final_recv_c = comb[:, inter_len:comb_len].reshape(p, ppn, pads["final"], nv)
@@ -1688,7 +1792,7 @@ def _exchange_pair(c: CompiledStandard, v: torch.Tensor,
     and recomputed from the received table.
     """
     p, _, nv = v.shape
-    pad = c.pair_pad
+    pad, n_procs = c.pair_pad, c.topo.n_procs
 
     def take(x: torch.Tensor, name: str, seg_len: int) -> torch.Tensor:
         idx = c.flat_index(name, seg_len)
@@ -1700,11 +1804,11 @@ def _exchange_pair(c: CompiledStandard, v: torch.Tensor,
     if wire is not None:
         sent = _pair_checksums(send.reshape(nv, p, p, pad))
         send = _fault_pair(send.reshape(nv, p, p, pad), wire.spec[:, wire.ph["pair"]])
-    recv = send.reshape(nv, p, p, pad).transpose(1, 2).contiguous()
+    recv = rank_all_to_all(send.reshape(nv, p, n_procs, pad), c.mesh, lead=1)
     del send
     if wire is not None:
         wire.chks["pair"] = (sent.T, _pair_checksums(recv))
-    buf = take(recv.reshape(nv, -1), "buf_gather", p * pad)
+    buf = take(recv.reshape(nv, -1), "buf_gather", n_procs * pad)
     return buf.reshape(nv, p, c.buf_pad).permute(1, 2, 0).contiguous()
 
 
@@ -1741,6 +1845,7 @@ def standard_forward(c: CompiledStandard, v_shards, local_compute: str = "auto",
     p, _, nv = v.shape
     wire = None
     if fault_spec is not None:
+        _check_integrity_layout(c)
         c.ensure_abft()
         wire = _Wire(fault_spec, "standard")
     segs = (v, _exchange_pair(c, v, wire))
@@ -1794,9 +1899,10 @@ def standard_transpose(c: CompiledStandard, u_shards,
     (c.ensure_ell_t if fmt == "ell" else c.ensure_coo)()
     u, single = _rank_batch(c, u_shards, c.rows_pad)
     p, _, nv = u.shape
-    cols_pad, pair_pad = c.cols_pad, c.pair_pad
+    cols_pad, pair_pad, n_procs = c.cols_pad, c.pair_pad, c.topo.n_procs
     wire = None
     if fault_spec is not None:
+        _check_integrity_layout(c)
         c.ensure_abft()
         wire = _Wire(fault_spec, "standard")
     if fmt == "ell":
@@ -1812,9 +1918,9 @@ def standard_transpose(c: CompiledStandard, u_shards,
         abft = _abft(c, contrib, tuple(c.tensors(["abft_row", "abft_row_abs"]).values()),
                      (u,))
     # reverse of buf = recv[buf_gather], then the exchange (an involution)
-    recv_c = _scatter(c, contrib[:, cols_pad:], "buf_gather", p * pair_pad)
+    recv_c = _scatter(c, contrib[:, cols_pad:], "buf_gather", n_procs * pair_pad)
     if wire is None:
-        out_c = recv_c.reshape(p, p, pair_pad, nv).transpose(0, 1).contiguous()
+        out_c = rank_all_to_all(recv_c.reshape(p, n_procs, pair_pad, nv), c.mesh)
     else:
         out_c = wire.exchange("pair", recv_c.reshape(p, p, pair_pad, nv),
                               lambda b: b.transpose(0, 1).contiguous())

@@ -41,6 +41,7 @@ import numpy as np
 from repro_torch.core.partition import RowPartition
 from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device
+from repro_torch.mesh.buffers import refuse_multiprocess
 
 
 def structure_key(a, row_part: RowPartition, col_part: RowPartition,
@@ -87,6 +88,7 @@ class PlanCache:
                  backend: str = "torch", local_compute: str = "auto",
                  max_entries: int = 8, integrity: str = "off",
                  **operator_kwargs):
+        refuse_multiprocess("the plan cache")
         if backend == "torch":
             resolve_device(operator_kwargs.get("device"))
         self.topo = topo

@@ -52,6 +52,7 @@ from repro_torch.core.partition import (RowPartition, contiguous_partition,
                                         survivor_partition)
 from repro_torch.core.topology import Topology
 from repro_torch.device import DeviceLike
+from repro_torch.mesh.buffers import refuse_multiprocess
 from repro_torch.runtime.fault import (ElasticPolicy, HeartbeatMonitor,
                                        StragglerDetector)
 from repro_torch.serve.faultplan import FabricError, FaultPlan, ManualClock
@@ -187,6 +188,7 @@ class SolverService:
                  max_attempts: int = 4, backoff: float = 1.0,
                  plan_cache_max: int = 8, device: DeviceLike = None,
                  integrity: str = "off", quarantine_strikes: int = 3):
+        refuse_multiprocess("the solver service")
         self.clock = clock if clock is not None else ManualClock()
         self.dt = float(dt)
         self.topo = topo

@@ -51,11 +51,10 @@ from repro_torch.core.integrity import (IntegrityError, NAP_MESSAGE_PHASES,
                                         build_fault_spec, message_phases,
                                         verify_wire)
 from repro_torch.core.partition import RowPartition
-from repro_torch.core.spmv_torch import (_direct_exchange, _exchange_node,
-                                         _exchange_proc, _exchanged, _gather,
-                                         _Staged, _Wire)
+from repro_torch.core.spmv_torch import _exchanged, _gather, _Staged, _Wire
 from repro_torch.core.topology import Topology
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.mesh.comm import node_all_to_all, proc_all_to_all, rank_all_to_all
 from repro_torch.sparse.csr import CSR
 from repro_torch.spgemm.plan import (SpGemmPlan, build_spgemm_plan,
                                      expand_positions, local_value_index,
@@ -430,8 +429,8 @@ def _domain(c: CompiledSpGemm, b: torch.Tensor,
     (the instrumented program) its literal pair table."""
     topo, p = c.topo, c.topo.n_procs
     if c.method == "nap":
-        proc = functools.partial(_exchange_proc, topo=topo)
-        node = functools.partial(_exchange_node, topo=topo)
+        proc = functools.partial(proc_all_to_all, ppn=topo.ppn)
+        node = functools.partial(node_all_to_all, topo=topo)
         # Phases A+B: intra-node row-block exchanges over "proc".
         full = _exchanged(wire, "full", _gather(c, b, "full_send_v"), proc)
         init = _exchanged(wire, "init", _gather(c, b, "init_send_v"), proc)
@@ -455,7 +454,7 @@ def _domain(c: CompiledSpGemm, b: torch.Tensor,
                          b.reshape(-1).index_select(0, t["pair_live_src"]))
         return torch.cat([b, recv.reshape(p, -1, 1)], dim=1), "exp_pos_live"
     # the literal flat exchange over ("node", "proc") of [P, P, vpad] slots
-    recv = _exchanged(wire, "pair", _gather(c, b, "send_v"), _direct_exchange)
+    recv = _exchanged(wire, "pair", _gather(c, b, "send_v"), rank_all_to_all)
     return torch.cat([b, recv.reshape(p, -1, 1)], dim=1), "exp_pos"
 
 

@@ -224,6 +224,37 @@ def test_serve_checkpoint_runtime_mesh_import_loads_neither_jax_nor_reference():
     assert "clean" in proc.stdout
 
 
+def test_mesh_import_loads_neither_jax_nor_reference():
+    """The mesh modules (launcher, discovery, communicator, scaling) load
+    neither JAX nor the JAX package; the launcher is what a child imports
+    first."""
+    code = ("import sys, repro_torch.mesh.launcher\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\n"
+            "import repro_torch.mesh, repro_torch.mesh.discover\n"
+            "import repro_torch.mesh.comm, repro_torch.mesh.scaling\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\nprint('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "clean" in proc.stdout
+
+
+def test_mesh_entry_points_raise_without_cuda(monkeypatch):
+    """The scaling harness runs on the card unless asked for the CPU."""
+    from repro_torch.mesh.scaling import measure_spmv
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = poisson_2d(6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        measure_spmv(a, contiguous_partition(36, 4), Topology(2, 2), "nap")
+    assert measure_spmv(a, contiguous_partition(36, 4), Topology(2, 2), "nap",
+                        repeats=1, device="cpu")["wall_s"] > 0
+
+
 def test_solver_service_and_plan_cache_raise_without_cuda(monkeypatch):
     """The service and its plan cache default to the device programs on
     CUDA; ``device="cpu"`` or the simulate backend run without it."""
