@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the node-aware SpMV,
 the multi-step exchange, wire integrity, the float64 simulate backend,
 the distributed SpGEMM and the AMG solver path, the solver service, the
-multi-process mesh, and the gemma2-2b serving path.
+multi-process mesh, the MoE token dispatch, and the gemma2-2b serving
+path.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -149,6 +150,32 @@ Phases, each fatal on failure:
    to them per process (one exchange of the process's buffer a record)
    beside the Blue Waters constants, with the card's name and power
    limit;
+9f. MoE token dispatch at qwen3-moe-235b-a22b's full width (d_model 4096,
+   128 experts, top-8, moe_dff 1536, capacity factor 1.25; weights in
+   bf16 from the seed on the card) on Topology(4, 8), 32 ranks batched
+   on the card, x [16, 512, 4096] bf16 (4 prompts of 512 tokens a pod):
+   (a) the CUDA wire codecs (``encode_torch`` / ``decode_torch``) word
+   for word against the numpy copy over ``codec_sweep`` (every bf16
+   value and midpoint, every fp8 value, midpoint and subnormal step,
+   +-inf, NaN, +-449 to +-1e30, seeded draws, bf16 tokens to fp8), and
+   what the card's raw ``.to(float8_e4m3fn)`` does out of range; (b) the
+   island in float32 (weights upcast, the capacity factor doubled until
+   no copy drops) for flat, nap and auto against ``moe_apply_local``
+   (chunks of 256 tokens), max abs error / max |oracle| <= 1e-4; (c) at
+   bf16 and capacity factor 1.25 every mode x wire (f32, bf16, fp8):
+   device ms (events, median of 10), peak, dropped copies per stage,
+   the inter-pod bytes counted at the communicator (tokens equal to the
+   buffer arithmetic, meta, combine) beside ``dispatch_traffic`` of the
+   island's own routing, auto's resolved mode, and the quantized
+   outputs within ``wire_error_bound`` of the same mode's f32 wire; nap
+   below flat and fp8 below bf16 in counted bytes; (d) ``dispatch_operator``
+   on the host at the same geometry (8192 tokens of a representative
+   routing, nv = 4): ``op @ X`` and ``op.T @ Y`` per mode x wire within
+   the wire budgets, and an fp8 bitflip on an ``inter`` message detected
+   and attributed; (e) two gloo processes sharing the card (this script
+   re-entered with ``--moe-child``), 2 pods each, flat and nap at bf16,
+   bit-equal to the one-process island, with the token bytes each sends
+   the other beside the buffer arithmetic;
 10. the decode-attention kernel against its plain version at gemma2-2b's
    decode_32k shapes: B = 8, S = 32768, Hkv = 4, g = 2, D = 256, softcap
    50, lengths ragged in [1, S] (1, 17, 4096, 4097, S and three drawn
@@ -244,12 +271,23 @@ from repro_torch.spgemm import (assert_matches_host, build_spgemm_plan,  # noqa:
                                 torch_spgemm_runs, unpack_c_values)
 from repro_torch.spgemm.plan import message_value_size  # noqa: E402
 from repro_torch.models import attention, build_model, count_params  # noqa: E402
+from repro_torch.models.moe import (_router as moe_router,  # noqa: E402
+                                    moe_apply_local, moe_init)
+from repro_torch.moe import (build_dispatch_plans, codec_sweep,  # noqa: E402
+                             decode_np, decode_torch, dispatch_error_budget,
+                             dispatch_partitions, dispatch_traffic, encode_np,
+                             encode_torch, routing_matrix, wire_bytes, wire_eps,
+                             wire_error_bound)
+from repro_torch.moe.dispatch import (EPInfo, dispatch_operator,  # noqa: E402
+                                      moe_apply_sharded)
 from repro_torch.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.core.spmv_torch import clear_compile_cache  # noqa: E402
 from repro_torch.mesh import (attach, default_registry, detach,  # noqa: E402
                               fetch_mesh_array, launch, mesh_env, mesh_for,
                               pick_coordinator, stage_mesh_array)
-from repro_torch.mesh.comm import live_all_to_all, node_all_to_all  # noqa: E402
+from repro_torch.mesh.comm import (inter_node_bytes,  # noqa: E402
+                                   live_all_to_all, node_all_to_all,
+                                   reset_inter_node_bytes)
 from repro_torch.mesh.scaling import measure_phase_walls  # noqa: E402
 from repro_torch.serve import (FaultPlan, SolverService, batched_cg,  # noqa: E402
                                dead_node, torn_checkpoint)
@@ -2326,7 +2364,8 @@ def nccl_one_process(op, v1, w1):
     through ``repro_torch.mesh.attach``, apply the operator again (one
     process owns every node: no collective, the one-process program) and
     run the communicator's NCCL calls on device tensors in this 1-rank
-    group: the node all-to-all against the in-device permutation, the
+    group: the node all-to-all (float32, and uint8 words as the MoE
+    island ships them) against the in-device permutation, the
     split all-to-all of the multistep direct phase against its input,
     and a stage / all-gather fetch round trip; then leave the group.
     NCCL across processes needs one card a process (not here)."""
@@ -2343,6 +2382,10 @@ def nccl_one_process(op, v1, w1):
                         generator=torch.Generator(device=DEV).manual_seed(1))
         equal = torch.equal(node_all_to_all(g, op.topo, mesh),
                             node_all_to_all(g, op.topo))
+        # the MoE island's payloads cross as uint8 words
+        words = g.view(torch.uint8)
+        equal &= torch.equal(node_all_to_all(words, op.topo, mesh),
+                             node_all_to_all(words, op.topo))
         rows = g.reshape(-1, 254)
         equal &= torch.equal(live_all_to_all(rows, [rows.shape[0]],
                                              [rows.shape[0]], mesh), rows)
@@ -2428,7 +2471,7 @@ def phase_mesh(a, seed, keep):
         raise AssertionError("the NCCL process's apply did not launch the ELL kernel")
     ell["forward"] += nccl["ell"]
     print(f"  one NCCL process (phase 4's plan): nap f1 bit-equal to phase 4, "
-          f"{nccl['ell']} ELL launch; NCCL's node and split all-to-alls and "
+          f"{nccl['ell']} ELL launch; NCCL's node (float32, uint8 words) and split all-to-alls and "
           f"the stage / all-gather round trip bit-equal on device tensors in "
           f"the 1-rank group ({nccl['stats']}; NCCL across processes needs "
           f"one card a process: not run here)")
@@ -2469,6 +2512,402 @@ def phase_mesh(a, seed, keep):
           f"inside one; Blue Waters is the paper's Cray model)")
     print(f"  phase 9e {time.perf_counter() - t0:.1f} s")
     return ell
+
+
+# MoE token dispatch (phase 9f) ----------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_TOPO = (4, 8)            # 4 pods of 8 GPUs, 32 ranks batched on the card
+MOE_BATCH = (16, 512)        # 4 prompts of 512 tokens per pod: a prefill batch
+MOE_MODES = ("flat", "nap", "auto")
+MOE_WIRES = ("f32", "bf16", "fp8_e4m3")
+MOE_EP = EPInfo(inner_axis="model", pod_axis="pod")
+#: NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate
+BF16_FLOPS = 989e12
+#: what each process of the two-process island runs (bf16 wire)
+MOE_PROC_MODES = ("flat", "nap")
+
+
+def moe_inputs(cfg, seed):
+    """The weights (bf16, from the seed, on the card) and the prefill
+    batch [16, 512, 4096]: the children of 9f draw them again alike."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    p = moe_init(gen, cfg, torch.bfloat16)
+    x = torch.randn(MOE_BATCH + (cfg.d_model,), generator=gen, device=DEV)
+    return p, x.to(torch.bfloat16)
+
+
+def words_of(t):
+    """The wire words of an encoded tensor, as numpy."""
+    return t.view(torch.uint8 if t.element_size() == 1 else torch.int16) \
+        .cpu().numpy().view(np.uint8 if t.element_size() == 1 else np.uint16)
+
+
+def moe_codecs():
+    """(a) The CUDA codecs against the numpy copy over the whole sweep."""
+    sweep = codec_sweep()
+    n, nan_words = 0, {}
+    for wd in ("bf16", "fp8_e4m3"):
+        cases = [(name, x, torch.float32) for name, x in sweep.items()]
+        if wd == "fp8_e4m3":   # the dispatch encodes bf16 tokens
+            cases.append(("bf16_values as bf16", sweep["bf16_values"], torch.bfloat16))
+        for name, x, dtype in cases:
+            with np.errstate(over="ignore"):
+                x32 = x.astype(np.float32)
+            t = torch.from_numpy(x32).to(DEV).to(dtype)
+            q = encode_torch(t, wd)
+            got, want = words_of(q), encode_np(x32, wd)
+            nan = np.isnan(x32)
+            bad = np.flatnonzero(got[~nan] != want[~nan])
+            if bad.size:
+                raise AssertionError(f"{wd} {name}: {bad.size} words differ, first "
+                                     f"x={x32[~nan][bad[0]]!r} card "
+                                     f"{got[~nan][bad[0]]:#x} numpy {want[~nan][bad[0]]:#x}")
+            if nan.any():
+                if not np.isnan(decode_np(got[nan], wd)).all():
+                    raise AssertionError(f"{wd} {name}: a NaN input gave a number")
+                nan_words.setdefault(wd, set()).update(
+                    f"{w:#x}" for w in np.unique(got[nan]))
+            back = decode_torch(q, wd).cpu().numpy()
+            if not np.array_equal(back[~nan], decode_np(want, wd, np.float32)[~nan]):
+                raise AssertionError(f"{wd} {name}: decode differs")
+            n += int((~nan).sum())
+    print(f"  (a) codecs: encode_torch / decode_torch on the card equal the numpy "
+          f"copy word for word on {n} non-NaN inputs (every bf16 value and "
+          f"midpoint, every fp8 value, midpoint and subnormal step, +-inf, "
+          f"+-449 to +-1e30, seeded draws; bf16 tokens to fp8); NaN inputs give "
+          f"NaN words, on the card {nan_words} (numpy: sign | 0x7fc0 / 0x7f)")
+    probe = [448.0, 449.0, 464.0, 479.0, 480.0, 1e30, float("inf"), -449.0,
+             -480.0, -1e30, float("-inf"), float("nan")]
+    for dtype in (torch.float32, torch.bfloat16):
+        raw = torch.tensor(probe, device=DEV).to(dtype).to(torch.float8_e4m3fn)
+        print(f"  raw {str(dtype)[6:]}.to(float8_e4m3fn) on the card, no clip: "
+              + ", ".join(f"{v:g} -> {w:#04x} ({raw.float()[i].item():g})"
+                          for i, (v, w) in enumerate(zip(probe, words_of(raw)))))
+
+
+def moe_island(p, cfg, x, topo, **kw):
+    """The island's float32 sums (not cast to the model's bf16: a quantized
+    wire is compared with the f32 wire before that rounding)."""
+    return moe_apply_sharded(p, cfg, x, MOE_EP, topo, out_dtype=torch.float32, **kw)
+
+
+def moe_route_flips(p, cfg, x, chunk):
+    """Tokens whose top-k expert set differs when the router's matmul runs
+    over 256 tokens at a time instead of ``chunk``."""
+    x2 = x.reshape(-1, cfg.d_model)
+    sets = []
+    for step in (chunk, 256):
+        ids = torch.cat([moe_router(p, cfg, c)[1] for c in x2.split(step)])
+        sets.append(ids.sort(-1).values)
+    return int((sets[0] != sets[1]).any(-1).sum())
+
+
+def moe_f32(p, x, cfg, topo):
+    """(b) Float32 at full width against the dense oracle, no drops."""
+    t0 = time.perf_counter()
+    p32 = {k: v.float() for k, v in p.items()}
+    x32 = x.float()
+    cfg32 = cfg.replace(dtype="float32", wire_dtype="f32")
+    cf = cfg.capacity_factor
+    while True:
+        drops = {}
+        for mode in ("flat", "nap"):
+            st = {}
+            moe_island(p32, cfg32.replace(moe_dispatch=mode, capacity_factor=cf),
+                       x32, topo, stats=st)
+            drops[mode] = st["dropped"]
+        if not any(v for d in drops.values() for v in d.values()):
+            break
+        print(f"  (b) capacity factor {cf}: drops {drops}; doubled")
+        cf *= 2
+    # the oracle routes each pod's tokens in one matmul of the island's
+    # shape: a top-k near-tie can flip between matmuls of other shapes
+    tokens_per_pod = MOE_BATCH[0] // topo.n_nodes * MOE_BATCH[1]
+    flips = moe_route_flips(p32, cfg32, x32, tokens_per_pod)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = moe_apply_local(p32, cfg32, x32, chunk=tokens_per_pod)
+    torch.cuda.synchronize()
+    t_oracle = time.perf_counter() - t1
+    scale = float(want.abs().max())
+    for mode in MOE_MODES:
+        st = {}
+        got = moe_island(p32, cfg32.replace(moe_dispatch=mode, capacity_factor=cf),
+                         x32, topo, stats=st)
+        rel = float((got - want).abs().max()) / scale
+        if not (rel <= 1e-4 and torch.isfinite(got).all()):
+            raise AssertionError(f"(b) {mode} f32: {rel:.3e} of max |oracle| > 1e-4")
+        print(f"  (b) f32 {mode} (resolved {st['mode']}), capacity factor {cf}: "
+              f"max abs err / max |moe_apply_local| {rel:.3e} (gate 1e-4), "
+              f"dropped {st['dropped']}, capacities {st['capacities']}")
+    print(f"  (b) weights upcast to float32 ({sum(v.numel() for v in p32.values()) * 4 / 1e9:.3f} GB); "
+          f"oracle (dense-masked, chunks of one pod's {tokens_per_pod} tokens) "
+          f"{t_oracle:.2f} s; routed in chunks of 256 tokens instead, {flips} "
+          f"tokens pick another expert set (near-ties); (b) "
+          f"{time.perf_counter() - t0:.1f} s")
+    del p32, x32, want, got
+    free()
+    return cf
+
+
+def moe_arithmetic(cfg, topo, mode, wd, tokens_per_pod):
+    """Padded inter-pod token bytes of one apply from the buffer shapes."""
+    n_out, n_in = topo.n_nodes, topo.ppn
+    tc, k = tokens_per_pod // n_in, cfg.top_k
+    width = 2 if wd == "f32" else wire_bytes(wd)          # bf16 model tokens
+    if mode == "flat":
+        cap = max(1, int(tc * k * cfg.capacity_factor / topo.n_procs))
+        return topo.n_procs * (topo.n_procs - n_in) * cap * cfg.d_model * width
+    return topo.n_procs * (n_out - 1) * tc * cfg.d_model * width
+
+
+def moe_modeled(p, cfg, x, topo):
+    """The plans of the island's own routing (per pod, as the island
+    routes), for ``dispatch_traffic``."""
+    n_pods = topo.n_nodes
+    ids = []
+    for xp in x.chunk(n_pods):
+        w, i = moe_router(p, cfg, xp.reshape(-1, cfg.d_model))
+        ids.append(i.cpu().numpy())
+    ids = np.concatenate(ids)
+    r = routing_matrix(ids, np.ones(ids.shape), cfg.n_experts)
+    ep, tp = dispatch_partitions(cfg.n_experts, r.shape[1], topo)
+    return build_dispatch_plans(r, ep, tp, topo)
+
+
+def moe_bf16(p, x, cfg, topo):
+    """(c) bf16 at the config's capacity factor: every mode x wire."""
+    t0 = time.perf_counter()
+    tokens_per_pod = MOE_BATCH[0] // topo.n_nodes * MOE_BATCH[1]
+    plans = moe_modeled(p, cfg, x, topo)
+    flops = 0
+    results, rows = {}, {}
+    for mode in MOE_MODES:
+        for wd in MOE_WIRES:
+            c = cfg.replace(moe_dispatch=mode, wire_dtype=wd)
+            st = {}
+            reset_inter_node_bytes()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            y = moe_island(p, c, x, topo, stats=st)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            counted = inter_node_bytes()
+            ms = time_ms(lambda: moe_island(p, c, x, topo), reps=10, warmup=1)
+            resolved = st["mode"]
+            axis = "nodexproc" if resolved == "flat" else "node"
+            tokens = counted[f"{axis}:tokens"]
+            want = moe_arithmetic(c, topo, resolved, wd, tokens_per_pod)
+            if tokens != want:
+                raise AssertionError(f"(c) {mode} {wd}: counted {tokens} token bytes, "
+                                     f"the buffers hold {want}")
+            modeled = dispatch_traffic(plans[resolved], wire_dtype=wd,
+                                       nv=cfg.d_model)["injected_inter_bytes"]
+            if not torch.isfinite(y).all():
+                raise AssertionError(f"(c) {mode} {wd}: non-finite output")
+            results[(mode, wd)] = y
+            results[(mode, wd, "ms")] = ms
+            if wd == "f32":
+                err = ""
+            else:
+                ref = results[(mode, "f32")]
+                rel = float((y - ref).abs().max()) / float(ref.abs().max())
+                bound = wire_error_bound(c)
+                if not rel <= bound:
+                    raise AssertionError(f"(c) {mode} {wd}: {rel:.3e} > {bound:.3e}")
+                err = f"; vs the f32 wire {rel:.3e} of max |out| (budget {bound:.4e})"
+            if wd == "bf16" and mode != "auto":
+                profile_program(f"(c) {mode} bf16", lambda: moe_island(p, c, x, topo), ms)
+            caps = st["capacities"]
+            e_flops = 2 * 3 * cfg.n_experts * caps["expert"] * cfg.d_model * cfg.moe_dff
+            flops = max(flops, e_flops)
+            rows[(mode, wd)] = dict(ms=ms, tokens=tokens, counted=counted)
+            print(f"  (c) {mode:>4} -> {resolved:>4}, wire {wd:>8}: {ms:.4f} ms (events, "
+                  f"median of 10), peak {peak:.3f} GB, dropped {st['dropped']} "
+                  f"(capacities {caps}); inter-pod bytes counted: tokens {tokens} "
+                  f"(buffers {want}), meta {counted[f'{axis}:meta']}, combine "
+                  f"{counted[f'{axis}:combine']}; dispatch_traffic of this routing "
+                  f"{modeled}{err}")
+    for wd in MOE_WIRES:
+        if not rows[("nap", wd)]["tokens"] < rows[("flat", wd)]["tokens"]:
+            raise AssertionError(f"(c) nap does not send fewer inter-pod bytes at {wd}")
+    for mode in MOE_MODES:
+        if not rows[(mode, "fp8_e4m3")]["tokens"] < rows[(mode, "bf16")]["tokens"]:
+            raise AssertionError(f"(c) fp8 does not shrink {mode}'s inter-pod bytes")
+    print(f"  (c) expert FLOPs over the padded buffers {flops / 1e12:.3f} TFLOP an apply: "
+          f"{flops / BF16_FLOPS * 1e3:.4f} ms at the dense bf16 peak; nap < flat and "
+          f"fp8 < bf16 in counted inter-pod bytes; (c) {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def moe_operator(cfg, topo):
+    """(d) The dispatch operator on the host at the same geometry."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    n_tok, nv = MOE_BATCH[0] * MOE_BATCH[1], 4
+    X = rng.standard_normal((n_tok, nv))
+    Y = rng.standard_normal((cfg.n_experts, nv))
+    exact, stats = {}, {}
+    for mode in MOE_MODES:
+        for wd in MOE_WIRES:
+            op = dispatch_operator(cfg.replace(moe_dispatch=mode, wire_dtype=wd),
+                                   topo=topo, n_tokens=n_tok, seed=0)
+            w, z = op @ X, op.T @ Y
+            r = op.a
+            if wd == "f32":
+                exact[mode] = (w, z)
+                if mode != "flat":
+                    np.testing.assert_allclose(w, exact["flat"][0], rtol=1e-12, atol=1e-13)
+                    np.testing.assert_allclose(z, exact["flat"][1], rtol=1e-12, atol=1e-13)
+            else:
+                u, dd = wire_eps(wd)
+                ra = sp.csr_matrix((np.abs(r.data), r.indices, r.indptr), shape=r.shape)
+                fwd = dispatch_error_budget(r, X, wd, hops=1)
+                bwd = u * (ra.T @ np.abs(Y)) + dd * (ra.T @ np.ones_like(Y)) + 1e-12
+                if not (np.abs(w - exact[mode][0]) <= fwd).all() \
+                        or not (np.abs(z - exact[mode][1]) <= bwd).all():
+                    raise AssertionError(f"(d) {mode} {wd}: outside the wire budget")
+            stats[(mode, wd)] = op.stats()
+    for wd in MOE_WIRES:
+        f, n = (stats[(m, wd)]["dispatch_injected_inter_bytes"] for m in ("flat", "nap"))
+        if not n < f:
+            raise AssertionError(f"(d) nap models no fewer inter-pod bytes at {wd}")
+    op = dispatch_operator(cfg.replace(moe_dispatch="nap", wire_dtype="fp8_e4m3"),
+                           topo=topo, n_tokens=n_tok, seed=0, integrity="detect")
+    op @ X
+    # a real inter-pod message: node 1 proc 0's first, to node `dst`
+    dst = op.executor.plan.inter_sends[topo.ppn][0].dst // topo.ppn
+    op.inject_fault("inter", kind="bitflip", node=1, proc=0, slot=dst, element=2,
+                    bit=6)
+    try:
+        op @ X
+        raise AssertionError("(d) a flipped fp8 inter word went unseen")
+    except IntegrityError as e:
+        m = e.mismatches[0]
+        rep = op.integrity_report()
+        if (m.phase, m.node, m.slot, m.scope) != ("inter", dst, 1, "off_node") \
+                or rep["wire_mismatches"] != 1 or rep["faults_injected"] != 1:
+            raise AssertionError(f"(d) misattributed: {e.mismatches} {rep}")
+    print(f"  (d) dispatch_operator, {n_tok} tokens of a representative routing "
+          f"({r.nnz} copies), nv = {nv}, on {topo}: op @ X and op.T @ Y for every "
+          f"mode x wire (flat = nap = auto in f32 to 1e-12; quantized within "
+          f"dispatch_error_budget); modeled dispatch inter-pod bytes (nv = 1) "
+          + ", ".join(f"{m} {wd} {stats[(m, wd)]['dispatch_injected_inter_bytes']}"
+                      for m in ("flat", "nap") for wd in MOE_WIRES)
+          + f"; auto -> {stats[('auto', 'bf16')]['dispatch_resolved']} / "
+          f"{stats[('auto', 'bf16')]['combine_resolved']}; an fp8 bitflip on the "
+          f"nap inter message of node 1 proc 0 to node {dst} detected: {m} (host "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+
+def moe_child(spec_file):
+    """One process of 9f's two-process island, started by ``launch``:
+    attach over gloo, draw the inputs, run its block of pods."""
+    spec = json.loads(Path(spec_file).read_text())
+    info = attach(verbose=True)
+    pid, world = info["process_id"], info["num_processes"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_ARCH)
+    topo = Topology(*MOE_TOPO)
+    p, x = moe_inputs(cfg, spec["seed"])
+    mesh = mesh_for(topo)
+    shard = x.shape[0] // world
+    xs = x[pid * shard:(pid + 1) * shard]
+    report = {"pid": pid, "nodes": list(mesh.nodes)}
+    for mode in MOE_PROC_MODES:
+        c = cfg.replace(moe_dispatch=mode, wire_dtype="bf16")
+        before = dict(mesh.stats)
+        reset_inter_node_bytes()
+        y = moe_island(p, c, xs, mesh)
+        torch.cuda.synchronize()
+        report[mode] = {"stats": {k: v - before.get(k, 0) for k, v in mesh.stats.items()},
+                        "counted": inter_node_bytes(),
+                        "ms": time_ms(lambda: moe_island(p, c, xs, mesh), reps=3,
+                                      warmup=0)}
+        torch.save(y.cpu(), Path(spec["out"]) / f"moe_{mode}_{pid}.pt")
+        print(f"  [p{pid}] {mode}: {report[mode]['ms']:.2f} ms", flush=True)
+    (Path(spec["out"]) / f"moe_report_{pid}.json").write_text(json.dumps(report))
+    detach()
+    print(f"  [p{pid}] done", flush=True)
+
+
+def moe_processes(cfg, topo, seed, one):
+    """(e) Two gloo processes sharing the card, 2 pods each, against the
+    one-process island ``one`` (mode -> bf16-wire output)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        spec_file = Path(tmp) / "spec.json"
+        spec_file.write_text(json.dumps({"seed": seed, "out": tmp}))
+        res = launch(str(Path(__file__).resolve()), MESH_PROCS,
+                     args=["--moe-child", str(spec_file)], local_devices=MOE_TOPO[1],
+                     env={"REPRO_MESH_BACKEND": "gloo"}, timeout_s=600)
+        for pid in range(MESH_PROCS):
+            for line in res.output(pid).splitlines():
+                if line.startswith(("  [p", "[mesh.attach]")):
+                    print(line)
+        reports = [json.loads((Path(tmp) / f"moe_report_{pid}.json").read_text())
+                   for pid in range(MESH_PROCS)]
+        outs = {m: torch.cat([torch.load(Path(tmp) / f"moe_{m}_{pid}.pt")
+                              for pid in range(MESH_PROCS)]) for m in MOE_PROC_MODES}
+    tokens_per_pod = MOE_BATCH[0] // topo.n_nodes * MOE_BATCH[1]
+    for mode in MOE_PROC_MODES:
+        want = one[(mode, "bf16")].cpu()
+        if not torch.equal(outs[mode], want):
+            diff = float((outs[mode].float() - want.float()).abs().max())
+            raise AssertionError(f"(e) {mode}: two processes differ from one "
+                                 f"(max abs {diff:.3e})")
+        c = cfg.replace(moe_dispatch=mode, wire_dtype="bf16")
+        axis = "nodexproc" if mode == "flat" else "node"
+        # the token rows each process sends to the other's chips (pods)
+        if mode == "flat":
+            n = topo.n_procs // MESH_PROCS
+            cap = max(1, int(tokens_per_pod // topo.ppn * c.top_k * c.capacity_factor
+                             / topo.n_procs))
+            across = n * n * cap * c.d_model * 2
+        else:
+            across = topo.n_procs // MESH_PROCS * (topo.n_nodes // MESH_PROCS) \
+                * (tokens_per_pod // topo.ppn) * c.d_model * 2
+        for r in reports:
+            st = r[mode]["stats"]
+            if st[f"sent_bytes_{axis}:tokens"] != across:
+                raise AssertionError(f"(e) p{r['pid']} {mode}: sent "
+                                     f"{st[f'sent_bytes_{axis}:tokens']} token bytes, "
+                                     f"the buffers give {across}")
+            print(f"  (e) p{r['pid']} {mode} bf16 (nodes {r['nodes']}): {r[mode]['ms']:.2f} ms "
+                  f"(events, median of 3; one process {one[(mode, 'bf16', 'ms')]:.4f}); sent to "
+                  f"the other process: tokens {st[f'sent_bytes_{axis}:tokens']} (buffer "
+                  f"arithmetic {across}), meta {st[f'sent_bytes_{axis}:meta']}, combine "
+                  f"{st[f'sent_bytes_{axis}:combine']}, all {st[f'sent_bytes_{axis}']}; "
+                  f"staged {st['staged_bytes']}; inter-pod (own ranks, both sides "
+                  f"of the process boundary) {st[f'inter_node_bytes_{axis}']}")
+    print(f"  (e) two gloo processes, 2 pods each: flat and nap bit-equal to the "
+          f"one-process island; (e) {time.perf_counter() - t0:.1f} s")
+
+
+def phase_moe(seed):
+    """[9f] MoE token dispatch at qwen3-moe-235b-a22b's full width."""
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    topo = Topology(*MOE_TOPO)
+    print(f"[9f] moe: {MOE_ARCH} (d_model {cfg.d_model}, {cfg.n_experts} experts, "
+          f"top-{cfg.top_k}, moe_dff {cfg.moe_dff}, capacity factor "
+          f"{cfg.capacity_factor}, dispatch {cfg.moe_dispatch}, wire {cfg.wire_dtype}) "
+          f"on {topo} (one pod a node of 8 GPUs), x {MOE_BATCH + (cfg.d_model,)} bf16")
+    moe_codecs()
+    p, x = moe_inputs(cfg, seed)
+    print(f"  weights {sum(v.numel() for k, v in p.items() if k != 'router')} expert "
+          f"parameters in bf16, from the seed on the card")
+    cf = moe_f32(p, x, cfg, topo)
+    one = moe_bf16(p, x, cfg, topo)
+    keep = {k: v for k, v in one.items() if k[0] in MOE_PROC_MODES and k[1] == "bf16"}
+    del p, x, one
+    free()
+    moe_operator(cfg, topo)
+    moe_processes(cfg, topo, seed, keep)
+    del keep
+    free()
+    print(f"  phase 9f {time.perf_counter() - t0:.1f} s (f32 capacity factor {cf})")
 
 
 # gemma2-2b serving (phases 10-12) ------------------------------------------------
@@ -2716,9 +3155,14 @@ def main():
                     help="print nvcc's register and shared-memory report")
     ap.add_argument("--mesh-child", metavar="SPEC",
                     help="run one process of phase 9e (set by its launcher)")
+    ap.add_argument("--moe-child", metavar="SPEC",
+                    help="run one process of phase 9f (set by its launcher)")
     args = ap.parse_args()
     if args.mesh_child:
         mesh_child(args.mesh_child)
+        return
+    if args.moe_child:
+        moe_child(args.moe_child)
         return
     global T_START
     T_START = time.perf_counter()
@@ -2835,6 +3279,7 @@ def main():
     mesh_ell = phase_mesh(a, args.seed, keep)
     del a, a_b, keep
     free()
+    phase_moe(args.seed)
 
     # 10-12. gemma2-2b serving ---------------------------------------------------
     entries.append(phase_decode_attn(rng, gen))

@@ -65,11 +65,15 @@ from repro_torch.core.integrity import IntegrityError, MessageFault
 from repro_torch.core.partition import RowPartition, contiguous_partition
 from repro_torch.core.topology import Topology
 from repro_torch.device import DeviceLike
+from repro_torch.moe.wire import check_wire_dtype
 
 __all__ = ["operator", "NapOperator", "ComposedOperator", "IntegrityError",
            "MessageFault", "available_executors", "register_executor"]
 
 INTEGRITY_MODES = ("off", "detect", "recover")
+
+#: the backends that run the float64 simulators on the host
+HOST_BACKENDS = ("simulate", "moe")
 
 
 def operator(a, topo: Optional[Topology] = None,
@@ -80,7 +84,8 @@ def operator(a, topo: Optional[Topology] = None,
              comm: Optional[str] = None, threshold: object = "auto",
              local_compute: str = "auto", pairing: str = "aligned",
              integrity: str = "off", cache: bool = True,
-             device: DeviceLike = None) -> "NapOperator":
+             device: DeviceLike = None,
+             wire_dtype: str = "f32") -> "NapOperator":
     """Build a :class:`NapOperator` for the ``[m, n]`` matrix ``a``.
 
     ``topo`` is the (n_nodes, ppn) rank grid; None discovers it from the
@@ -102,8 +107,15 @@ def operator(a, topo: Optional[Topology] = None,
     ``local_compute`` is ``"auto"`` (the format autotuner's verdict, per
     direction), ``"ell"``, ``"bsr"`` or ``"coo"``; the transpose has no
     BSR kernel and resolves ``"bsr"`` to the ell/coo verdict.
-    ``backend`` is ``"torch"`` (the device programs) or ``"simulate"``
-    (the float64 host simulators).  ``pairing`` is the inter-node slot
+    ``backend`` is ``"torch"`` (the device programs), ``"simulate"``
+    (the float64 host simulators) or ``"moe"`` (the MoE dispatch of a
+    routing matrix, ``method`` ``"flat"``, ``"nap"`` or ``"auto"``, on
+    the host: :mod:`repro_torch.moe`).  ``wire_dtype`` is the moe
+    backend's payload encoding, ``"f32"`` (the identity), ``"bf16"`` or
+    ``"fp8_e4m3"``: payloads are quantized at every wire crossing, the
+    modeled traffic charges the narrow width and integrity checksums the
+    quantized words; the other backends never quantize and take only
+    ``"f32"``.  ``pairing`` is the inter-node slot
     rule of the node-aware plans: ``"aligned"``, or the paper's
     ``"balanced"`` on the simulate backend.  ``integrity`` is ``"off"``,
     ``"detect"`` or ``"recover"`` (module docstring); the chooser then
@@ -138,6 +150,12 @@ def operator(a, topo: Optional[Topology] = None,
     if integrity not in INTEGRITY_MODES:
         raise ValueError(f"integrity must be one of {INTEGRITY_MODES}, "
                          f"got {integrity!r}")
+    check_wire_dtype(wire_dtype)
+    if wire_dtype != "f32" and backend != "moe":
+        raise ValueError(
+            f"wire_dtype={wire_dtype!r} is a moe-backend feature (the "
+            f"quantized dispatch wire); backend={backend!r} programs "
+            f"never quantize: pass wire_dtype='f32'")
     comm_report, t_method, plans = None, None, {}
     if comm is not None:
         if comm not in COMM_CHOICES:
@@ -164,7 +182,8 @@ def operator(a, topo: Optional[Topology] = None,
                         local_compute=local_compute,
                         device=None if device is None else str(device),
                         threshold=threshold, pairing=pairing,
-                        integrity=integrity, cache=cache)
+                        integrity=integrity, cache=cache,
+                        wire_dtype=wire_dtype)
     exec_ = bind_executor(backend, method, a, row_part, col_part, topo, spec,
                           plan=plans.get(method))
     t_exec = None
@@ -181,7 +200,7 @@ def operator(a, topo: Optional[Topology] = None,
 def _check_precision(precision: Optional[str], backend: str) -> None:
     if precision not in (None, "float32", "float64"):
         raise ValueError(f"precision must be float32|float64, got {precision!r}")
-    if precision == "float64" and backend != "simulate":
+    if precision == "float64" and backend not in HOST_BACKENDS:
         raise NotImplementedError(
             f"backend={backend!r} computes in float32; use "
             f"backend='simulate' for float64 results")

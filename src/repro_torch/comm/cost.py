@@ -70,10 +70,15 @@ def _split_pair(plan: StandardPlan):
 
 def planned_traffic(plan, bytes_per_val: int = 4, nv: int = 1,
                     direction: str = "forward",
-                    integrity: str = "off") -> Dict:
+                    integrity: str = "off", wire_dtype: str = "f32") -> Dict:
     """Phase-by-phase injected traffic of a Standard / NAP / Multistep plan.
 
-    Returns ``{"strategy", "direction", "bytes_per_val", "phases":
+    ``wire_dtype`` (``"f32"``, ``"bf16"`` or ``"fp8_e4m3"``) charges the
+    quantized payload width of :mod:`repro_torch.moe.wire` in place of
+    ``bytes_per_val``; the checksum side channel stays one u32 per slot,
+    since checksums are taken over the quantized words.
+
+    Returns ``{"strategy", "direction", "wire_dtype", "bytes_per_val", "phases":
     {name: entry}, "injected_inter_bytes", "effective_inter_bytes",
     "injected_intra_bytes", "effective_intra_bytes"}``; each phase entry
     carries padded and effective totals, per-rank maxima for the
@@ -82,6 +87,9 @@ def planned_traffic(plan, bytes_per_val: int = 4, nv: int = 1,
     """
     if direction not in ("forward", "transpose"):
         raise ValueError(f"unknown direction {direction!r}")
+    if wire_dtype != "f32":
+        from repro_torch.moe.wire import wire_bytes
+        bytes_per_val = wire_bytes(wire_dtype)
     phases: Dict[str, Dict] = {}
 
     topo = plan.topology
@@ -122,6 +130,7 @@ def planned_traffic(plan, bytes_per_val: int = 4, nv: int = 1,
     return {
         "strategy": strategy,
         "direction": direction,
+        "wire_dtype": wire_dtype,
         "bytes_per_val": int(bytes_per_val),
         "phases": phases,
         "injected_inter_bytes": total("padded_bytes", True)

@@ -1,8 +1,11 @@
 """Architecture registry of the port: ``get_config(name)``, ``get_reduced``.
 
-The port carries the dense GQA configs (the families its ``LM`` runs).
-Every other architecture of the JAX package resolves by name and raises
-``NotImplementedError`` naming the ROADMAP item that ports its family.
+The port carries the dense GQA configs (the families its ``LM`` runs) and
+qwen3-moe-235b-a22b, whose MoE layer runs through :mod:`repro_torch.moe`
+(its ``build_model`` still raises: the LM with MoE blocks is ROADMAP
+Queue 1 item 7d).  Every other architecture of the JAX package resolves
+by name and raises ``NotImplementedError`` naming the ROADMAP item that
+ports its family.
 """
 from __future__ import annotations
 
@@ -22,14 +25,13 @@ ALIASES: Dict[str, str] = {
 }
 
 PORTED = ("gemma2_2b", "gemma2_9b", "gemma2_27b", "llama3_405b",
-          "chameleon_34b")
+          "chameleon_34b", "qwen3_moe_235b_a22b")
 
 WAITING: Dict[str, str] = {
-    "qwen3_moe_235b_a22b": "the MoE family (ROADMAP Queue 1 item 17d)",
-    "deepseek_v2_236b": "MoE with MLA attention (ROADMAP Queue 1 item 17d)",
-    "whisper_small": "the encoder-decoder family (ROADMAP Queue 1 item 17e)",
-    "zamba2_2p7b": "the hybrid SSM family (ROADMAP Queue 1 item 17f)",
-    "rwkv6_3b": "the RWKV SSM family (ROADMAP Queue 1 item 17g)",
+    "deepseek_v2_236b": "MoE with MLA attention (ROADMAP Queue 1 item 7d)",
+    "whisper_small": "the encoder-decoder family (ROADMAP Queue 1 item 7e)",
+    "zamba2_2p7b": "the hybrid SSM family (ROADMAP Queue 1 item 7f)",
+    "rwkv6_3b": "the RWKV SSM family (ROADMAP Queue 1 item 7g)",
 }
 
 

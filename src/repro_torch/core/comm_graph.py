@@ -106,11 +106,12 @@ def _offproc_pairs(indptr: np.ndarray, indices: np.ndarray,
 
 def check_pairing(pairing: str, backend: str = "torch") -> None:
     """The device programs need ``"aligned"`` slot pairing (the exchange
-    over the node axis); the simulate backend takes both pairings."""
+    over the node axis); the host simulators (the simulate and moe
+    backends) take both pairings."""
     if pairing not in ("aligned", "balanced"):
         raise ValueError(f"unknown pairing {pairing!r}; one of "
                          f"'aligned', 'balanced'")
-    if pairing == "balanced" and backend != "simulate":
+    if pairing == "balanced" and backend not in ("simulate", "moe"):
         raise ValueError(
             f"backend={backend!r} runs pairing='aligned' only (its "
             f"inter-node exchange pairs slots over the node axis); "

@@ -25,7 +25,10 @@ and
 
 * ``("simulate", "nap" | "standard" | "multistep")`` — the exact float64
   message-passing simulators on the host (:mod:`repro_torch.core.spmv`,
-  :mod:`repro_torch.comm.simulate`), the correctness oracles.
+  :mod:`repro_torch.comm.simulate`), the correctness oracles;
+* ``("moe", "flat" | "nap" | "auto")`` — the MoE dispatch over a routing
+  matrix (:mod:`repro_torch.moe`): the same simulators with the payloads
+  quantized to ``spec.wire_dtype`` on the wire, on the host.
 
 ``integrity="detect"`` runs the instrumented programs (wire checksums
 over every message, ABFT over every rank's local compute) and raises
@@ -69,6 +72,8 @@ class OperatorSpec:
     pairing: str = "aligned"        # "balanced" on the simulate backend only
     integrity: str = "off"          # "off" | "detect" | "recover"
     cache: bool = True              # compile through the plan compile cache
+    # payload encoding of the moe backend's wire: "f32" | "bf16" | "fp8_e4m3"
+    wire_dtype: str = "f32"
 
 
 _REGISTRY: Dict[Tuple[str, str], Callable] = {}
@@ -555,3 +560,201 @@ class StandardSimulateExecutor(_SimulateExecutor):
 
     def cost(self, machine: MachineParams) -> Dict[str, float]:
         return standard_cost(self.plan, machine)
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch backend: a routing matrix over the simulate mailboxes, with
+# quantized wire payloads (repro_torch.moe)
+# ---------------------------------------------------------------------------
+
+class _MoeDispatchExecutor(_SimulateExecutor):
+    """The moe-dispatch executors over the numpy mailboxes.
+
+    Beside the plain simulate backend:
+
+    * every forward apply threads the wire of
+      :func:`repro_torch.moe.wire.make_wire`: a narrow ``spec.wire_dtype``
+      quantizes each payload at its send and accumulates it in float64
+      on receive; ``"f32"`` without integrity threads none (bit-equal to
+      the plain simulators);
+    * the transpose (the weighted combine) quantizes its operand once
+      before the reverse route: one combine hop (the island's nap
+      combine pays up to 2, which ``wire_error_bound`` budgets);
+    * integrity checksums the quantized words, and recover retries
+      through a clean quantizing wire, so the retried result still
+      carries the wire's rounding;
+    * ``stats()`` adds the dispatch and combine injected bytes at the
+      wire width.
+
+    They run on the host and ignore ``spec.device``.
+    """
+
+    backend = "moe"
+
+    def _wire(self, faults=()):
+        from repro_torch.moe.wire import make_wire
+        return make_wire(self.topo, self.spec.wire_dtype, faults,
+                         force=self._integrity is not None)
+
+    def forward(self, v, materialize_x: bool = False) -> np.ndarray:
+        if self._integrity is None:
+            wire = self._wire()
+            return self._columnwise(lambda col: self._forward(col, wire=wire),
+                                    v, self.a.shape[1])
+        return self._forward_verified(v)
+
+    def _forward_verified(self, v) -> np.ndarray:
+        st = self._integrity
+        st.counters["applies"] += 1
+        wire = self._wire(st.take_pending("forward"))
+        out = self._columnwise(lambda col: self._forward(col, wire=wire), v,
+                               self.a.shape[1])
+        mism = st.note_sim(wire)
+        if not mism:
+            return out
+        if st.mode == "detect":
+            raise _mismatch_error(f"{len(mism)} integrity mismatch(es) on "
+                                  f"forward apply", mism)
+        st.counters["retries"] += 1
+        clean = self._wire()
+        out = self._columnwise(lambda col: self._forward(col, wire=clean), v,
+                               self.a.shape[1])
+        st.counters["recovered"] += 1
+        return out
+
+    def transpose(self, u) -> np.ndarray:
+        from repro_torch.moe.wire import quantize_np
+        u = np.asarray(check_operand(self.a.shape[0], u), dtype=np.float64)
+        return super().transpose(quantize_np(u, self.spec.wire_dtype))
+
+    def stats(self) -> Dict[str, object]:
+        from repro_torch.moe.plan import dispatch_traffic
+        out = {f"messages_{k}": v for k, v in self._plan_stats().items()}
+        for direction, name in (("forward", "dispatch"),
+                                ("transpose", "combine")):
+            t = dispatch_traffic(self.plan, wire_dtype=self.spec.wire_dtype,
+                                 nv=1, direction=direction,
+                                 integrity=self.spec.integrity)
+            out[f"{name}_injected_inter_bytes"] = t["injected_inter_bytes"]
+            out[f"{name}_injected_intra_bytes"] = t["injected_intra_bytes"]
+            out["bytes_per_val"] = t["bytes_per_val"]
+        out["wire_dtype"] = self.spec.wire_dtype
+        return out
+
+    def autotune_report(self) -> Dict[str, object]:
+        rep = super().autotune_report()
+        rep.update(wire_dtype=self.spec.wire_dtype,
+                   dispatch_resolved=type(self).method,
+                   combine_resolved=type(self).method)
+        return rep
+
+
+@register_executor("moe", "flat")
+class FlatMoeDispatchExecutor(_MoeDispatchExecutor, StandardSimulateExecutor):
+    """Algorithm-1 analogue: every (token, owning-chip) payload crosses
+    the flat pairwise exchange directly."""
+
+    method = "flat"
+
+    def _plan_stats(self):
+        return standard_stats(self.plan)
+
+
+@register_executor("moe", "nap")
+class NapMoeDispatchExecutor(_MoeDispatchExecutor, NapSimulateExecutor):
+    """The three-step node-aware dispatch: a token bound for several
+    experts of one remote pod crosses the pod boundary once (intra
+    gather, one aggregated inter-pod exchange, intra scatter); the
+    combine reverses every message."""
+
+    method = "nap"
+
+    def _plan_stats(self):
+        return nap_stats(self.plan)
+
+
+@register_executor("moe", "auto")
+class AutoMoeDispatchExecutor:
+    """Per-direction flat-vs-nap resolution of the MoE dispatch.
+
+    Scores :func:`repro_torch.moe.plan.choose_dispatch` over the routing
+    once, then delegates: ``forward`` runs the chosen dispatch executor,
+    ``transpose`` the chosen combine executor (they may differ, as with
+    ``comm="auto"``).  The candidate plans are built once and shared.
+    """
+
+    backend = "moe"
+    method = "auto"
+    local_compute = "numpy"
+    transpose_local_compute = "numpy"
+
+    def __init__(self, a, row_part: RowPartition, col_part: RowPartition,
+                 topo: Topology, spec: OperatorSpec, plan=None):
+        from repro_torch.moe.plan import build_dispatch_plans, choose_dispatch
+        self.a, self.topo, self.spec = a, topo, spec
+        self.row_part, self.col_part = row_part, col_part
+        plans = build_dispatch_plans(a, row_part, col_part, topo,
+                                     pairing=spec.pairing)
+        verdict = choose_dispatch(a, row_part, col_part, topo,
+                                  wire_dtype=spec.wire_dtype,
+                                  integrity=spec.integrity, plans=plans)
+        self.dispatch_report = {"dispatch": verdict["dispatch"],
+                                "combine": verdict["combine"]}
+
+        def sub(method: str):
+            return _REGISTRY[("moe", method)](
+                a, row_part, col_part, topo,
+                dataclasses.replace(spec, method=method), plan=plans[method])
+
+        fwd_m = verdict["dispatch"]["chosen"]
+        bwd_m = verdict["combine"]["chosen"]
+        self._fwd = sub(fwd_m)
+        self._bwd = self._fwd if bwd_m == fwd_m else sub(bwd_m)
+
+    def forward(self, v, materialize_x: bool = False) -> np.ndarray:
+        return self._fwd.forward(v)
+
+    def transpose(self, u) -> np.ndarray:
+        return self._bwd.transpose(u)
+
+    def queue_fault(self, fault: MessageFault) -> None:
+        target = self._bwd if fault.direction == "transpose" else self._fwd
+        target.queue_fault(fault)
+
+    def integrity_report(self) -> Dict[str, object]:
+        rep = dict(self._fwd.integrity_report())
+        if self._bwd is not self._fwd:
+            rep["combine"] = self._bwd.integrity_report()
+        return rep
+
+    def swap_values(self, a_new) -> None:
+        self._fwd.swap_values(a_new)
+        if self._bwd is not self._fwd:
+            self._bwd.swap_values(a_new)
+        self.a = a_new
+
+    def trace_counts(self) -> Dict[str, int]:
+        return {}
+
+    def stats(self) -> Dict[str, object]:
+        out = dict(self._fwd.stats())
+        if self._bwd is not self._fwd:
+            b = self._bwd.stats()
+            out["combine_injected_inter_bytes"] = \
+                b["combine_injected_inter_bytes"]
+            out["combine_injected_intra_bytes"] = \
+                b["combine_injected_intra_bytes"]
+        out["dispatch_resolved"] = type(self._fwd).method
+        out["combine_resolved"] = type(self._bwd).method
+        return out
+
+    def cost(self, machine: MachineParams) -> Dict[str, float]:
+        return self._fwd.cost(machine)
+
+    def autotune_report(self) -> Dict[str, object]:
+        return {"resolved": "numpy", "transpose_resolved": "numpy",
+                "requested": "auto",
+                "wire_dtype": self.spec.wire_dtype,
+                "dispatch_resolved": type(self._fwd).method,
+                "combine_resolved": type(self._bwd).method,
+                "moe_dispatch": self.dispatch_report}

@@ -94,9 +94,11 @@ class ProcessMesh:
 
     ``stats`` counts what the communicator (:mod:`repro_torch.mesh.comm`)
     moved: bytes this process sent to OTHER processes per mesh axis
-    (``sent_bytes_node``, ``sent_bytes_nodexproc``), bytes it staged
-    through pinned host buffers (``staged_bytes``, both directions) and
-    its collectives."""
+    (``sent_bytes_node``, ``sent_bytes_nodexproc``), bytes its ranks sent
+    to ranks of other NODES per axis (``inter_node_bytes_node``,
+    ``inter_node_bytes_nodexproc``, within the process too), bytes it
+    staged through pinned host buffers (``staged_bytes``, both
+    directions) and its collectives."""
 
     topo: Topology
     world: int
@@ -105,6 +107,7 @@ class ProcessMesh:
     group: object = None
     stats: Dict[str, int] = dataclasses.field(default_factory=lambda: {
         "sent_bytes_node": 0, "sent_bytes_nodexproc": 0,
+        "inter_node_bytes_node": 0, "inter_node_bytes_nodexproc": 0,
         "staged_bytes": 0, "collectives": 0})
     _pinned: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)

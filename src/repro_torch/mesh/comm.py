@@ -20,10 +20,21 @@ On gloo, CUDA tensors are staged through pinned host buffers in both
 directions (gloo is never handed a CUDA tensor); NCCL takes the device
 tensors.  Every cross-process call adds to the mesh's ``stats``: the
 bytes sent to OTHER processes per axis, the bytes staged, the calls.
+
+The tiled all-to-alls also count, in one process too, the bytes whose
+source and destination NODE differ (the expensive hop; a node is a pod
+for the MoE dispatch), at the width the payload crosses:
+:data:`INTER_NODE_BYTES` per axis (``"node"``, ``"nodexproc"``) and, when
+the caller names its payload, per ``"axis:label"``; with a mesh also
+``stats["inter_node_bytes_<axis>"]``.  The ``node`` all-to-all always
+counts; the ``("node", "proc")`` one counts when it knows the topology
+(``topo=`` or a mesh).  Each process counts the messages its own ranks
+send.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import collections
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -31,7 +42,37 @@ from repro_torch.core.topology import Topology
 from repro_torch.mesh.buffers import ProcessMesh, _dist
 
 __all__ = ["proc_all_to_all", "node_all_to_all", "rank_all_to_all",
-           "live_all_to_all", "exchange"]
+           "live_all_to_all", "exchange", "INTER_NODE_BYTES",
+           "inter_node_bytes", "reset_inter_node_bytes"]
+
+#: bytes sent between different nodes by this process's ranks, per axis
+#: and per "axis:label" (see the module docstring)
+INTER_NODE_BYTES: Dict[str, int] = collections.Counter()
+
+
+def inter_node_bytes() -> Dict[str, int]:
+    """A copy of :data:`INTER_NODE_BYTES`."""
+    return dict(INTER_NODE_BYTES)
+
+
+def reset_inter_node_bytes() -> None:
+    INTER_NODE_BYTES.clear()
+
+
+def _count_inter(axis: str, nbytes: int, mesh: Optional[ProcessMesh],
+                 label: Optional[str]) -> None:
+    INTER_NODE_BYTES[axis] += nbytes
+    if label:
+        INTER_NODE_BYTES[f"{axis}:{label}"] += nbytes
+    if mesh is not None:
+        mesh.stats[f"inter_node_bytes_{axis}"] += nbytes
+
+
+def _nbytes(t: torch.Tensor, dims) -> int:
+    n = t.element_size()
+    for d in dims:
+        n *= d
+    return n
 
 
 def proc_all_to_all(buf: torch.Tensor, ppn: int) -> torch.Tensor:
@@ -44,9 +85,12 @@ def proc_all_to_all(buf: torch.Tensor, ppn: int) -> torch.Tensor:
 
 
 def node_all_to_all(buf: torch.Tensor, topo: Topology,
-                    mesh: Optional[ProcessMesh] = None) -> torch.Tensor:
+                    mesh: Optional[ProcessMesh] = None,
+                    label: Optional[str] = None) -> torch.Tensor:
     """Tiled all-to-all over ``node``: ``buf [P_loc, n_nodes, pad, nv]``
     (each rank's message to every node), ``recv[m, p, n] = send[n, p, m]``.
+    Every message but a rank's own node's crosses nodes (``label`` names
+    the payload in :data:`INTER_NODE_BYTES`).
 
     One process: the axis permutation (swap axes 0 and 2 of
     ``[n_nodes, ppn, n_nodes]``).  Across processes each process sends
@@ -55,27 +99,37 @@ def node_all_to_all(buf: torch.Tensor, topo: Topology,
     source process, in node order) are permuted into place."""
     s = buf.shape
     nn, ppn = topo.n_nodes, topo.ppn
+    _count_inter("node", _nbytes(buf, (s[0], nn - 1) + tuple(s[2:])), mesh, label)
     if mesh is None:
         return buf.reshape((nn, ppn, nn) + s[2:]).permute(2, 1, 0, 3, 4).reshape(s)
     nl, rest = mesh.n_local_nodes, tuple(range(4, 4 + len(s) - 2))
     # [n_src, p, q_dst, m_dst] -> [q_dst, n_src, p, m_dst]
     send = buf.reshape((nl, ppn, mesh.world, nl) + s[2:]).permute((2, 0, 1, 3) + rest)
-    recv = _all_to_all(send, mesh, "node")
+    recv = _all_to_all(send, mesh, "node", label=label)
     # [q_src, n_src, p, m_dst] -> [m_dst, p, q_src, n_src]
     return recv.permute((3, 2, 0, 1) + rest).reshape(s)
 
 
 def rank_all_to_all(buf: torch.Tensor, mesh: Optional[ProcessMesh] = None,
-                    lead: int = 0) -> torch.Tensor:
+                    lead: int = 0, topo: Optional[Topology] = None,
+                    label: Optional[str] = None) -> torch.Tensor:
     """Tiled all-to-all over ``("node", "proc")``: ``buf`` is ``lead`` dims,
     then ``[P_loc(src), P(dst)]``, then the payload; ``recv[r, s] =
-    send[s, r]`` (ranks are node-major).
+    send[s, r]`` (ranks are node-major).  With a topology (``topo`` or
+    the mesh's) the messages between ranks of different nodes count in
+    :data:`INTER_NODE_BYTES` (``label`` names the payload).
 
     One process: swap the two rank axes.  Across processes the
     destination axis is split by owned block and the table reordered so
     that each destination process's slice is contiguous (it is not the
     leading axis, e.g. in the standard exchange's column-major
     ``[nv, P, P, pad]`` table), then one equal-split all-to-all."""
+    topo = topo if topo is not None else getattr(mesh, "topo", None)
+    if topo is not None:
+        s = buf.shape
+        _count_inter("nodexproc", _nbytes(
+            buf, tuple(s[:lead]) + (s[lead], s[lead + 1] - topo.ppn)
+            + tuple(s[lead + 2:])), mesh, label)
     if mesh is None:
         return buf.transpose(lead, lead + 1).contiguous()
     s, w, pl = buf.shape, mesh.world, mesh.n_local_procs
@@ -83,7 +137,7 @@ def rank_all_to_all(buf: torch.Tensor, mesh: Optional[ProcessMesh] = None,
     tail = tuple(range(lead + 3, x.dim()))
     # lead + [s, q_dst, r] -> [q_dst] + lead + [s, r]
     send = x.permute((lead + 1,) + tuple(range(lead)) + (lead, lead + 2) + tail)
-    recv = _all_to_all(send, mesh, "nodexproc")
+    recv = _all_to_all(send, mesh, "nodexproc", label=label)
     # [q_src] + lead + [s, r] -> lead + [r, q_src, s]
     out = recv.permute(tuple(range(1, lead + 1)) + (lead + 2, 0, lead + 1) + tail)
     return out.reshape(s)
@@ -109,17 +163,19 @@ def exchange(axis: str, buf: torch.Tensor, topo: Topology,
     if axis == "node":
         return node_all_to_all(buf, topo, mesh)
     if axis == "nodexproc":
-        return rank_all_to_all(buf, mesh)
+        return rank_all_to_all(buf, mesh, topo=topo)
     raise ValueError(f"axis must be proc, node or nodexproc, got {axis!r}")
 
 
 def _all_to_all(send: torch.Tensor, mesh: ProcessMesh, axis: str,
                 in_splits: Optional[list] = None,
-                out_splits: Optional[list] = None) -> torch.Tensor:
+                out_splits: Optional[list] = None,
+                label: Optional[str] = None) -> torch.Tensor:
     """One ``all_to_all_single`` over ``mesh.group`` along ``send``'s
     leading axis: equal splits (one per process) when no splits are
     given, else the given row counts.  Counts the bytes sent to other
-    processes under ``sent_bytes_<axis>`` and what is staged."""
+    processes under ``sent_bytes_<axis>`` (and ``sent_bytes_<axis>:<label>``
+    for a named payload) and what is staged."""
     dist = _dist()
     send = send.contiguous()
     row = send[0].numel() * send.element_size() if send.shape[0] else 0
@@ -146,5 +202,8 @@ def _all_to_all(send: torch.Tensor, mesh: ProcessMesh, axis: str,
         out = torch.empty(out_shape, dtype=send.dtype, device=send.device)
         dist.all_to_all_single(out, send, out_splits, in_splits, group=mesh.group)
     mesh.stats[f"sent_bytes_{axis}"] += (send.shape[0] - own) * row
+    if label:
+        key = f"sent_bytes_{axis}:{label}"
+        mesh.stats[key] = mesh.stats.get(key, 0) + (send.shape[0] - own) * row
     mesh.stats["collectives"] += 1
     return out

@@ -1,4 +1,5 @@
-"""Parameters of the JAX package's ``LM.init`` tree, for the port's ``LM``.
+"""Parameters of the JAX package's trees, for the port: the ``LM.init``
+tree for the port's ``LM`` and the ``moe_init`` tree for its MoE layer.
 
 The reference stacks the layers on a leading axis (``layers/attn/wq`` is
 ``[L, d, H * dh]``); the port keeps one tree per layer.  Arrays arrive as
@@ -39,3 +40,16 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     out["layers"] = [_map(lambda a: _tensor(a[i]), tree["layers"])
                      for i in range(n_layers)]
     return out
+
+
+MOE_KEYS = {"router", "w_gate", "w_up", "w_down", "shared"}
+
+
+def moe_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's ``moe_init`` tree (``router``, ``w_gate``, ``w_up``,
+    ``w_down``, optional ``shared``) -> the port's ``moe_init`` tree, the
+    same arrays as CPU tensors."""
+    unknown = set(tree) - MOE_KEYS
+    if unknown:
+        raise ValueError(f"not a moe_init tree: unexpected keys {sorted(unknown)}")
+    return _map(_tensor, dict(tree))

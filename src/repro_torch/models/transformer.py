@@ -11,7 +11,7 @@ and a Python loop over an ``nn.ModuleList`` where the reference scans.
     decode_step(cache, tokens [B,1]) -> (logits [B, 1, V] float32, cache)
 
 ``hidden``, ``loss`` and ``prefill``, and the MoE, MLA, SSM, hybrid and
-encoder-decoder families, wait for their slices (ROADMAP Queue 1 item 17).
+encoder-decoder families, wait for their slices (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -33,13 +33,14 @@ from repro_torch.models.ffn import ffn_apply, ffn_init
 def unported_reason(cfg: ModelConfig) -> Optional[str]:
     """Why the port cannot build ``cfg`` yet, or None for the dense family."""
     if cfg.is_encoder_decoder:
-        return "the encoder-decoder family (ROADMAP Queue 1 item 17e)"
+        return "the encoder-decoder family (ROADMAP Queue 1 item 7e)"
     if cfg.family == "hybrid":
-        return "the hybrid SSM family (ROADMAP Queue 1 item 17f)"
+        return "the hybrid SSM family (ROADMAP Queue 1 item 7f)"
     if cfg.family == "ssm":
-        return "the RWKV SSM family (ROADMAP Queue 1 item 17g)"
+        return "the RWKV SSM family (ROADMAP Queue 1 item 7g)"
     if cfg.is_moe or cfg.mla_kv_lora:
-        return "the MoE family and MLA attention (ROADMAP Queue 1 item 17d)"
+        return ("the LM with MoE blocks and MLA attention (ROADMAP Queue 1 "
+                "item 7d; the MoE layer itself is repro_torch.moe)")
     return None
 
 

@@ -167,9 +167,8 @@ def test_multistep_plan_matches_reference(layout, thr):
 
 
 def _same_traffic(ref, port):
-    """The reference's payload also names its wire dtype (f32 here),
-    which the port does not model yet."""
-    assert ref.pop("wire_dtype") == "f32"
+    """Both payloads name their wire dtype (f32 here)."""
+    assert ref["wire_dtype"] == port["wire_dtype"] == "f32"
     assert ref == port
 
 

@@ -708,7 +708,7 @@ def test_integrity_traffic_terms_match_reference(integrity):
         for name, plan in got["plans"].items():
             want = ref_comm.planned_traffic(ref["plans"][name], nv=nv,
                                             integrity=integrity)
-            assert want.pop("wire_dtype") == "f32"
+            assert want["wire_dtype"] == "f32"
             assert port_comm.planned_traffic(plan, nv=nv, integrity=integrity) == want
     auto = port_api.operator(a_p, t_p, rp_p, comm="auto", threshold=2,
                              integrity=integrity, device="cpu")

@@ -27,9 +27,11 @@ from repro_torch.models import ModelConfig, build_model, count_params
 from repro_torch.models.convert import params_from_jax
 
 ARCHS = ["gemma2-2b", "llama3-405b", "chameleon-34b"]
-PORTED = ARCHS + ["gemma2-9b", "gemma2-27b"]
-WAITING = ["qwen3-moe-235b-a22b", "deepseek-v2-236b", "whisper-small",
-           "zamba2-2.7b", "rwkv6-3b"]
+PORTED = ARCHS + ["gemma2-9b", "gemma2-27b", "qwen3-moe-235b-a22b"]
+# qwen3-moe's config is ported (its MoE layer is repro_torch.moe), but the
+# LM with MoE blocks is not: build_model still refuses it
+NO_MODEL = ["qwen3-moe-235b-a22b"]
+WAITING = ["deepseek-v2-236b", "whisper-small", "zamba2-2.7b", "rwkv6-3b"]
 B, PROMPT, GEN, MAX_SEQ = 2, 8, 32, 48
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -120,10 +122,11 @@ def test_configs_match_reference(arch):
         assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
 
 
-@pytest.mark.parametrize("arch", WAITING)
+@pytest.mark.parametrize("arch", NO_MODEL + WAITING)
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-        get_config(arch)
+    if arch in WAITING:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+            get_config(arch)
     cfg = ModelConfig(**dataclasses.asdict(jax_reduced(arch)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         build_model(cfg, device="cpu")
