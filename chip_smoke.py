@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the node-aware SpMV,
 the multi-step exchange, wire integrity, the float64 simulate backend,
 the distributed SpGEMM and the AMG solver path, the solver service, the
-multi-process mesh, the MoE token dispatch, and the gemma2-2b serving
-path.
+multi-process mesh, the MoE token dispatch, the hierarchical collectives
+and the gemma2-2b serving path.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -105,8 +105,9 @@ Phases, each fatal on failure:
    detect run bit-equal to off (deterministic mode; for the standard
    method that holds the instrumented program's literal padded pair
    exchange against the bare program's live slots);
-9c. the port's two examples, ``repro_torch.examples.quickstart`` and
-   ``amg_spmv``, on the card to their final checks;
+9c. the port's three examples, ``repro_torch.examples.quickstart``,
+   ``amg_spmv`` and ``moe_nap_dispatch``, on the card to their final
+   checks;
 9d. the solver service (``repro_torch.serve.SolverService``, backend
    torch, checkpoints every 4 CG iterations) on the main path's matrix
    and topology: 8 spmv requests run as ONE nv = 8 apply (the ELL
@@ -176,6 +177,33 @@ Phases, each fatal on failure:
    re-entered with ``--moe-child``), 2 pods each, flat and nap at bf16,
    bit-equal to the one-process island, with the token bytes each sends
    the other beside the buffer arithmetic;
+9g. the hierarchical collectives (``repro_torch.core.hier_collectives``)
+   on one gemma2-2b decoder layer's gradient (q, k, v, o, the gated FFN's
+   three matrices and four norms, shapes from the model's ``block_init``:
+   77,865,984 f32 values a rank, drawn from the seed on the card) over
+   Topology(4, 8), 32 ranks batched on the card (9.97 GB): (a)
+   ``nap_psum_tree`` and ``flat_psum_tree``: device ms (events, median of
+   10), the bound (input read and output written once at 3.35 TB/s),
+   peak, the inter-pod bytes counted at the communicator against the
+   buffer arithmetic (nap exactly 1/8 of flat), each within 1e-5 of max
+   |float64 sum| (numpy on the host) and of each other, nap's replicas
+   bit-equal; (b) ``nap_reduce_scatter`` then ``nap_all_gather`` on the
+   same bucket, rank (o, i) holding chunk i * 4 + o of nap_psum's result
+   bit for bit and the gather equal to it; (c) ``nap_all_to_all``
+   against ``flat_all_to_all`` with the bucket as [32, 2,433,312] a rank,
+   bit-equal, ms and counted bytes; (d) ``nap_psum_compressed`` within
+   the reference's 0.02 of max |sum|, replicas bit-equal, a second step
+   fed the residual and the two-step mean's error, int8 bytes against the
+   f32 nap's; (e) ``nap_moe_dispatch`` with the qwen3-moe router on x
+   [16, 512, 4096] bf16, 256 tokens a rank, top-8 experts on chip
+   expert // 4, capacity 256: every (token, chip) pair delivered once
+   with its payload bit-exact or dropped at a full buffer, ms, padded vs
+   live inter-pod bytes; (f) two gloo processes sharing the card (this
+   script re-entered with ``--coll-child``) on Topology(2, 4), one pod a
+   process, the same layer's bucket: the psums, the int8 psum and the
+   all-to-all bit-equal to one process (sha256 of every rank's block),
+   the bytes each process sends the other against the blocks' arithmetic,
+   and the walls;
 10. the decode-attention kernel against its plain version at gemma2-2b's
    decode_32k shapes: B = 8, S = 32768, Hkv = 4, g = 2, D = 256, softcap
    50, lengths ragged in [1, S] (1, 17, 4096, 4097, S and three drawn
@@ -219,6 +247,7 @@ import argparse
 import gc
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -262,7 +291,7 @@ from repro_torch.kernels.ell_spmv import (ell_spmm_packed,  # noqa: E402
                                           ell_spmm_packed_ref)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.amg.matmul import csr_matmul  # noqa: E402
-from repro_torch.examples import amg_spmv, quickstart  # noqa: E402
+from repro_torch.examples import amg_spmv, moe_nap_dispatch, quickstart  # noqa: E402
 import repro_torch.spgemm.spgemm_torch as spgemm_torch  # noqa: E402
 from repro_torch.spgemm import (assert_matches_host, build_spgemm_plan,  # noqa: E402
                                 clear_spgemm_cache, compile_spgemm,
@@ -270,7 +299,14 @@ from repro_torch.spgemm import (assert_matches_host, build_spgemm_plan,  # noqa:
                                 pack_b_values, spgemm_program,
                                 torch_spgemm_runs, unpack_c_values)
 from repro_torch.spgemm.plan import message_value_size  # noqa: E402
+from repro_torch.core.hier_collectives import (flat_all_to_all,  # noqa: E402
+                                               flat_psum_tree, nap_all_gather,
+                                               nap_all_to_all, nap_moe_dispatch,
+                                               nap_psum_compressed, nap_psum_tree,
+                                               nap_reduce_scatter)
 from repro_torch.models import attention, build_model, count_params  # noqa: E402
+from repro_torch.models.common import dense_init  # noqa: E402
+from repro_torch.models.transformer import block_init  # noqa: E402
 from repro_torch.models.moe import (_router as moe_router,  # noqa: E402
                                     moe_apply_local, moe_init)
 from repro_torch.moe import (build_dispatch_plans, codec_sweep,  # noqa: E402
@@ -1870,9 +1906,10 @@ def phase_spgemm_small(a_b, topo, seed):
 
 
 def phase_examples():
-    """[9c] the port's two examples on the card, each to its final check."""
+    """[9c] the port's three examples on the card, each to its final check."""
     print("[9c] torch examples on the card")
-    for name, example in (("quickstart", quickstart), ("amg_spmv", amg_spmv)):
+    for name, example in (("quickstart", quickstart), ("amg_spmv", amg_spmv),
+                          ("moe_nap_dispatch", moe_nap_dispatch)):
         t0 = time.perf_counter()
         example.main([])
         print(f"  example {name}: ran to its final check, {time.perf_counter() - t0:.2f} s")
@@ -2910,6 +2947,434 @@ def phase_moe(seed):
     print(f"  phase 9f {time.perf_counter() - t0:.1f} s (f32 capacity factor {cf})")
 
 
+# the hierarchical collectives (phase 9g) ----------------------------------------
+COLL_ARCH = "gemma2-2b"
+COLL_TOPO = (4, 8)           # 4 pods of an 8-GPU machine, 32 ranks batched on the card
+COLL_PROC_TOPO = (2, 4)      # the reference's own mesh, one pod a process
+COLL_REPS = 10
+COLL_GATE = 1e-5             # of max |float64 sum|
+COLL_INT8_GATE = 0.02        # the reference's gate (tests/multidev/collectives_prog.py)
+COLL_MOE_TOKENS = 256        # tokens a rank: x [16, 512, 4096] over 32 ranks
+COLL_MOE_CAPACITY = 256
+
+
+def layer_grad_shapes(cfg):
+    """The parameter shapes of one decoder layer of ``cfg`` (q, k, v, o,
+    the gated FFN's three matrices, the norms), from the model's own
+    ``block_init`` at that width."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    block = block_init(gen, cfg, torch.float32, d_ff=cfg.d_ff)
+
+    def shapes(t):
+        return {k: shapes(v) for k, v in t.items()} if isinstance(t, dict) \
+            else tuple(t.shape)
+    out = shapes(block)
+    del block
+    return out
+
+
+def grad_bucket(shapes, n_ranks, seed):
+    """``[n_ranks, N]`` float32 from the seed on the card."""
+    n = sum(math.prod(s) for s in tree_leaves(shapes, tuple))
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn((n_ranks, n), generator=gen, device=DEV)
+
+
+def bucket_tree(flat, shapes):
+    """The gradient tree as views of the bucket ``flat [P, N]``, leaves in
+    sorted-key order (the order the collectives flatten them in)."""
+    off = 0
+
+    def build(t):
+        nonlocal off
+        if isinstance(t, tuple):
+            n = math.prod(t)
+            off += n
+            return flat[:, off - n:off].view((flat.shape[0],) + t)
+        return {k: build(t[k]) for k in sorted(t)}
+    return build(shapes)
+
+
+def tree_leaves(tree, leaf=torch.Tensor):
+    """The leaves of a nested dict in sorted-key order."""
+    if isinstance(tree, leaf):
+        return [tree]
+    return [x for k in sorted(tree) for x in tree_leaves(tree[k], leaf)]
+
+
+def tree_flat(tree):
+    """A result tree back to one ``[P, N]`` bucket (leaves in sorted-key
+    order)."""
+    leaves = tree_leaves(tree)
+    return torch.cat([leaf.reshape(leaf.shape[0], -1) for leaf in leaves], dim=1)
+
+
+def f64_sum(flat):
+    """The float64 sum over the ranks, by numpy on the host in column
+    blocks, back on the card."""
+    return torch.from_numpy(np.concatenate([
+        c.cpu().numpy().astype(np.float64).sum(0)
+        for c in flat.split(1 << 22, dim=1)])).to(DEV)
+
+
+def max_abs_diff(got, want):
+    """max |got[r] - want| over every rank, in column blocks (float64)."""
+    return max(float((g.double() - w).abs().max())
+               for g, w in zip(got.split(1 << 22, dim=1), want.split(1 << 22)))
+
+
+def replicas_equal(out):
+    return all(torch.equal(out[r], out[0]) for r in range(1, out.shape[0]))
+
+
+def timed(fn):
+    """(result, device ms of that call, the peak of device memory)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), torch.cuda.max_memory_allocated() / 1e9
+
+
+def coll_counted(fn):
+    """Run ``fn`` with the communicator's inter-pod counts reset; return
+    (result, counts)."""
+    reset_inter_node_bytes()
+    out = fn()
+    return out, inter_node_bytes()
+
+
+def coll_psums(flat, tree, topo, want, scale):
+    """(a) nap_psum_tree and flat_psum_tree on the layer's gradient;
+    returns nap's result bucket and its counted inter-pod bytes."""
+    nbytes = flat.numel() * 4
+    bound, by = bound_ms(2 * nbytes, 0)
+    n_in, n_out, P = topo.ppn, topo.n_nodes, topo.n_procs
+    per_rank = flat.shape[1] * 4
+    want_bytes = {"nap": 2 * P * (n_out - 1) * per_rank // (n_in * n_out),
+                  "flat": 2 * P * (P - n_in) * per_rank // P}
+    rows = {}
+    for name, fn, axis in (("nap", nap_psum_tree, "node"),
+                           ("flat", flat_psum_tree, "nodexproc")):
+        (out, first_ms, peak), counted = coll_counted(lambda: timed(
+            lambda: fn(tree, topo)))
+        got = counted.get(f"{axis}:psum", 0)
+        if got != want_bytes[name] or counted.get(axis) != got:
+            raise AssertionError(f"(a) {name}: counted {counted}, the buffers give "
+                                 f"{want_bytes[name]}")
+        out_flat = tree_flat(out)
+        del out
+        err = max_abs_diff(out_flat, want) / scale
+        if not err <= COLL_GATE:
+            raise AssertionError(f"(a) {name}: {err:.3e} of max |float64 sum| > "
+                                 f"{COLL_GATE}")
+        same = replicas_equal(out_flat)
+        if name == "nap" and not same:
+            raise AssertionError("(a) nap: the replicas differ")
+        ms = time_ms(lambda: fn(tree, topo), reps=COLL_REPS, warmup=1)
+        rows[name] = dict(ms=ms, bytes=got, out=out_flat)
+        print(f"  (a) {name}_psum_tree: {ms:.4f} ms (events, median of {COLL_REPS}; "
+              f"first call {first_ms:.4f}), bound {bound:.4f} ms ({by}; share "
+              f"{bound / ms:.1%}), peak {peak:.3f} GB (the {nbytes / 1e9:.2f} GB "
+              f"input included); inter-pod bytes counted {got:,} (buffers "
+              f"{want_bytes[name]:,}); max err {err:.3e} of max |float64 sum| "
+              f"(gate {COLL_GATE}); replicas bit-equal {same}")
+    diff = max_abs_diff(rows["flat"]["out"], rows["nap"]["out"][0]) / scale
+    if not diff <= COLL_GATE:
+        raise AssertionError(f"(a) nap and flat differ by {diff:.3e} of max |sum|")
+    ratio = rows["flat"]["bytes"] / rows["nap"]["bytes"]
+    if rows["nap"]["bytes"] * n_in != rows["flat"]["bytes"]:
+        raise AssertionError(f"(a) nap moves 1/{ratio:.4f} of flat's bytes, not 1/{n_in}")
+    print(f"  (a) nap vs flat: {diff:.3e} of max |sum| apart; nap moves 1/{ratio:g} "
+          f"of flat's inter-pod bytes (1/|inner| = 1/{n_in})")
+    return rows["nap"]["out"], rows["nap"]["bytes"]
+
+
+def coll_fsdp(flat, topo, nap_out):
+    """(b) nap_reduce_scatter then nap_all_gather on the same bucket."""
+    n_in, n_out, P = topo.ppn, topo.n_nodes, topo.n_procs
+    (rs, rs_ms, _), c_rs = coll_counted(lambda: timed(
+        lambda: nap_reduce_scatter(flat, topo)))
+    (ag, ag_ms, peak), c_ag = coll_counted(lambda: timed(
+        lambda: nap_all_gather(rs, topo)))
+    # rank (o, i) holds chunk i * n_out + o: nap_psum's result in that order
+    chunks = nap_out[0].view(n_in, n_out, -1).transpose(0, 1).reshape(P, -1)
+    if not torch.equal(rs, chunks):
+        raise AssertionError("(b) the reduce-scatter's chunks are not nap_psum's "
+                             "in the (o, i) -> i * n_pods + o order")
+    if not torch.equal(ag, nap_out):
+        raise AssertionError("(b) the all-gather of the scattered chunks is not "
+                             "nap_psum's result")
+    rs_ms = time_ms(lambda: nap_reduce_scatter(flat, topo), reps=COLL_REPS, warmup=1)
+    ag_ms = time_ms(lambda: nap_all_gather(rs, topo), reps=COLL_REPS, warmup=1)
+    print(f"  (b) nap_reduce_scatter {rs_ms:.4f} ms, inter-pod bytes "
+          f"{c_rs['node:scatter']:,}; nap_all_gather {ag_ms:.4f} ms, "
+          f"{c_ag['node:gather']:,} (peak {peak:.3f} GB); rank (o, i) holds "
+          f"chunk i * {n_out} + o, bit-equal to nap_psum's, and the gather "
+          f"of the chunks bit-equal to nap_psum's result")
+
+
+def coll_all_to_all(flat, topo):
+    """(c) nap_all_to_all against flat_all_to_all, the bucket as [P, N/P]
+    a rank."""
+    P = topo.n_procs
+    x = flat.view(P, P, -1)
+    outs, rows = {}, {}
+    for name, fn, axis in (("nap", nap_all_to_all, "node"),
+                           ("flat", flat_all_to_all, "nodexproc")):
+        (out, _, peak), counted = coll_counted(lambda: timed(lambda: fn(x, topo)))
+        outs[name] = out
+        ms = time_ms(lambda: fn(x, topo), reps=COLL_REPS, warmup=1)
+        rows[name] = (ms, counted[f"{axis}:all_to_all"], peak)
+    if not (torch.equal(outs["nap"], outs["flat"])
+            and torch.equal(outs["nap"], x.transpose(0, 1))):
+        raise AssertionError("(c) nap_all_to_all differs from flat_all_to_all "
+                             "or from out[d][s] = x[s][d]")
+    bound, _ = bound_ms(2 * flat.numel() * 4, 0)
+    print(f"  (c) all-to-all of [{P}, {x.shape[2]:,}] a rank: "
+          + "; ".join(f"{n} {ms:.4f} ms (share {bound / ms:.1%}), inter-pod "
+                      f"bytes {b:,}, peak {pk:.3f} GB" for n, (ms, b, pk) in rows.items())
+          + "; nap bit-equal to flat")
+    del outs, x
+
+
+def coll_compressed(flat, topo, want, scale, f32_bytes):
+    """(d) nap_psum_compressed: int8 pod stage, error feedback."""
+    n_in, n_out, P = topo.ppn, topo.n_nodes, topo.n_procs
+    ((out, res), first_ms, peak), counted = coll_counted(lambda: timed(
+        lambda: nap_psum_compressed(flat, topo)))
+    err = max_abs_diff(out[:1], want) / scale
+    if not err <= COLL_INT8_GATE:
+        raise AssertionError(f"(d) int8 psum: {err:.3e} of max |sum| > {COLL_INT8_GATE}")
+    if not replicas_equal(out):
+        raise AssertionError("(d) int8 psum: the replicas differ")
+    shard = flat.shape[1] // n_in
+    want_bytes = P * 2 * (n_out - 1) * (-(-shard // n_out) + 4)
+    if counted["node:int8"] != want_bytes:
+        raise AssertionError(f"(d) counted {counted['node:int8']} int8 bytes, the "
+                             f"ring gives {want_bytes}")
+    out2, res2 = nap_psum_compressed(flat, topo, residual=res)
+    mean = torch.stack([out[0], out2[0]]).mean(0)
+    err2 = max_abs_diff(out2[:1], want) / scale
+    err_mean = max_abs_diff(mean[None], want) / scale
+    ms = time_ms(lambda: nap_psum_compressed(flat, topo), reps=COLL_REPS, warmup=1)
+    print(f"  (d) nap_psum_compressed: {ms:.4f} ms (events, median of {COLL_REPS}; "
+          f"first call {first_ms:.4f}), peak {peak:.3f} GB; err {err:.3e} of max "
+          f"|float64 sum| (gate {COLL_INT8_GATE}), replicas bit-equal; a second "
+          f"step fed the residual {err2:.3e}, the two-step mean {err_mean:.3e}; "
+          f"int8 inter-pod bytes {want_bytes:,} against the f32 nap's {f32_bytes:,} "
+          f"({want_bytes / f32_bytes:.4f}x); residual {tuple(res.shape)}")
+    del out, res, out2, res2, mean
+
+
+def coll_moe(topo, seed):
+    """(e) nap_moe_dispatch at phase 9f's geometry."""
+    cfg = get_config(MOE_ARCH)
+    P, n_in, n_out = topo.n_procs, topo.ppn, topo.n_nodes
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    router = {"router": dense_init(gen, cfg.d_model, cfg.n_experts, torch.float32)}
+    x = torch.randn(MOE_BATCH + (cfg.d_model,), generator=gen, device=DEV) \
+        .to(torch.bfloat16)
+    e_loc = cfg.n_experts // P
+    tokens = x.reshape(P, COLL_MOE_TOKENS, cfg.d_model)
+    ids = moe_router(router, cfg, x.reshape(-1, cfg.d_model))[1]
+    dest = (ids // e_loc).to(torch.int32).reshape(P, COLL_MOE_TOKENS, cfg.top_k)
+    cap, T, D = COLL_MOE_CAPACITY, COLL_MOE_TOKENS, cfg.d_model
+    ((recv, src, valid), first_ms, peak), counted = coll_counted(lambda: timed(
+        lambda: nap_moe_dispatch(tokens, dest, topo, cap)))
+    # every (token, chip) pair: delivered exactly once, or dropped where the
+    # gateway's buffer for that chip is full
+    d_np = dest.cpu().numpy().reshape(P * T, -1).astype(np.int64)
+    gid = np.repeat(np.arange(P * T), d_np.shape[1])
+    wanted = np.unique(gid * P + d_np.reshape(-1))
+    src_np, valid_np = src.cpu().numpy(), valid.cpu().numpy()
+    chip = np.repeat(np.arange(P), src_np.shape[1]).reshape(src_np.shape)
+    got = src_np[valid_np].astype(np.int64) * P + chip[valid_np]
+    if np.unique(got).size != got.size:
+        raise AssertionError("(e) a (token, chip) pair arrived twice")
+    if not np.isin(got, wanted).all():
+        raise AssertionError("(e) a token arrived where it was not sent")
+    dropped = np.setdiff1d(wanted, got)
+    full = valid_np.reshape(P, n_in, cap).all(-1)              # [chip, gateway]
+    if dropped.size and not full[dropped % P, (dropped // P // T) % n_in].all():
+        raise AssertionError("(e) a pair was dropped from a buffer with room")
+    flat_tok = tokens.reshape(-1, D)
+    if not torch.equal(recv[valid], flat_tok[src[valid].long()]):
+        raise AssertionError("(e) a delivered payload differs from its token")
+    ms = time_ms(lambda: nap_moe_dispatch(tokens, dest, topo, cap), reps=COLL_REPS,
+                 warmup=1)
+    # the live deduplicated traffic: (token, remote pod) pairs, bf16 rows
+    pods = d_np // n_in
+    own = (np.arange(P * T) // T // n_in)[:, None]
+    live = sum(int(((pods == o) & (own != o)).any(1).sum()) for o in range(n_out))
+    padded = {k: counted[f"node:{k}"] for k in ("tokens", "meta", "srcs")}
+    want_tok = P * (n_out - 1) * cap * D * 2
+    if padded["tokens"] != want_tok:
+        raise AssertionError(f"(e) counted {padded['tokens']} token bytes, the "
+                             f"buffers give {want_tok}")
+    print(f"  (e) nap_moe_dispatch: {MOE_ARCH} router on x {MOE_BATCH + (D,)} bf16, "
+          f"{T} tokens a rank, top-{cfg.top_k} experts on chip expert // {e_loc}, "
+          f"capacity {cap}: {got.size:,} (token, chip) pairs delivered once each "
+          f"with bit-exact payloads, {dropped.size} dropped at full buffers; "
+          f"{ms:.4f} ms (events, median of {COLL_REPS}; first {first_ms:.4f}), peak "
+          f"{peak:.3f} GB; padded inter-pod bytes counted {padded} against the live "
+          f"deduplicated tokens {live:,} x {D} x 2 = {live * D * 2:,}")
+    del recv, src, valid, tokens, x
+
+
+def coll_child(spec_file):
+    """One process of 9g's two-process run, started by ``launch``: attach
+    over gloo, draw the layer's bucket for the reference's mesh, run its
+    pod's block through the collectives, report digests and walls."""
+    spec = json.loads(Path(spec_file).read_text())
+    info = attach(verbose=True)
+    pid = info["process_id"]
+    topo = Topology(*COLL_PROC_TOPO)
+    mesh = mesh_for(topo)
+    shapes = layer_grad_shapes(get_config(COLL_ARCH))
+    full = grad_bucket(shapes, topo.n_procs, spec["seed"])
+    r0, r1 = mesh.ranks
+    flat = full[r0:r1].clone()
+    del full
+    torch.cuda.empty_cache()
+    report = {"pid": pid, "ranks": [r0, r1]}
+    for name, fn in coll_proc_cases(flat, shapes, topo, mesh).items():
+        before = dict(mesh.stats)
+        reset_inter_node_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        report[name] = {"wall_ms": wall, "digests": coll_digests(out),
+                        "stats": {k: v - before.get(k, 0) for k, v in mesh.stats.items()}}
+        print(f"  [p{pid}] {name}: wall {wall:.1f} ms", flush=True)
+        del out
+    (Path(spec["out"]) / f"coll_report_{pid}.json").write_text(json.dumps(report))
+    detach()
+    print(f"  [p{pid}] done", flush=True)
+
+
+def coll_proc_cases(flat, shapes, topo, mesh):
+    """What 9g runs in one process and in each of two: name -> thunk."""
+    n = flat.shape[0]
+    tree = bucket_tree(flat, shapes)
+    return {
+        "nap_psum_tree": lambda: nap_psum_tree(tree, topo, mesh),
+        "flat_psum_tree": lambda: flat_psum_tree(tree, topo, mesh),
+        "nap_psum_compressed": lambda: nap_psum_compressed(flat, topo, mesh),
+        "nap_all_to_all": lambda: nap_all_to_all(
+            flat.view(n, topo.n_procs, -1), topo, mesh),
+    }
+
+
+def coll_digests(out):
+    """sha256 of each rank's block of every output (a tree as its bucket),
+    from the host."""
+    outs = (tree_flat(out),) if isinstance(out, dict) else \
+        out if isinstance(out, tuple) else (out,)
+    return [[hashlib.sha256(t[r].contiguous().cpu().numpy()).hexdigest()
+             for r in range(t.shape[0])] for t in outs]
+
+
+def coll_processes(seed):
+    """(f) Two gloo processes sharing the card, Topology(2, 4), one pod a
+    process: bit-equal to one process, bytes to the other process."""
+    t0 = time.perf_counter()
+    topo = Topology(*COLL_PROC_TOPO)
+    shapes = layer_grad_shapes(get_config(COLL_ARCH))
+    flat = grad_bucket(shapes, topo.n_procs, seed)
+    one = {}
+    for name, fn in coll_proc_cases(flat, shapes, topo, None).items():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        one[name] = {"wall_ms": (time.perf_counter() - t1) * 1e3,
+                     "digests": coll_digests(out)}
+        del out
+    per_rank = flat.shape[1] * 4
+    del flat
+    free()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_coll_") as tmp:
+        spec_file = Path(tmp) / "spec.json"
+        spec_file.write_text(json.dumps({"seed": seed, "out": tmp}))
+        res = launch(str(Path(__file__).resolve()), MESH_PROCS,
+                     args=["--coll-child", str(spec_file)],
+                     local_devices=COLL_PROC_TOPO[1],
+                     env={"REPRO_MESH_BACKEND": "gloo"}, timeout_s=600)
+        for pid in range(MESH_PROCS):
+            for line in res.output(pid).splitlines():
+                if line.startswith(("  [p", "[mesh.attach]")):
+                    print(line)
+        reports = [json.loads((Path(tmp) / f"coll_report_{pid}.json").read_text())
+                   for pid in range(MESH_PROCS)]
+    P = topo.n_procs
+    p_loc, n_far = P // MESH_PROCS, topo.n_nodes - topo.n_nodes // MESH_PROCS
+    # bytes each process sends the other: its ranks' messages to far pods
+    # (ranks), in the reduce-scatter and in the all-gather
+    across = {"nap_psum_tree": ("node", "psum", 2 * p_loc * n_far * per_rank
+                                // (topo.ppn * topo.n_nodes)),
+              "flat_psum_tree": ("nodexproc", "psum",
+                                 2 * p_loc * (P - p_loc) * per_rank // P)}
+    for name in one:
+        for r in reports:
+            got = [d[r["ranks"][0]:r["ranks"][1]] for d in one[name]["digests"]]
+            if r[name]["digests"] != got:
+                raise AssertionError(f"(f) {name}: process {r['pid']} differs from "
+                                     f"one process")
+        if name in across:
+            axis, label, want = across[name]
+            for r in reports:
+                sent = r[name]["stats"].get(f"sent_bytes_{axis}:{label}", 0)
+                if sent != want:
+                    raise AssertionError(f"(f) {name}: p{r['pid']} sent {sent} bytes "
+                                         f"to the other process, the blocks give {want}")
+        st = [r[name]["stats"] for r in reports]
+        print(f"  (f) {name}: two processes bit-equal to one; walls p0 / p1 "
+              f"{reports[0][name]['wall_ms']:.1f} / {reports[1][name]['wall_ms']:.1f} "
+              f"ms (one process {one[name]['wall_ms']:.1f}); sent to the other process "
+              f"node {st[0]['sent_bytes_node']:,} / {st[1]['sent_bytes_node']:,}, "
+              f"node x proc {st[0]['sent_bytes_nodexproc']:,} / "
+              f"{st[1]['sent_bytes_nodexproc']:,}; staged {st[0]['staged_bytes']:,}")
+    print(f"  (f) {topo}, {MESH_PROCS} gloo processes, one pod each; (f) "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_collectives(seed):
+    """[9g] the hierarchical collectives at a gemma2-2b layer's gradient."""
+    t0 = time.perf_counter()
+    cfg = get_config(COLL_ARCH)
+    topo = Topology(*COLL_TOPO)
+    shapes = layer_grad_shapes(cfg)
+    flat = grad_bucket(shapes, topo.n_procs, seed)
+    tree = bucket_tree(flat, shapes)
+    print(f"[9g] hierarchical collectives: one {COLL_ARCH} decoder layer's gradient "
+          f"({flat.shape[1]:,} f32 values, {flat.shape[1] * 4 / 1e6:.2f} MB a rank: "
+          f"{shapes}) on {topo}, {topo.n_procs} ranks batched on the card, "
+          f"{flat.numel() * 4 / 1e9:.2f} GB in all, from the seed")
+    want = f64_sum(flat)
+    scale = float(want.abs().max())
+    nap_out, f32_bytes = coll_psums(flat, tree, topo, want, scale)
+    coll_fsdp(flat, topo, nap_out)
+    del nap_out
+    free()
+    coll_all_to_all(flat, topo)
+    free()
+    coll_compressed(flat, topo, want, scale, f32_bytes)
+    del flat, tree, want
+    free()
+    coll_moe(topo, seed)
+    free()
+    coll_processes(seed)
+    free()
+    print(f"  phase 9g {time.perf_counter() - t0:.1f} s")
+
+
 # gemma2-2b serving (phases 10-12) ------------------------------------------------
 ATTN_REPLACES = "src/repro/kernels/decode_attn/kernel.py:71"
 ATTN_SOURCE = "src/repro_torch/csrc/decode_attn.cu"
@@ -3157,12 +3622,17 @@ def main():
                     help="run one process of phase 9e (set by its launcher)")
     ap.add_argument("--moe-child", metavar="SPEC",
                     help="run one process of phase 9f (set by its launcher)")
+    ap.add_argument("--coll-child", metavar="SPEC",
+                    help="run one process of phase 9g (set by its launcher)")
     args = ap.parse_args()
     if args.mesh_child:
         mesh_child(args.mesh_child)
         return
     if args.moe_child:
         moe_child(args.moe_child)
+        return
+    if args.coll_child:
+        coll_child(args.coll_child)
         return
     global T_START
     T_START = time.perf_counter()
@@ -3280,6 +3750,7 @@ def main():
     del a, a_b, keep
     free()
     phase_moe(args.seed)
+    phase_collectives(args.seed)
 
     # 10-12. gemma2-2b serving ---------------------------------------------------
     entries.append(phase_decode_attn(rng, gen))

@@ -281,6 +281,10 @@ class NapOperator:
         return self.executor.method
 
     @property
+    def backend(self) -> str:
+        return self.spec.backend
+
+    @property
     def T(self) -> "NapOperator":
         """Transpose view sharing the executors (``op.T.T is op``)."""
         if self._parent is not None:

@@ -11,11 +11,13 @@ from repro_torch.comm.multistep import (AUTO_THRESHOLD, MultistepPlan,
 from repro_torch.comm.simulate import (simulate_multistep_spmv,
                                        simulate_multistep_spmv_transpose)
 from repro_torch.comm.strategies import (COMM_CHOICES, COMM_STRATEGIES,
-                                         CommStrategy, get_strategy)
+                                         CommStrategy, available_strategies,
+                                         get_strategy)
 
 __all__ = [
     "AUTO_THRESHOLD", "COMM_CHOICES", "COMM_STRATEGIES", "CommStrategy",
-    "MultistepPlan", "PREFERENCE", "build_candidate_plans",
+    "MultistepPlan", "PREFERENCE", "available_strategies",
+    "build_candidate_plans",
     "build_multistep_plan", "choose_comm", "comm_verdict",
     "duplication_counts", "get_strategy", "multistep_stats",
     "planned_traffic", "resolve_threshold", "simulate_multistep_spmv",

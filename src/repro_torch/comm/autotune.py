@@ -45,13 +45,18 @@ def build_candidate_plans(indptr: np.ndarray, indices: np.ndarray, part,
 def comm_verdict(plans: Dict, direction: str = "forward",
                  bytes_per_val: int = 4, nv: int = 1,
                  integrity: str = "off",
-                 params: PostalParams = BLUE_WATERS_POSTAL) -> Dict:
+                 params: PostalParams = BLUE_WATERS_POSTAL,
+                 wire_dtype: str = "f32") -> Dict:
     """Score prebuilt candidate plans for one exchange direction;
-    ``integrity`` charges the checksum wires it adds."""
+    ``integrity`` charges the checksum wires it adds and ``wire_dtype``
+    the quantized payload width (a narrower wire shrinks every
+    candidate's bytes alike, but not the postal start-ups, so the verdict
+    can move toward the strategies that send fewer messages)."""
     candidates: Dict[str, Dict] = {}
     for name, plan in plans.items():
         traffic = planned_traffic(plan, bytes_per_val=bytes_per_val, nv=nv,
-                                  direction=direction, integrity=integrity)
+                                  direction=direction, integrity=integrity,
+                                  wire_dtype=wire_dtype)
         times = postal_comm_time(traffic, params)
         candidates[name] = {
             "injected_inter_bytes": traffic["injected_inter_bytes"],
@@ -64,7 +69,7 @@ def comm_verdict(plans: Dict, direction: str = "forward",
                  key=lambda n: (candidates[n]["injected_inter_bytes"],
                                 candidates[n]["postal_time_s"],
                                 PREFERENCE.index(n)))
-    return {"chosen": chosen, "direction": direction,
+    return {"chosen": chosen, "direction": direction, "wire_dtype": wire_dtype,
             "postal_params": params.name, "candidates": candidates}
 
 
@@ -74,20 +79,22 @@ def choose_comm(indptr: np.ndarray, indices: np.ndarray, part, topo,
                 bytes_per_val: int = 4, nv: int = 1,
                 integrity: str = "off",
                 params: PostalParams = BLUE_WATERS_POSTAL,
-                plans: Optional[Dict] = None) -> Dict:
+                plans: Optional[Dict] = None,
+                wire_dtype: str = "f32") -> Dict:
     """Verdicts of both directions for one operator's structure.
 
     Returns ``{"forward": verdict, "transpose": verdict, "threshold",
     "plans"}``; the two directions can disagree because the per-rank
     bottleneck flips roles when every message reverses.  ``plans``
-    reuses candidate plans the caller already built.
+    reuses candidate plans the caller already built; ``wire_dtype``
+    scores both directions at that payload width.
     """
     if plans is None:
         plans = build_candidate_plans(indptr, indices, part, topo,
                                       pairing=pairing, col_part=col_part,
                                       threshold=threshold)
     kw = dict(bytes_per_val=bytes_per_val, nv=nv, integrity=integrity,
-              params=params)
+              params=params, wire_dtype=wire_dtype)
     ms = plans.get("multistep")
     return {
         "forward": comm_verdict(plans, direction="forward", **kw),

@@ -78,3 +78,7 @@ def get_strategy(name: str) -> CommStrategy:
         raise ValueError(
             f"unknown comm strategy {name!r}; "
             f"expected one of {sorted(COMM_STRATEGIES)}") from None
+
+
+def available_strategies() -> Tuple[str, ...]:
+    return tuple(COMM_STRATEGIES)

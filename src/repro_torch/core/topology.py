@@ -8,6 +8,7 @@ order, so a ``[n_procs, ...]`` tensor views as ``[n_nodes, ppn, ...]``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -27,6 +28,12 @@ class Topology:
     def n_procs(self) -> int:
         return self.n_nodes * self.ppn
 
+    def proc_node(self, rank: int) -> Tuple[int, int]:
+        """``rank -> (p, n)``, Sec. 2: ``(rank mod ppn, rank // ppn)``."""
+        if not 0 <= rank < self.n_procs:
+            raise ValueError(f"rank {rank} out of range [0, {self.n_procs})")
+        return rank % self.ppn, rank // self.ppn
+
     def rank(self, p: int, n: int) -> int:
         if not (0 <= p < self.ppn and 0 <= n < self.n_nodes):
             raise ValueError(f"({p},{n}) outside ({self.ppn} ppn, {self.n_nodes} nodes)")
@@ -43,6 +50,9 @@ class Topology:
 
     def same_node(self, r: int, t: int) -> bool:
         return self.node_of(r) == self.node_of(t)
+
+    def iter_ranks(self) -> Iterator[int]:
+        return iter(range(self.n_procs))
 
     def node_of_array(self, ranks: np.ndarray) -> np.ndarray:
         return np.asarray(ranks) // self.ppn

@@ -12,7 +12,9 @@ the process group.  A process owns a contiguous block of whole nodes
   "proc")`` all-to-all (:func:`rank_all_to_all`) cross processes, each
   with equal splits by the owned block;
 * :func:`live_all_to_all` moves the live slots of a flat exchange with
-  the per-process counts of the plan (the multi-step direct phase).
+  the per-process counts of the plan (the multi-step direct phase);
+* :func:`node_permute` is the ring ``ppermute`` over ``node`` (the
+  compressed pod psum of :mod:`repro_torch.core.hier_collectives`).
 
 With ``mesh=None`` (one process) the first two are exactly the
 permutations the programs have always run, and no collective happens.
@@ -21,9 +23,9 @@ directions (gloo is never handed a CUDA tensor); NCCL takes the device
 tensors.  Every cross-process call adds to the mesh's ``stats``: the
 bytes sent to OTHER processes per axis, the bytes staged, the calls.
 
-The tiled all-to-alls also count, in one process too, the bytes whose
-source and destination NODE differ (the expensive hop; a node is a pod
-for the MoE dispatch), at the width the payload crosses:
+The tiled all-to-alls and the ring also count, in one process too, the
+bytes whose source and destination NODE differ (the expensive hop; a
+node is a pod for the MoE dispatch), at the width the payload crosses:
 :data:`INTER_NODE_BYTES` per axis (``"node"``, ``"nodexproc"``) and, when
 the caller names its payload, per ``"axis:label"``; with a mesh also
 ``stats["inter_node_bytes_<axis>"]``.  The ``node`` all-to-all always
@@ -42,7 +44,7 @@ from repro_torch.core.topology import Topology
 from repro_torch.mesh.buffers import ProcessMesh, _dist
 
 __all__ = ["proc_all_to_all", "node_all_to_all", "rank_all_to_all",
-           "live_all_to_all", "exchange", "INTER_NODE_BYTES",
+           "node_permute", "live_all_to_all", "exchange", "INTER_NODE_BYTES",
            "inter_node_bytes", "reset_inter_node_bytes"]
 
 #: bytes sent between different nodes by this process's ranks, per axis
@@ -87,8 +89,9 @@ def proc_all_to_all(buf: torch.Tensor, ppn: int) -> torch.Tensor:
 def node_all_to_all(buf: torch.Tensor, topo: Topology,
                     mesh: Optional[ProcessMesh] = None,
                     label: Optional[str] = None) -> torch.Tensor:
-    """Tiled all-to-all over ``node``: ``buf [P_loc, n_nodes, pad, nv]``
-    (each rank's message to every node), ``recv[m, p, n] = send[n, p, m]``.
+    """Tiled all-to-all over ``node``: ``buf [P_loc, n_nodes, ...]`` (each
+    rank's message to every node; ``[P_loc, n_nodes, pad, nv]`` in the
+    SpMV programs), ``recv[m, p, n] = send[n, p, m]``.
     Every message but a rank's own node's crosses nodes (``label`` names
     the payload in :data:`INTER_NODE_BYTES`).
 
@@ -101,7 +104,8 @@ def node_all_to_all(buf: torch.Tensor, topo: Topology,
     nn, ppn = topo.n_nodes, topo.ppn
     _count_inter("node", _nbytes(buf, (s[0], nn - 1) + tuple(s[2:])), mesh, label)
     if mesh is None:
-        return buf.reshape((nn, ppn, nn) + s[2:]).permute(2, 1, 0, 3, 4).reshape(s)
+        tail = tuple(range(3, len(s) + 1))
+        return buf.reshape((nn, ppn, nn) + s[2:]).permute((2, 1, 0) + tail).reshape(s)
     nl, rest = mesh.n_local_nodes, tuple(range(4, 4 + len(s) - 2))
     # [n_src, p, q_dst, m_dst] -> [q_dst, n_src, p, m_dst]
     send = buf.reshape((nl, ppn, mesh.world, nl) + s[2:]).permute((2, 0, 1, 3) + rest)
@@ -140,6 +144,48 @@ def rank_all_to_all(buf: torch.Tensor, mesh: Optional[ProcessMesh] = None,
     recv = _all_to_all(send, mesh, "nodexproc", label=label)
     # [q_src] + lead + [s, r] -> lead + [r, q_src, s]
     out = recv.permute(tuple(range(1, lead + 1)) + (lead + 2, 0, lead + 1) + tail)
+    return out.reshape(s)
+
+
+def node_permute(buf: torch.Tensor, topo: Topology,
+                 mesh: Optional[ProcessMesh] = None, shift: int = 1,
+                 label: Optional[str] = None) -> torch.Tensor:
+    """The ring ``ppermute`` over ``node``: ``buf [P_loc, ...]`` (one
+    payload a rank), ``recv[(n, p)] = send[((n - shift) mod n_nodes, p)]``
+    (every rank hands its payload to the same proc of the node ``shift``
+    further on).  Every payload crosses nodes, each hop (``label`` names
+    it in :data:`INTER_NODE_BYTES`).
+
+    One process: a roll over the node axis.  Across processes each
+    process sends every owned node's payloads to the process that owns
+    its destination node, rows grouped by destination process and ordered
+    by destination node, with per-process row counts, in one
+    ``all_to_all_single`` (counts are non-zero only toward the processes
+    that own those nodes: the next one for ``shift=1``)."""
+    s = buf.shape
+    nn, ppn = topo.n_nodes, topo.ppn
+    if nn > 1:
+        _count_inter("node", _nbytes(buf, tuple(s)), mesh, label)
+    if mesh is None:
+        return buf.reshape((nn, ppn) + s[1:]).roll(shift, dims=0).reshape(s)
+    nl, w = mesh.n_local_nodes, mesh.world
+    n0 = mesh.nodes[0]
+    nodes = buf.reshape((nl, ppn) + s[1:])
+    # destination node of each owned node, and the node each one receives
+    dst = [(n0 + i + shift) % nn for i in range(nl)]
+    src = [(n0 + i - shift) % nn for i in range(nl)]
+    order = sorted(range(nl), key=lambda i: (dst[i] // nl, dst[i]))
+    send_counts = [0] * w
+    for i in order:
+        send_counts[dst[i] // nl] += ppn
+    recv_from = sorted(range(nl), key=lambda i: (src[i] // nl, src[i]))
+    recv_counts = [0] * w
+    for i in recv_from:
+        recv_counts[src[i] // nl] += ppn
+    send = nodes[torch.tensor(order, device=buf.device)].reshape((-1,) + s[1:])
+    recv = _all_to_all(send, mesh, "node", send_counts, recv_counts, label=label)
+    out = torch.empty_like(nodes)
+    out[torch.tensor(recv_from, device=buf.device)] = recv.reshape(nodes.shape)
     return out.reshape(s)
 
 

@@ -52,6 +52,12 @@ class ELL:
         out_vals[rows, slot] = vals.astype(np.float32)
         return ELL(cols=out_cols, vals=out_vals, shape=shape)
 
+    @staticmethod
+    def from_csr(a, n_rows_pad: int = 0, kmax: int = 0) -> "ELL":
+        rows, cols, vals = a.to_coo()
+        return ELL.from_coo(rows, cols, vals, a.shape,
+                            n_rows_pad=n_rows_pad, kmax=kmax)
+
 
 def stack_ell(per_rank: List[ELL],
               kmax: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray, int]:

@@ -42,6 +42,7 @@ from repro_torch.sparse.csr import CSR as PortCSR
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-5)
 THRESHOLDS = [1, 2, 3, "auto"]
+WIRE_DTYPES = ("f32", "bf16", "fp8_e4m3")
 PORT_TUNER = port_cost.LocalComputeParams(**dataclasses.asdict(TPU_V5E_LOCAL))
 
 
@@ -271,16 +272,19 @@ POSTAL = {
 def test_choose_comm_matches_reference(layout, thr, postal):
     a_ref, a_port, (rp_r, rp_p), (cp_r, cp_p), t_ref, t_port = make_layout(layout)
     p_ref, p_port = POSTAL[postal]
-    ref = ref_comm.choose_comm(a_ref.indptr, a_ref.indices, rp_r, t_ref,
-                               pairing="aligned", col_part=cp_r, threshold=thr,
-                               params=p_ref)
-    port = port_comm.choose_comm(a_port.indptr, a_port.indices, rp_p, t_port,
-                                 col_part=cp_p, threshold=thr, params=p_port)
-    assert port["threshold"] == ref["threshold"]
-    for direction in ("forward", "transpose"):
-        r, p = dict(ref[direction]), port[direction]
-        assert r.pop("wire_dtype") == "f32"
-        assert r == p, direction
+    ref_plans = port_plans = None
+    for wd in WIRE_DTYPES:
+        ref = ref_comm.choose_comm(a_ref.indptr, a_ref.indices, rp_r, t_ref,
+                                   pairing="aligned", col_part=cp_r, threshold=thr,
+                                   params=p_ref, plans=ref_plans, wire_dtype=wd)
+        port = port_comm.choose_comm(a_port.indptr, a_port.indices, rp_p, t_port,
+                                     col_part=cp_p, threshold=thr, params=p_port,
+                                     plans=port_plans, wire_dtype=wd)
+        ref_plans, port_plans = ref["plans"], port["plans"]
+        assert port["threshold"] == ref["threshold"]
+        for direction in ("forward", "transpose"):
+            assert ref[direction]["wire_dtype"] == wd
+            assert ref[direction] == port[direction], (direction, wd)
 
 
 def test_skewed_matrix_takes_multistep():
@@ -318,9 +322,8 @@ def test_pairing_balanced_raises():
                                  port_partition.contiguous_partition(36, 4),
                                  Topology(2, 2), pairing="balanced")
     for direction in ("forward", "transpose"):
-        r = dict(ref[direction])
-        assert r.pop("wire_dtype") == "f32"
-        assert r == port[direction], direction
+        assert ref[direction]["wire_dtype"] == "f32"
+        assert ref[direction] == port[direction], direction
 
 
 _SHARDMAP_PROG = textwrap.dedent("""
@@ -396,3 +399,27 @@ def test_multistep_matches_reference_shardmap(tmp_path):
                                        ref[f"{case}_w_{k}"], **TOL)
             np.testing.assert_allclose(op.T @ inputs[f"{case}_u_{k}"],
                                        ref[f"{case}_z_{k}"], **TOL)
+
+
+def test_available_strategies_match_reference():
+    assert port_comm.available_strategies() == ref_comm.available_strategies()
+    assert port_comm.COMM_CHOICES == ref_comm.COMM_CHOICES
+
+
+@pytest.mark.parametrize("backend, method", [("shardmap", "nap"),
+                                             ("simulate", "standard"),
+                                             ("simulate", "multistep")])
+def test_operator_backend_matches_reference(backend, method):
+    """``op.backend`` names the backend of both views, as the reference's
+    (the port's device backend is ``"torch"`` where the reference's is
+    ``"shardmap"``)."""
+    import repro.api as ref_api
+    a_ref, a_port = ref_sparse.poisson_2d(6), port_sparse.poisson_2d(6)
+    ref = ref_api.operator(a_ref, topo=RefTopology(2, 2), method=method,
+                           backend=backend)
+    port_backend = "torch" if backend == "shardmap" else backend
+    port = port_api.operator(a_port, Topology(2, 2), method=method,
+                             backend=port_backend, device="cpu")
+    assert (ref.backend, ref.T.backend) == (backend, backend)
+    assert (port.backend, port.T.backend) == (port_backend, port_backend)
+    assert port.method == ref.method

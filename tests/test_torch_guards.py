@@ -150,6 +150,8 @@ def test_spgemm_paper_and_examples_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch.spgemm, repro_torch.spgemm.spgemm_torch\n"
             "import repro_torch.spgemm.rap, repro_torch.spgemm.simulate\n"
             "import repro_torch.examples.quickstart, repro_torch.examples.amg_spmv\n"
+            "import repro_torch.examples.moe_nap_dispatch\n"
+            "import repro_torch.core.hier_collectives\n"
             "import repro_torch.sparse.suitesparse_like\n"
             "import repro_torch.configs.paper_spmv\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -168,7 +170,7 @@ def test_spgemm_materialize_and_examples_raise_without_cuda(monkeypatch):
     ``materialize`` of device factors and the examples need CUDA or
     ``device="cpu"``; the simulate backend runs on the host."""
     from repro_torch.amg import level_operators, smoothed_aggregation_hierarchy
-    from repro_torch.examples import amg_spmv, quickstart
+    from repro_torch.examples import amg_spmv, moe_nap_dispatch, quickstart
     from repro_torch.spgemm import distributed_rap, distributed_spgemm
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     a = poisson_2d(8)
@@ -188,7 +190,7 @@ def test_spgemm_materialize_and_examples_raise_without_cuda(monkeypatch):
     ops = level_operators(levels, topo, device="cpu", materialize=True,
                           spgemm_backend="simulate")
     assert ops[0].galerkin(materialize=True).spec.device == "cpu"
-    for example in (quickstart, amg_spmv):
+    for example in (quickstart, amg_spmv, moe_nap_dispatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             example.main([])
 

@@ -702,9 +702,19 @@ def test_integrity_traffic_terms_match_reference(integrity):
         got = port_comm.choose_comm(a_p.indptr, a_p.indices, rp_p, t_p, threshold=2,
                                     nv=nv, integrity=integrity)
         for direction in ("forward", "transpose"):
-            r = dict(ref[direction])
-            assert r.pop("wire_dtype") == "f32"
-            assert r == got[direction]
+            assert ref[direction]["wire_dtype"] == "f32"
+            assert ref[direction] == got[direction]
+        for wd in ("bf16", "fp8_e4m3"):
+            ref_w = ref_comm.choose_comm(a_r.indptr, a_r.indices, rp_r, t_r,
+                                         threshold=2, nv=nv, integrity=integrity,
+                                         params=params, plans=ref["plans"],
+                                         wire_dtype=wd)
+            got_w = port_comm.choose_comm(a_p.indptr, a_p.indices, rp_p, t_p,
+                                          threshold=2, nv=nv, integrity=integrity,
+                                          plans=got["plans"], wire_dtype=wd)
+            for direction in ("forward", "transpose"):
+                assert ref_w[direction]["wire_dtype"] == wd
+                assert ref_w[direction] == got_w[direction], (direction, wd)
         for name, plan in got["plans"].items():
             want = ref_comm.planned_traffic(ref["plans"][name], nv=nv,
                                             integrity=integrity)

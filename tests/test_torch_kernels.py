@@ -302,3 +302,25 @@ def test_bsr_padded_rejects_bad_operands(bad):
         x = x.transpose(0, 2).contiguous().transpose(0, 2)
     with pytest.raises((TypeError, ValueError)):
         bsr_spmm_padded(cols, blocks, x)
+
+
+@pytest.mark.parametrize("n_rows_pad, kmax", [(0, 0), (40, 7)])
+def test_ell_spmv_ref_matches_reference(n_rows_pad, kmax):
+    """``ell_spmv_ref`` over one ELL container, as the reference's (same
+    container arrays, the same f32 products summed over the slots)."""
+    import repro.sparse as ref_sparse
+    from repro.kernels.ell_spmv import ell_spmv_ref as ref_ell_spmv
+    import repro_torch.sparse as port_sparse
+    from repro_torch.kernels.ell_spmv import ell_spmv_ref
+    a_ref = ref_sparse.random_fixed_nnz(36, 5, seed=3)
+    a_port = port_sparse.random_fixed_nnz(36, 5, seed=3)
+    e_ref = ref_sparse.ELL.from_csr(a_ref, n_rows_pad=n_rows_pad, kmax=kmax)
+    e_port = port_sparse.ELL.from_csr(a_port, n_rows_pad=n_rows_pad, kmax=kmax)
+    np.testing.assert_array_equal(e_port.cols, e_ref.cols)
+    np.testing.assert_array_equal(e_port.vals, e_ref.vals)
+    v = np.random.default_rng(4).standard_normal(36).astype(np.float32)
+    want = np.asarray(ref_ell_spmv(e_ref, v))
+    got = ell_spmv_ref(e_port, torch.from_numpy(v))
+    assert got.shape == want.shape == (e_ref.n_rows,)
+    _close(got.numpy(), want)
+    _close(ell_spmv_ref(e_port, v).numpy(), want)

@@ -267,3 +267,17 @@ def test_topology_helpers_match_reference():
         assert port.ranks_on_node(n) == ref.ranks_on_node(n)
     assert [[port.same_node(r, t) for t in ranks] for r in ranks] == \
         [[ref.same_node(r, t) for t in ranks] for r in ranks]
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 2), (2, 4), (4, 3)])
+def test_topology_rank_maps_match_reference(shape):
+    ref, port = RefTopology(*shape), Topology(*shape)
+    assert list(port.iter_ranks()) == list(ref.iter_ranks())
+    for r in ref.iter_ranks():
+        assert port.proc_node(r) == ref.proc_node(r)
+        assert port.rank(*port.proc_node(r)) == r
+    for bad in (-1, ref.n_procs):
+        with pytest.raises(ValueError, match="out of range"):
+            ref.proc_node(bad)
+        with pytest.raises(ValueError, match="out of range"):
+            port.proc_node(bad)

@@ -11,7 +11,7 @@ import repro.sparse.suitesparse_like as ref_ss
 
 import repro_torch.configs.paper_spmv as port_cfg
 import repro_torch.sparse.suitesparse_like as port_ss
-from repro_torch.examples import amg_spmv, quickstart
+from repro_torch.examples import amg_spmv, moe_nap_dispatch, quickstart
 from repro_torch.sparse import random_fixed_nnz
 
 NAMES = [s.name for s in ref_ss.SPECS]
@@ -48,12 +48,13 @@ def test_paper_spmv_config_matches_reference():
         dataclasses.asdict(ref_cfg.SpMVExperimentConfig(ppn=4))
 
 
-@pytest.mark.parametrize("example", [quickstart, amg_spmv],
-                         ids=["quickstart", "amg_spmv"])
+@pytest.mark.parametrize("example", [quickstart, amg_spmv, moe_nap_dispatch],
+                         ids=["quickstart", "amg_spmv", "moe_nap_dispatch"])
 def test_example_runs_on_cpu(example, capsys):
     example.main(["--device", "cpu"])
     out = capsys.readouterr().out
     last = out.strip().splitlines()[-1]
     assert last.startswith({"quickstart": "device NAPSpMV matches",
-                            "amg_spmv": "BiCG with forward+transpose"}[
+                            "amg_spmv": "BiCG with forward+transpose",
+                            "moe_nap_dispatch": "nap MoE dispatch sends"}[
                                 example.__name__.rsplit(".", 1)[-1]])
