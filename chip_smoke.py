@@ -56,10 +56,15 @@ Phases, each fatal on failure:
    uninstrumented program (transposes in deterministic mode) with zero
    wire and ABFT mismatches; for every message phase and direction one
    real edge whose payload is neither all zero nor constant (from a
-   recorded clean run), every fault kind on it detected with the
-   receiver, slot, phase and scope ``scope_for`` gives, and a compute
-   bitflip on bit 30 of a value in [0.1, 1) caught by ABFT; device-program
-   ms (median of 10) and peak memory, bare and instrumented; then
+   recorded clean run; each kind's sender in the first or the second
+   half of the ranks by turns, the bitflips of the inter, pair and
+   direct exchanges from the first half to the second, so phase 9h
+   can replay them across two processes), every fault kind on it
+   detected with the receiver, slot, phase and scope ``scope_for``
+   gives, and a compute bitflip on bit 30 of a value in [0.1, 1)
+   caught by ABFT (the last rank forward, the first transposed);
+   device-program ms (median of 5) and peak memory, bare and
+   instrumented; then
    ``integrity="recover"`` bit-equal to the clean result after one retry
    each way, one detect apply of the fused-BSR forward at the BSR path's
    grid, and the float64 simulate backend: all three methods at the BSR
@@ -91,7 +96,9 @@ Phases, each fatal on failure:
    table's bytes printed); then 10 iterations of AMG-preconditioned CG
    through the device operators beside the same solver on float64 host
    matvecs, the true residual of each iteration side by side, and the
-   V-cycle's wall and ELL launches;
+   V-cycle's wall and ELL launches (``level_operators``, the device PCG
+   and the V-cycle in deterministic mode, so phase 9h can hold two
+   processes to them bit for bit);
 9b. the distributed SpGEMM at the BSR path's grid: level 0's ``A @ P``
    on the simulate backend bit-equal to ``csr_matmul`` (nap and
    standard), the device program in float32 (rtol 1e-4, atol 1e-4) and
@@ -117,9 +124,11 @@ Phases, each fatal on failure:
    build, the staged ELL values written in place: same ``data_ptr()``),
    its products exact, the swap's host seconds beside a fresh
    ``compile_nap``; each column of an nv = 8 apply against its own
-   nv = 1 apply (printed); node5 dies at CG iteration 8 of two solves:
-   the service evicts it, lands on Topology(31, 16) with an elastic
-   partition, releases the old plan's tensors, restores the iteration-8
+   nv = 1 apply (printed); node5 dies at CG iteration 8 of two solves
+   and node21 at the next step (phase 9h's plan; this run is the one
+   phase 9h's processes are held to): the service evicts both at once,
+   lands on Topology(30, 16) with an elastic partition, releases the
+   old plan's tensors, restores the iteration-8
    checkpoint and finishes every request, the spmv bit-equal to the
    uninterrupted run and the exact product, each solve bit-equal to
    ``batched_cg`` on an operator compiled on its own on the survivor
@@ -130,7 +139,12 @@ Phases, each fatal on failure:
    which the previous committed step stands;
 9e. the multi-process mesh on the main path's matrix and topology: two
    processes started by ``repro_torch.mesh.launcher.launch`` (this
-   script re-entered with ``--mesh-child``) share the card over gloo,
+   script re-entered with ``--mesh-child``; started after phase 8's
+   device programs, they run while this process runs the simulate
+   backend and phase 9's hierarchy, level operators and float64 host
+   twins, work that times nothing on the card, and phase 9 waits for
+   them before its first timing; their checks follow phase 9d) share
+   the card over gloo,
    each owning 16 of the 32 nodes (256 ranks); per process the NAP
    forward at nv = 1 and 8 and transpose, the multistep forward and
    transpose and the standard forward at nv = 1, each bit-equal to the
@@ -140,8 +154,8 @@ Phases, each fatal on failure:
    ``operator(a)`` with no topology (discovered Topology(2, 16)); per
    process and apply the wall, ELL launches, peak, bytes sent to the
    other process and staged through pinned host memory, device-program
-   ms (CUDA events, median of 10, or one call above 1 s) beside the
-   single-process ones, host compile s; one process over NCCL (run in
+   ms (CUDA events, the median of as many calls as fit in ~1 s) beside
+   the single-process ones, host compile s; one process over NCCL (run in
    phase 4, while its plan is live: this process attached as a 1-process
    NCCL job, the nap forward bit-equal to phase 4's, NCCL's node and
    split all-to-alls and a stage / all-gather round trip on device
@@ -151,6 +165,25 @@ Phases, each fatal on failure:
    to them per process (one exchange of the process's buffer a record)
    beside the Blue Waters constants, with the card's name and power
    limit;
+9h. the stack across processes, in the children of 9e's launch (each
+   owning 16 of Topology(32, 16)'s nodes): (a) integrity on each
+   method's plan (``integrity="detect"``, the compile cache handing over
+   9e's plan): the NAP forward at nv = 1 and 8 and its transpose, the
+   multistep forward and transpose and the standard forward at nv = 1,
+   bit-equal to phases 4, 6 and 7, with no mismatch; bare and
+   instrumented device ms, peak and bytes to the other process and
+   staged (checksum words included); phase 8's faults replayed, each
+   raising phase 8's one-process mismatch list in both processes; one
+   cross-process bitflip a run under ``"recover"``, bit-equal to the clean
+   result with equal counters; (b) ``level_operators(materialize=True)``
+   from phase 9's hierarchy (an npz), 10 PCG iterations and one V-cycle
+   in deterministic mode, every residual and the V-cycle bit-equal to
+   phase 9's, and one iteration's device busy share; (c) phase 9d's
+   service scenario over the node blocks (process 0 writes the
+   checkpoints): log, stats, plan-cache counters, tickets, results and
+   checkpoint digests equal 9d's, then one node lost raises
+   ``DiscoveryError`` in both; per-process walls beside the one-process
+   ones, with the card's name and power limit;
 9f. MoE token dispatch at qwen3-moe-235b-a22b's full width (d_model 4096,
    128 experts, top-8, moe_dff 1536, capacity factor 1.25; weights in
    bf16 from the seed on the card) on Topology(4, 8), 32 ranks batched
@@ -244,6 +277,7 @@ the grids of the SpMV phases and ``--lm-layers`` the depth of phase 11,
 for a short first call after a kernel change.
 """
 import argparse
+import dataclasses
 import gc
 import hashlib
 import json
@@ -253,6 +287,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -318,7 +353,8 @@ from repro_torch.moe.dispatch import (EPInfo, dispatch_operator,  # noqa: E402
                                       moe_apply_sharded)
 from repro_torch.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.core.spmv_torch import clear_compile_cache  # noqa: E402
-from repro_torch.mesh import (attach, default_registry, detach,  # noqa: E402
+from repro_torch.mesh import (DiscoveryError, attach,  # noqa: E402
+                              default_registry, detach,
                               fetch_mesh_array, launch, mesh_env, mesh_for,
                               pick_coordinator, stage_mesh_array)
 from repro_torch.mesh.comm import (inter_node_bytes,  # noqa: E402
@@ -692,6 +728,7 @@ def profile_program(label, fn, wall_ms):
           f"kernels; top: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total / 1e3:.4f} ms x{e.count}"
               for e in top))
+    return busy
 
 
 def drive(label, fn):
@@ -1090,8 +1127,8 @@ def record_messages(ex, direction, v):
         return orig_fault(self, phase, buf)
 
     def fault_pair(send, spec):
-        nv, p, _, pad = send.shape
-        rec["pair"] = send.permute(1, 2, 3, 0).reshape(p, p, pad * nv).clone()
+        nv, p, n_r, pad = send.shape
+        rec["pair"] = send.permute(1, 2, 3, 0).reshape(p, n_r, pad * nv).clone()
         return orig_pair(send, spec)
 
     spmv_torch._Wire.fault, spmv_torch._fault_pair = fault, fault_pair
@@ -1104,31 +1141,62 @@ def record_messages(ex, direction, v):
 
 
 def zero_spec(ex):
+    """A clean fault spec for the executor's plan (its node block's rows
+    for a plan of a multi-process job)."""
     n = len(message_phases(ex.method)) + 1
-    return torch.zeros((ex.topo.n_nodes, ex.topo.ppn, n, 4), dtype=torch.int32,
-                       device=DEV)
+    mesh = ex.compiled.mesh
+    nodes = ex.topo.n_nodes if mesh is None else mesh.n_local_nodes
+    return torch.zeros((nodes, ex.topo.ppn, n, 4), dtype=torch.int32, device=DEV)
 
 
-def pick_edges(buf):
+def pick_edges(buf, regions=None):
     """Per fault kind, one real edge ``(sender, slot, element)`` of a
     message phase whose payload is neither all zero nor constant (the
     median such edge), the fault then changing its bits: ``duplicate``
     also needs the next slot's payload to differ.  None where no edge
-    qualifies (the documented undetectable classes)."""
+    qualifies (the documented undetectable classes).  ``regions(kind)``
+    lists the ``((s0, s1), (k0, k1))`` sender and slot ranges to look in,
+    in order (default: the whole buffer)."""
     w = buf.view(torch.int32) if buf.dtype != torch.int32 else buf
     good = (w != 0).any(-1) & (w != w[..., :1]).any(-1)
     dup = good & (w != torch.roll(w, -1, 1)).any(-1)
+    whole = [((0, w.shape[0]), (0, w.shape[1]))]
 
-    def median(mask):
-        idx = torch.nonzero(mask.reshape(-1)).reshape(-1)
+    def median(mask, region):
+        (s0, s1), (k0, k1) = region
+        idx = torch.nonzero(mask[s0:s1, k0:k1].reshape(-1)).reshape(-1)
         if idx.numel() == 0:
             return None
         flat = int(idx[idx.numel() // 2])
-        s, k = divmod(flat, w.shape[1])
+        s, k = divmod(flat, k1 - k0)
+        s, k = s + s0, k + k0
         return s, k, int(torch.nonzero(w[s, k])[0])
 
-    edge = median(good)
-    return {kind: (median(dup) if kind == "duplicate" else edge) for kind in FAULT_KINDS}
+    out = {}
+    for kind in FAULT_KINDS:
+        mask = dup if kind == "duplicate" else good
+        out[kind] = next((e for e in (median(mask, r) for r in
+                                      (regions(kind) if regions else whole))
+                          if e is not None), None)
+    return out
+
+
+def stack_regions(phase, n_procs, n_slots):
+    """Where phase 8 looks for each kind's edge, so that phase 9h can replay
+    its faults across two processes: the senders of kind i in the block of
+    process i mod 2 (the other block where that one has no edge), and the
+    bitflip of an exchange that crosses processes (``inter``, ``pair``,
+    ``direct``) from a rank of process 0 to a node or rank of process 1."""
+    half = n_procs // MESH_PROCS
+    blocks = [((b * half, (b + 1) * half), (0, n_slots)) for b in range(MESH_PROCS)]
+
+    def regions(kind):
+        if kind == "bitflip" and phase in ("inter", "pair", "direct"):
+            return [(blocks[0][0], (n_slots // MESH_PROCS, n_slots))]
+        i = FAULT_KINDS.index(kind) % MESH_PROCS
+        return [blocks[i], blocks[1 - i]]
+
+    return regions
 
 
 def expected_mismatch(phase, s, k, ppn):
@@ -1157,15 +1225,19 @@ def expect_detected(view, v, label, fault, want):
     raise AssertionError(f"{label}: {fault} not detected")
 
 
-def fault_sweep(op, method, direction, v, ppn):
-    """Every fault kind on a real edge of every message phase, then a
-    compute bitflip on a high exponent bit, each detected with the
-    reference's attribution; returns the number of faults detected."""
+def fault_sweep(op, method, direction, v, ppn, replay):
+    """Every fault kind on a real edge of every message phase (senders in
+    both halves of the ranks, see :func:`stack_regions`), then a compute
+    bitflip on a high exponent bit, each detected with the reference's
+    attribution; appends each ``(fault, mismatch)`` to ``replay`` (phase
+    9h replays them across processes) and returns the number of faults
+    detected."""
     view = op.T if direction == "transpose" else op
     rec = record_messages(op.executor, direction, v)
     n = 0
     for phase in message_phases(method):
-        edges = pick_edges(rec[phase])
+        edges = pick_edges(rec[phase], stack_regions(phase, op.topo.n_procs,
+                                                     rec[phase].shape[1]))
         for kind in FAULT_KINDS:
             edge = edges[kind]
             if edge is None and kind == "bitflip":
@@ -1178,22 +1250,25 @@ def fault_sweep(op, method, direction, v, ppn):
             node, proc, slot = expected_mismatch(phase, s, k, ppn)
             fault = MessageFault(phase=phase, kind=kind, node=s // ppn, proc=s % ppn,
                                  slot=k, element=elem, bit=20, direction=direction)
-            expect_detected(view, v, f"{method} {direction} {phase} {kind}", fault,
-                            ("wire", phase, scope_for(phase, node, proc, slot, ppn),
-                             node, proc, slot, direction))
+            want = ("wire", phase, scope_for(phase, node, proc, slot, ppn),
+                    node, proc, slot, direction)
+            expect_detected(view, v, f"{method} {direction} {phase} {kind}", fault, want)
+            replay.append((fault, want))
             n += 1
         print(f"    {method} {direction} {phase}: edge {edges['bitflip']}, "
               f"{sum(e is not None for e in edges.values())} kinds on live edges")
     # ABFT: bit 30 of a value in [0.1, 1) makes it ~2^128 times larger and
-    # still finite, far above the tolerance (a flip to inf would not be)
-    r = op.topo.n_procs - 1
+    # still finite, far above the tolerance (a flip to inf would not be);
+    # the last rank forward, the first transposed (one in each half)
+    r = op.topo.n_procs - 1 if direction == "forward" else 0
     vals = rec["compute"][r, 0]
     idx = torch.nonzero((vals.abs() >= 0.1) & (vals.abs() < 1.0)).reshape(-1)
     elem = int(idx[idx.numel() // 2])
     fault = MessageFault(phase="compute", kind="bitflip", node=r // ppn, proc=r % ppn,
                          element=elem, bit=30, direction=direction)
-    expect_detected(view, v, f"{method} {direction} compute", fault,
-                    ("abft", "compute", "on_proc", r // ppn, r % ppn, 0, direction))
+    want = ("abft", "compute", "on_proc", r // ppn, r % ppn, 0, direction)
+    expect_detected(view, v, f"{method} {direction} compute", fault, want)
+    replay.append((fault, want))
     del rec
     free()
     return n + 1
@@ -1207,8 +1282,10 @@ def bare_apply(ex, direction, v):
     return spmv_torch.unpack_vector(w.cpu().numpy(), part, ex.topo)
 
 
-def phase_integrity(a, topo, part, oracles, a_b):
-    """[8] wire integrity on the main path: nap, standard and multistep."""
+def phase_integrity(a, topo, part, oracles, a_b, keep):
+    """[8] wire integrity on the main path: nap, standard and multistep.
+    ``keep["faults"]`` takes each method and direction's scripted faults
+    with their mismatches, for phase 9h."""
     n = int(np.sqrt(a.shape[0]))
     print(f"[8] integrity: n={n}, Topology(32, 16), nap / multistep / standard, "
           f"integrity='detect'")
@@ -1257,9 +1334,11 @@ def phase_integrity(a, topo, part, oracles, a_b):
         # 2. scripted faults on real edges, both directions
         n_faults = 0
         for direction in ("forward", "transpose"):
+            replay = keep["faults"][f"{method}/{direction}"] = []
             with deterministic(direction == "transpose"):
                 n_faults += fault_sweep(op, method, direction,
-                                        v1 if direction == "forward" else u1, ppn)
+                                        v1 if direction == "forward" else u1, ppn,
+                                        replay)
         rep = op.integrity_report()
         print(f"  {method}: {n_faults} scripted faults detected with the expected "
               f"attribution; strikes {rep['strikes']}")
@@ -1279,7 +1358,9 @@ def phase_integrity(a, topo, part, oracles, a_b):
                     torch.cuda.synchronize()
                     row[f"{label}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
                     del out
-                    row[f"{label}_ms"] = time_ms(lambda: prog(shards), reps=10)
+                    row[f"{label}_ms"] = time_ms(lambda: prog(shards), reps=5,
+                                                 warmup=1)
+                keep["integrity_ms"][f"{method}/{direction}/{nv}"] = row
                 print(f"  {method} {direction} nv={nv}: bare {row['bare_ms']:.4f} ms "
                       f"(peak {row['bare_peak_gb']:.3f} GB), instrumented "
                       f"{row['instrumented_ms']:.4f} ms (peak "
@@ -1426,8 +1507,30 @@ def check_level(label, got, want):
     return float(np.abs(got - want).max()) / scale
 
 
-def phase_amg(a, topo, gen, seed, full_size):
-    """[9] the AMG solver path on the main path's matrix."""
+def amg_pcg(levels, ops, b, a0):
+    """10 AMG-preconditioned CG iterations from zero; the true relative
+    residual ||b - A x|| / ||b|| (float64 host A) of each iterate."""
+    b_norm = float(np.linalg.norm(b))
+    hist = []
+    cg_solve(levels[0].a, b, tol=0.0, maxiter=10, spmv=ops[0].a,
+             precond=lambda r: amg_vcycle(levels, r, operators=ops),
+             callback=lambda it, x: hist.append(
+                 float(np.linalg.norm(b - a0 @ x)) / b_norm))
+    return hist
+
+
+def phase_amg(a, topo, gen, seed, full_size, keep, levels_file=None,
+              children=None):
+    """[9] the AMG solver path on the main path's matrix.  The device
+    SpGEMM, the PCG and the V-cycle run in deterministic mode (their
+    ``index_add_`` sums in a fixed order), so that phase 9h's processes can
+    be held to them bit for bit; ``keep["amg"]`` takes the device
+    residuals, the host twin's, the V-cycle's output digest and the walls.
+    With ``levels_file`` the hierarchy and the right-hand side are written
+    there for 9h's children (and ``levels_file + ".ready"`` when done);
+    ``children`` (``start_mesh_children``'s ``finish``) is waited for after
+    ``level_operators`` and the float64 host twins, before the first
+    timing on the card, its result kept as ``keep["children"]``."""
     import repro_torch.api as api_mod
     rng = np.random.default_rng(seed + 8)
     print(f"[9] AMG: n={int(np.sqrt(a.shape[0]))}, smoothed aggregation theta 0.1, "
@@ -1438,6 +1541,10 @@ def phase_amg(a, topo, gen, seed, full_size):
     print(f"  hierarchy {t_h:.2f} s (host, float64): {len(levels)} levels, rows "
           f"{[lv.a.shape[0] for lv in levels]}, nnz {[lv.a.nnz for lv in levels]}, "
           f"P nnz {[lv.p.nnz for lv in levels if lv.p is not None]}")
+    b = np.random.default_rng(seed + 18).standard_normal(levels[0].a.shape[0])
+    if levels_file is not None:
+        save_levels(levels_file, levels, b)
+        Path(f"{levels_file}.ready").touch()
     chooser = []
     choose = api_mod.choose_comm
 
@@ -1463,8 +1570,9 @@ def phase_amg(a, topo, gen, seed, full_size):
     runs0 = torch_spgemm_runs()
     t0 = time.perf_counter()
     try:
-        ops = level_operators(levels, topo, comm="auto", materialize=True,
-                              spgemm_backend="torch", device=DEV)
+        with deterministic():
+            ops = level_operators(levels, topo, comm="auto", materialize=True,
+                                  spgemm_backend="torch", device=DEV)
     finally:
         api_mod.choose_comm = choose
         spgemm_torch.compile_spgemm = compile_fn
@@ -1476,7 +1584,31 @@ def phase_amg(a, topo, gen, seed, full_size):
     print(f"  level_operators(materialize=True, spgemm_backend='torch') {t_ops:.2f} s "
           f"(chooser {sum(chooser):.2f} s, SpGEMM compile "
           f"{sum(r['seconds'] for r in products):.2f} s); {n_products} device SpGEMM "
-          f"runs, every coarse A held against the host assembly at rtol 5e-5 x depth")
+          f"runs, every coarse A held against the host assembly at rtol 5e-5 x depth"
+          + ("" if children is None else
+             " (hierarchy and level_operators ran beside 9e / 9h's children)"))
+    # float64 host work that needs no card, done while the children run:
+    # the host-matvec twin of the PCG, its V-cycle, level 0's host A @ P
+    a0 = scipy_of(levels[0].a)
+    host_ops = [LevelOperators(a=HostOp(scipy_of(lv.a)),
+                               p=None if lv.p is None else HostOp(scipy_of(lv.p)),
+                               r=None if lv.r is None else HostOp(scipy_of(lv.r)))
+                for lv in levels]
+    t0 = time.perf_counter()
+    res_host = amg_pcg(levels, host_ops, b, a0)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    z_host = amg_vcycle(levels, b, operators=host_ops)
+    t_vc_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ap_host = csr_matmul(levels[0].a, levels[0].p)
+    t_ap_host = time.perf_counter() - t0
+    if children is not None:
+        t0 = time.perf_counter()
+        keep["children"] = children()
+        print(f"  waited {time.perf_counter() - t0:.1f} s for 9e / 9h's children "
+              f"(they ran {keep['children']['wall_s']:.1f} s); nothing on the card "
+              f"was timed while they ran")
     for i in range(1, len(levels)):
         if ops[i].a is not None:
             got, want = ops[i].a.a, levels[i].a
@@ -1547,33 +1679,17 @@ def phase_amg(a, topo, gen, seed, full_size):
         held_and_timed(f"level {i} P", e.p, x, r, i == 0)
     print(f"  every distributed level ({n_dist}) matches the float64 host products of "
           f"its operators' matrices: max abs err / max |ref| {max(errs):.3e}")
-    gal_counts = spgemm_level0(levels, ops, products, topo, rng)
+    gal_counts = spgemm_level0(levels, ops, products, topo, rng, ap_host, t_ap_host)
     del products
     free()
 
-    # AMG-preconditioned CG, 10 iterations, on the card and with host matvecs
-    a0 = scipy_of(levels[0].a)
-    host_ops = [LevelOperators(a=HostOp(scipy_of(lv.a)),
-                               p=None if lv.p is None else HostOp(scipy_of(lv.p)),
-                               r=None if lv.r is None else HostOp(scipy_of(lv.r)))
-                for lv in levels]
-    b = rng.standard_normal(a0.shape[0])
-    b_norm = float(np.linalg.norm(b))
-
-    def pcg(level_ops):
-        hist = []
-        cg_solve(levels[0].a, b, tol=0.0, maxiter=10, spmv=level_ops[0].a,
-                 precond=lambda r: amg_vcycle(levels, r, operators=level_ops),
-                 callback=lambda it, x: hist.append(
-                     float(np.linalg.norm(b - a0 @ x)) / b_norm))
-        return hist
-
+    # AMG-preconditioned CG, 10 iterations, on the card (the host-matvec
+    # twin ran above)
     t0 = time.perf_counter()
-    res_dev, counts = drive("PCG, 10 iterations, device operators", lambda: pcg(ops))
+    with deterministic():
+        res_dev, counts = drive("PCG, 10 iterations, device operators",
+                                lambda: amg_pcg(levels, ops, b, a0))
     t_dev = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res_host = pcg(host_ops)
-    t_host = time.perf_counter() - t0
     print("  PCG true relative residual ||b - A x|| / ||b|| (float64 host A), device "
           "operators vs host float64 matvecs:")
     for it, (rd, rh) in enumerate(zip(res_dev, res_host), 1):
@@ -1591,18 +1707,19 @@ def phase_amg(a, topo, gen, seed, full_size):
         raise AssertionError("device PCG did not reduce the residual")
     r0 = b - a0 @ np.zeros_like(b)
     t0 = time.perf_counter()
-    z_dev, vc = drive("one V-cycle, device operators",
-                      lambda: amg_vcycle(levels, r0, operators=ops))
+    with deterministic():
+        z_dev, vc = drive("one V-cycle, device operators",
+                          lambda: amg_vcycle(levels, r0, operators=ops))
     t_vc = time.perf_counter() - t0
+    keep["amg"] = dict(res=res_dev, res_host=res_host, vcycle=digest(z_dev),
+                       vcycle_s=t_vc, pcg_s=t_dev, level_operators_s=t_ops)
     profile_program("one V-cycle, device operators",
                     lambda: amg_vcycle(levels, r0, operators=ops), t_vc * 1e3)
-    t0 = time.perf_counter()
-    z_host = amg_vcycle(levels, r0, operators=host_ops)
-    t_vc_host = time.perf_counter() - t0
     az, az_dev = a0 @ z_host, ops[0].a @ z_host
     print(f"  V-cycle wall {t_vc:.3f} s with device operators ({vc.get('ell_spmm_packed', 0)}"
           f" ELL launches), {t_vc_host:.3f} s with host float64 matvecs; PCG "
-          f"{t_dev:.2f} s device, {t_host:.2f} s host; one V-cycle's output, device "
+          f"{t_dev:.2f} s device, {t_host:.2f} s host (the host runs beside 9e / "
+          f"9h's children); one V-cycle's output, device "
           f"vs host: ||dz|| / ||z|| {np.linalg.norm(z_dev - z_host) / np.linalg.norm(z_host):.3e}"
           f", ||A dz|| / ||A z|| {np.linalg.norm(a0 @ (z_dev - z_host)) / np.linalg.norm(a0 @ z_host):.3e}"
           f"; device A z vs float64 A z on that z: ||d(Az)|| / ||A z|| "
@@ -1691,14 +1808,13 @@ def spgemm_report(products, topo):
         free()
 
 
-def spgemm_level0(levels, ops, products, topo, rng):
-    """Level 0's products in float64 against host ``csr_matmul``, its
-    materialized Galerkin operator against the lazy chain, and its
-    standard-method ``A @ P`` through the live-slot pair exchange."""
+def spgemm_level0(levels, ops, products, topo, rng, ap_host, t_ap_host):
+    """Level 0's products in float64 against host ``csr_matmul`` (its
+    ``A @ P``, ``ap_host``, took ``t_ap_host`` s), its materialized
+    Galerkin operator against the lazy chain, and its standard-method
+    ``A @ P`` through the live-slot pair exchange."""
     a0, p0 = levels[0].a, levels[0].p
-    t0 = time.perf_counter()
-    ap_host = csr_matmul(a0, p0)
-    print(f"  level 0 host csr_matmul A @ P {time.perf_counter() - t0:.2f} s")
+    print(f"  level 0 host csr_matmul A @ P {t_ap_host:.2f} s")
     for rec, b_, want, label in ((products[0], p0, ap_host, "A @ P"),
                                  (products[1], ap_host, levels[1].a, "R @ AP")):
         c = rec["compiled"]
@@ -1970,32 +2086,37 @@ def cg_iteration(op, P, X, R):
     return X + alpha * P, R - alpha * AP
 
 
-def phase_service(a, a_b, topo, seed):
+def phase_service(a, a_b, topo, seed, keep):
     """[9d] the solver service at full size: batching, a hot value swap,
-    a node lost mid-solve, then scripted scenarios at the BSR grid."""
+    node5 lost mid-solve and node21 at the next step (phase 9h's fault
+    plan: this is the one-process run its processes are held to, in
+    ``keep["service"]`` and ``keep["service_walls"]``), then scripted
+    scenarios at the BSR grid."""
     n = int(np.sqrt(a.shape[0]))
     print(f"[9d] solver service: n={n} ({a.shape[0]} rows, {a.nnz} nnz), "
           f"Topology({topo.n_nodes}, {topo.ppn}), backend torch, checkpoint "
-          f"every 4 iterations, node5 scripted to die at CG iteration 8")
+          f"every 4 iterations, {STACK_DEAD[0]} scripted to die at CG iteration 8 "
+          f"and {STACK_DEAD[1]} at the next step")
     rng = np.random.default_rng(seed + 9)
     clear_compile_cache()
     reg = default_registry()
     ell_launches = 0
+    walls = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         svc = SolverService(topo, backend="torch", checkpoint_dir=tmp,
                             checkpoint_every=4, max_attempts=6, device=DEV,
-                            fault_plan=FaultPlan.of(dead_node(1, "node5",
-                                                              at_iteration=8)))
+                            fault_plan=stack_fault_plan())
         svc.register_matrix("diffusion", a)
 
         # 1. eight spmv requests, one nv = 8 apply
         V = rng.standard_normal((a.shape[0], 8))
         tickets = [svc.submit(f"tenant{i % 3}", "diffusion", V[:, i])
                    for i in range(8)]
+        every = list(tickets)
         with timed_calls(spmv_torch, "compile_nap") as comp:
             t0 = time.perf_counter()
             rep, cnt = drive("service step: 8 spmv requests", svc.step)
-            t_step = time.perf_counter() - t0
+            t_step = walls["step_s"] = time.perf_counter() - t0
         if rep["executed"] != 8 or svc.plans.stats["misses"] != 1:
             raise AssertionError(f"8 requests did not run as one batch: {rep}, "
                                  f"{svc.plans.stats}")
@@ -2027,10 +2148,12 @@ def phase_service(a, a_b, topo, seed):
         svc.update_values("diffusion", a_int)
         tickets = [svc.submit(f"tenant{i % 3}", "diffusion", V_int[:, i])
                    for i in range(8)]
+        every += tickets
         with timed_calls(spmv_torch.CompiledNAP, "swap_values") as swap:
             t0 = time.perf_counter()
             _, cnt = drive("service step: hot swap + 8 spmv requests", svc.step)
-            t_step = time.perf_counter() - t0
+            t_step = walls["swap_step_s"] = time.perf_counter() - t0
+        walls["swap_s"] = swap.seconds[0]
         ell_launches += cnt.get("ell_spmm_packed", 0)
         st = svc.plans.stats
         if (st["hot_swaps"], st["misses"]) != (1, 1) or op.trace_counts() != builds:
@@ -2071,20 +2194,22 @@ def phase_service(a, a_b, topo, seed):
         t_spmv = svc.submit("tenant0", "diffusion", b_int, kind="spmv")
         solves = [svc.submit(f"tenant{1 + i}", "diffusion", B[:, i], kind="solve",
                              tol=1e-5, maxiter=40, deadline=1e6) for i in range(2)]
+        every += [t_spmv] + solves
         ck = svc.ckpt
         with timed_calls(ck, "save") as saves, timed_calls(ck, "restore") as restores:
             t0 = time.perf_counter()
             _, cnt = drive("service run: node loss mid-solve",
                            lambda: svc.run(max_steps=40))
-            t_run = time.perf_counter() - t0
+            t_run = walls["run_s"] = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 1e9
         ell_launches += cnt.get("ell_spmm_packed", 0)
         print("  service log:\n    " + "\n    ".join(svc.log))
         new_topo = svc.topo
         part = svc.matrices["diffusion"]["row_part"]
         if not (t_spmv.status == "done" and all(t.status == "done" for t in solves)
-                and svc.stats["recoveries"] == 1 and "node5" not in svc.nodes
-                and (new_topo.n_nodes, new_topo.ppn) == (topo.n_nodes - 1, topo.ppn)
+                and svc.stats["recoveries"] == 1
+                and not set(STACK_DEAD) & set(svc.nodes)
+                and (new_topo.n_nodes, new_topo.ppn) == (topo.n_nodes - 2, topo.ppn)
                 and part.kind == "elastic"):
             raise AssertionError(f"recovery failed: {svc.report()['stats']}, "
                                  f"{[t.status for t in [t_spmv] + solves]}")
@@ -2110,13 +2235,17 @@ def phase_service(a, a_b, topo, seed):
                                  f"oracle (max |diff| {np.abs(got - X).max():.3e})")
         true_rel = [float(np.linalg.norm(host_apply(a_int, X[:, i]) - B[:, i])
                           / np.linalg.norm(B[:, i])) for i in range(2)]
-        print(f"  step 3: node5 evicted, Topology({new_topo.n_nodes}, "
+        print(f"  step 3: {' and '.join(STACK_DEAD)} evicted, Topology({new_topo.n_nodes}, "
               f"{new_topo.ppn}) kind {part.kind}; spmv bit-equal to the "
               f"uninterrupted run and the exact product; solves bit-equal to the "
               f"survivor oracle ({iters} iterations after the restore, true "
               f"relative residuals {true_rel[0]:.3e} {true_rel[1]:.3e}); run "
               f"{t_run:.2f} s wall")
         ckpt_bytes = dir_bytes(max(Path(tmp).glob("step_*")))
+        keep["service"] = service_summary(svc, every, tmp)
+        walls.update(saves=len(saves.seconds), save_s=statistics.median(saves.seconds),
+                     restore_s=statistics.median(restores.seconds),
+                     recover_rebuild_s=svc.stats["last_recover_rebuild_s"])
         print(f"  last_recover_rebuild_s {svc.stats['last_recover_rebuild_s']:.2f} "
               f"(survivor partition, plan release, compile_nap on the survivors, "
               f"restore); checkpoint save {statistics.median(saves.seconds):.3f} s "
@@ -2131,12 +2260,15 @@ def phase_service(a, a_b, topo, seed):
         t0 = time.perf_counter()
         cg_iteration(op_s, P, P, P)
         wall = (time.perf_counter() - t0) * 1e3
+        walls["cg_iteration_s"] = wall / 1e3
         profile_program("one CG iteration (nv=2 apply + host updates)",
                         lambda: cg_iteration(op_s, P, P, P), wall)
         # the profiler may drop kernels late in the script (PERF.md §7): the
         # apply's device program by CUDA events, as a share of the wall
         ms = time_programs(op_s.executor, [("CG apply nv=2", "forward", P, {})],
                            profile=False)["CG apply nv=2"]
+        walls["cg_apply_ms"] = ms
+        keep["service_walls"] = walls
         print(f"  one CG iteration: {wall:.2f} ms of wall, its device program "
               f"{ms:.4f} ms by CUDA events ({100 * ms / wall:.2f}%; pack / "
               f"unpack copies and float64 host updates take the rest)")
@@ -2226,9 +2358,11 @@ def service_scenarios(a_b, topo, seed):
 # the multi-process mesh (phase 9e) ----------------------------------------------
 
 MESH_PROCS = 2
-#: what each process of the gloo run applies per method: forwards at nv = 1
-#: and 8, the transpose (deterministic); the standard method's padded
-#: [512, 512, 2025] pair table only at nv = 1
+#: what each process of the gloo run applies per method, bare (9e) and
+#: instrumented (9h): forwards at nv = 1 and 8, the transpose
+#: (deterministic); the standard method's padded [512, 512, 2025] pair
+#: table only at nv = 1 (the instrumented nv = 8 program peaked at 39.268
+#: GB in one process, PERF.md §5)
 MESH_RUNS = {"nap": ("f1", "f8", "t1"), "multistep": ("f1", "t1"),
              "standard": ("f1",)}
 
@@ -2278,20 +2412,14 @@ def mesh_apply(pid, label, mesh, fn):
 
 def mesh_program_ms(pid, op, runs, x):
     """Device-program ms per run (CUDA events, pack/unpack excluded), in
-    lockstep across the processes (each program holds collectives): the
-    median of 10, or one timed call when an apply takes more than 1 s on
-    any process."""
+    lockstep across the processes (each program holds collectives):
+    :func:`stack_program_ms`'s median of as many calls as fit in ~1 s."""
     out = {}
     for run in runs:
         direction = "transpose" if run == "t1" else "forward"
         ex = op.executor
         shards = ex.packed(direction, x[{"f1": "v1", "f8": "v8", "t1": "u1"}[run]])
-        prog = ex.program(direction)
-        once = time_ms(lambda: prog(shards), reps=1, warmup=1)
-        reps = 1 if all_max(once) > 1e3 else 10
-        out[run] = once if reps == 1 else time_ms(lambda: prog(shards), reps=10,
-                                                  warmup=0)
-        out[f"{run}_reps"] = reps
+        out[run], out[f"{run}_reps"] = stack_program_ms(ex.program(direction), shards)
         del shards
     print(f"  [p{pid}] device program ms (CUDA events, pack/unpack excluded): "
           + ", ".join(f"{r} {out[r]:.4f} (x{out[f'{r}_reps']})" for r in runs),
@@ -2300,11 +2428,24 @@ def mesh_program_ms(pid, op, runs, x):
 
 
 def mesh_child(spec_file):
-    """One process of phase 9e, started by ``launch`` with the REPRO_MESH_*
-    variables: attach, build the main path's operators over the node block
-    this process owns, apply, time, calibrate; write the results (process
+    """One process of phases 9e and 9h, started by ``launch`` with the
+    REPRO_MESH_* variables: attach, build the main path's operators over
+    the node block this process owns, apply, time, calibrate, and (phase
+    9h, when the spec names its inputs) run integrity on each method's
+    plan, then the AMG path and the service; write the results (process
     0) and a report with the digests of every result (each process)."""
     spec = json.loads(Path(spec_file).read_text())
+    parent = os.getppid()
+
+    def watchdog():
+        """The launching script runs on beside this process; if it dies,
+        this process stops too instead of outliving it."""
+        while True:
+            time.sleep(2)
+            if os.getppid() != parent:
+                os._exit(3)
+
+    threading.Thread(target=watchdog, daemon=True).start()
     info = attach(verbose=True)
     pid = info["process_id"]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2318,6 +2459,9 @@ def mesh_child(spec_file):
           f"({torch.cuda.get_device_name()}), owns nodes {mesh.nodes} = ranks "
           f"{mesh.ranks} of {topo}", flush=True)
     results, report = {}, {"pid": pid, "methods": {}, "walls": {}}
+    stack = "faults" in spec
+    if stack:
+        report.update(integrity={}, ell={"forward": [], "transpose": []})
     for method, runs in spec["runs"].items():
         t0 = time.perf_counter()
         op = operator(a, topo, part, method=method)
@@ -2342,6 +2486,10 @@ def mesh_child(spec_file):
         plan = c.ms_plan if method == "multistep" else c.plan
         report["walls"][method] = measure_phase_walls(plan, topo, device=DEV)
         report["methods"][method] = rec
+        if stack:       # 9h (a), on this plan (the compile cache hands it over)
+            report["integrity"][method] = stack_integrity(
+                pid, a, topo, part, x, spec["faults"], mesh, method,
+                op.spec.local_compute, op.executor.device, report["ell"])
         del op, c
         free()
     t0 = time.perf_counter()
@@ -2357,6 +2505,8 @@ def mesh_child(spec_file):
         op.executor.compiled.plan, op.topo, device=DEV)
     del op
     free()
+    if stack:
+        stack_rest(pid, a, topo, spec, report)
     report["digests"] = {k: digest(w) for k, w in results.items()}
     out = Path(spec["out"])
     if pid == 0:
@@ -2366,33 +2516,68 @@ def mesh_child(spec_file):
     print(f"  [p{pid}] done", flush=True)
 
 
-def run_mesh_children(tmp, a, seed):
-    """Launch the gloo children of phase 9e (this script with
-    ``--mesh-child``) on the card with the main path's matrix (a file, so
-    they need not generate it again); echo their lines; return their
-    reports and process 0's results.  A child that fails fails the phase
-    (LaunchError)."""
-    matrix = Path(tmp) / "a.npz"
+def start_mesh_children(tmp, a, seed, keep):
+    """Start the gloo children of phases 9e and 9h (this script with
+    ``--mesh-child``) on the card, in the background, with the main path's
+    matrix (a file, so they need not generate it again) and 9h's inputs:
+    phase 8's fault replays now, phase 9's hierarchy once
+    :func:`phase_amg` has written it (the children wait for it), a shared
+    checkpoint directory.  They run while this process builds phase 9's
+    hierarchy and level operators, host work that times nothing on the
+    card.  Returns ``finish()``: it waits for them, echoes their lines and
+    returns their reports, process 0's results and the digests of the
+    checkpoints they wrote.  A child that fails fails the phase
+    (LaunchError, raised by ``finish``)."""
+    tmp = Path(tmp)
+    matrix = tmp / "a.npz"
     np.savez(matrix, indptr=a.indptr, indices=a.indices, data=a.data,
              shape=np.asarray(a.shape))
-    spec_file = Path(tmp) / "spec.json"
-    spec_file.write_text(json.dumps(dict(matrix=str(matrix), seed=seed,
-                                         runs=MESH_RUNS, out=str(tmp))))
-    res = launch(str(Path(__file__).resolve()), MESH_PROCS,
-                 args=["--mesh-child", str(spec_file)], local_devices=16,
-                 env={"REPRO_MESH_BACKEND": "gloo"}, timeout_s=900)
-    for pid in range(MESH_PROCS):
-        for line in res.output(pid).splitlines():
-            if line.startswith(("  [p", "[mesh.attach]")):
-                print(line)
-    reports = [json.loads((Path(tmp) / f"report_{pid}.json").read_text())
-               for pid in range(MESH_PROCS)]
-    with np.load(Path(tmp) / "results.npz") as z:
-        results = {k: z[k] for k in z.files}
-    for k, w in results.items():
-        if any(r["digests"][k] != digest(w) for r in reports):
-            raise AssertionError(f"{k}: the processes returned different results")
-    return reports, results
+    (tmp / "ckpt").mkdir()
+    faults = {k: [(dataclasses.asdict(f), list(w)) for f, w in v]
+              for k, v in keep["faults"].items()}
+    spec_file = tmp / "spec.json"
+    spec_file.write_text(json.dumps(dict(
+        matrix=str(matrix), seed=seed, runs=MESH_RUNS, out=str(tmp),
+        faults=faults, levels=str(tmp / "levels.npz"), ckpt=str(tmp / "ckpt"))))
+    box = {}
+
+    def run():
+        try:
+            box["res"] = launch(str(Path(__file__).resolve()), MESH_PROCS,
+                                args=["--mesh-child", str(spec_file)],
+                                local_devices=16,
+                                env={"REPRO_MESH_BACKEND": "gloo"}, timeout_s=1200)
+        except BaseException as e:      # re-raised by finish()
+            box["err"] = e
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    print(f"[9e/9h] {MESH_PROCS} gloo children started in the background; they run "
+          f"phases 9e and 9h while this process runs the simulate backend and "
+          f"phase 9's hierarchy, level operators and host twins (their checks "
+          f"follow phase 9d)")
+
+    def finish():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        res = box["res"]
+        for pid in range(MESH_PROCS):
+            for line in res.output(pid).splitlines():
+                if line.startswith(("  [p", "[mesh.attach]", "  profile p")):
+                    print(line)
+        reports = [json.loads((tmp / f"report_{pid}.json").read_text())
+                   for pid in range(MESH_PROCS)]
+        with np.load(tmp / "results.npz") as z:
+            results = {k: z[k] for k in z.files}
+        for k, w in results.items():
+            if any(r["digests"][k] != digest(w) for r in reports):
+                raise AssertionError(f"{k}: the processes returned different results")
+        return dict(reports=reports, results=results, wall_s=time.perf_counter() - t0,
+                    ckpt=checkpoint_digests(tmp / "ckpt"))
+
+    return finish
 
 
 def nccl_one_process(op, v1, w1):
@@ -2441,16 +2626,18 @@ def nccl_one_process(op, v1, w1):
     return out
 
 
-def phase_mesh(a, seed, keep):
+def phase_mesh(a, keep):
     """[9e] the main path over two processes sharing the card (gloo), the
     discovered topology, phase 4's NCCL check, and the postal model fitted
-    to exchange walls measured here.  ``keep`` holds phases 4, 6 and 7's
+    to exchange walls measured here: the checks of what the children
+    started by :func:`start_mesh_children` returned (``keep["children"]``,
+    phase 9h's work included).  ``keep`` holds phases 4, 6 and 7's
     single-process results (and phase 4's NCCL check) and the float64
     oracles.  Returns the ELL launches of the phase's applies, forward and
     transpose, summed over the processes."""
     print(f"[9e] mesh: {MESH_PROCS} processes share the card over gloo, each "
           f"owning 16 of Topology(32, 16)'s nodes (256 ranks); "
-          f"n={int(np.sqrt(a.shape[0]))}")
+          f"n={int(np.sqrt(a.shape[0]))}; the same children ran phase 9h")
     t0 = time.perf_counter()
     ell = {"forward": 0, "transpose": 0}
     oracles = keep["oracles"]
@@ -2460,8 +2647,7 @@ def phase_mesh(a, seed, keep):
             "standard/f1": keep["standard"]["w1"]}
     exact = {"f1": "w1", "f8": "w8", "t1": "z1"}
     names = {"f1": "forward nv=1", "f8": "forward nv=8", "t1": "transpose nv=1"}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        reports, results = run_mesh_children(tmp, a, seed)
+    reports, results = keep["children"]["reports"], keep["children"]["results"]
     for key, w in want.items():
         got = results[key]
         if not np.array_equal(got, w):
@@ -2547,7 +2733,493 @@ def phase_mesh(a, seed, keep):
                if p is fit else " (alpha s a message, beta B/s a rank)"))
     print(f"  (fitted on {smi}: inter = across the two processes, intra = "
           f"inside one; Blue Waters is the paper's Cray model)")
-    print(f"  phase 9e {time.perf_counter() - t0:.1f} s")
+    stack_s = max(sum(r["integrity"][m]["s"] for m in MESH_RUNS) + r["amg_s"]
+                  + r["service_s"] for r in reports)
+    print(f"  phase 9e checks {time.perf_counter() - t0:.1f} s; the children ran "
+          f"{keep['children']['wall_s']:.1f} s from their start (during phase 9), "
+          f"{stack_s:.1f} s of it phase 9h's work")
+    return ell
+
+
+# the node-aware stack across processes (phase 9h) -------------------------------
+
+#: one node of each process's block: the survivors, Topology(30, 16),
+#: leave each process its own 15 nodes
+STACK_DEAD = ("node5", "node21")
+RUN_OPERAND = {"f1": "v1", "f8": "v8", "t1": "u1"}
+
+
+def run_direction(run):
+    return "transpose" if run == "t1" else "forward"
+
+
+def save_levels(path, levels, b):
+    """The AMG hierarchy (host float64 CSR matrices) and right-hand side
+    in one npz, for the children of phase 9h."""
+    arrays = {"b": b, "n_levels": np.asarray(len(levels))}
+    for i, lv in enumerate(levels):
+        for name in ("a", "p", "r"):
+            m = getattr(lv, name)
+            if m is not None:
+                arrays.update({f"{i}/{name}/indptr": m.indptr,
+                               f"{i}/{name}/indices": m.indices,
+                               f"{i}/{name}/data": m.data,
+                               f"{i}/{name}/shape": np.asarray(m.shape)})
+    np.savez(path, **arrays)
+
+
+def load_levels(path):
+    from repro_torch.amg import Level
+    with np.load(path) as z:
+        def csr(i, name):
+            if f"{i}/{name}/indptr" not in z.files:
+                return None
+            return CSR(z[f"{i}/{name}/indptr"], z[f"{i}/{name}/indices"],
+                       z[f"{i}/{name}/data"],
+                       tuple(int(d) for d in z[f"{i}/{name}/shape"]))
+        levels = [Level(a=csr(i, "a"), p=csr(i, "p"), r=csr(i, "r"))
+                  for i in range(int(z["n_levels"]))]
+        return levels, z["b"]
+
+
+def checkpoint_digests(path):
+    """Each committed step's shard digests and extra, from its manifest."""
+    out = {}
+    for step in sorted(Path(path).glob("step_*")):
+        if (step / "_COMMITTED").exists():
+            man = json.loads((step / "manifest.json").read_text())
+            out[step.name] = [man["shard_digests"], man["extra"]]
+    return out
+
+
+def timed_step(fn):
+    """One service step (or run) with its ELL launches and host wall."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, launches.get("ell_spmm_packed", 0)
+
+
+def stack_fault_plan():
+    """Phase 9h's node loss: node5 dies at CG iteration 8, node21 at the
+    next step; both fall silent from the same step, so one recovery
+    evicts both (Topology(30, 16): each process keeps its 15 nodes)."""
+    return FaultPlan.of(dead_node(1, STACK_DEAD[0], at_iteration=8),
+                        dead_node(4, STACK_DEAD[1]))
+
+
+def service_summary(svc, tickets, ckpt):
+    """What a run of the service scenario must give alike in one process
+    and in every process of the job: log, stats (but the rebuild's wall),
+    plan-cache counters (but the bytes a plan released: a block plan holds
+    fewer), ticket states, result digests and the checkpoints' digests."""
+    stats = dict(svc.report()["stats"])
+    stats.pop("last_recover_rebuild_s")
+    return dict(log=list(svc.log), stats=stats,
+                plan_cache={k: v for k, v in svc.plans.stats.items()
+                            if k != "buffer_bytes_released"},
+                tickets=[[t.status, t.reason, t.request.iters] for t in tickets],
+                topo=[svc.topo.n_nodes, svc.topo.ppn], nodes=list(svc.nodes),
+                results={str(i): digest(t.result()) for i, t in enumerate(tickets)
+                         if t.status == "done"},
+                checkpoints=checkpoint_digests(ckpt))
+
+
+def stack_service(a, topo, ckpt, seed):
+    """(c) of a child: phase 9d's requests, operands (the same draws) and
+    fault plan over the node block: 8 spmv requests in one batch, a hot
+    swap to an integer SPD matrix of the same structure and 8 more, a spmv
+    and two solves through the loss of node5 and node21; then one CG
+    iteration's body.  Returns the summary, the walls and the ELL
+    launches of each step."""
+    rng = np.random.default_rng(seed + 9)
+    n = a.shape[0]
+    svc = SolverService(topo, backend="torch", checkpoint_dir=ckpt,
+                        checkpoint_every=4, max_attempts=6, device=DEV,
+                        fault_plan=stack_fault_plan())
+    svc.register_matrix("diffusion", a)
+    walls, ell = {}, []
+    V = rng.standard_normal((n, 8))
+    tickets = [svc.submit(f"tenant{i % 3}", "diffusion", V[:, i]) for i in range(8)]
+    _, walls["step_s"], k = timed_step(svc.step)
+    ell.append(k)
+    a_int = int_spd(a)
+    V_int = rng.integers(-8, 9, size=(n, 8)).astype(np.float64)
+    svc.update_values("diffusion", a_int)
+    tickets += [svc.submit(f"tenant{i % 3}", "diffusion", V_int[:, i]) for i in range(8)]
+    with timed_calls(spmv_torch.CompiledNAP, "swap_values") as swap:
+        _, walls["swap_step_s"], k = timed_step(svc.step)
+    walls["swap_s"] = swap.seconds[0]
+    ell.append(k)
+    b_int = rng.integers(-8, 9, size=n).astype(np.float64)
+    B = rng.integers(-8, 9, size=(n, 2)).astype(np.float64)
+    tickets.append(svc.submit("tenant0", "diffusion", b_int, kind="spmv"))
+    tickets += [svc.submit(f"tenant{1 + i}", "diffusion", B[:, i], kind="solve",
+                           tol=1e-5, maxiter=40, deadline=1e6) for i in range(2)]
+    ck = svc.ckpt
+    with timed_calls(ck, "save") as saves, timed_calls(ck, "restore") as restores:
+        _, walls["run_s"], k = timed_step(lambda: svc.run(max_steps=40))
+    ell.append(k)
+    walls["saves"] = len(saves.seconds)
+    walls["save_s"] = statistics.median(saves.seconds) if saves.seconds else None
+    walls["restore_s"] = statistics.median(restores.seconds)
+    walls["recover_rebuild_s"] = svc.stats["last_recover_rebuild_s"]
+    summary = service_summary(svc, tickets, ckpt)
+    # one CG iteration's body on the survivors' operator
+    op = service_op(svc)
+    P = rng.standard_normal((n, 2))
+    _, walls["cg_iteration_s"], k = timed_step(lambda: cg_iteration(op, P, P, P))
+    ell.append(k)
+    shards = op.executor.packed("forward", P)
+    walls["cg_apply_ms"], _ = stack_program_ms(op.executor.program("forward"), shards)
+    del svc, op, shards
+    free()
+    return summary, walls, ell
+
+
+def stack_lists(view, faults, v, transpose):
+    """Replay phase 8's ``(fault, mismatch)`` pairs on ``view`` one apply
+    each: the mismatch lists raised ([] when none), the ELL launches of
+    each apply."""
+    lists, counts = [], []
+    for fault, _ in faults:
+        view.queue_fault(MessageFault(**fault))
+        reset_launches()
+        with deterministic(transpose):
+            try:
+                view @ v
+                lists.append([])
+            except IntegrityError as e:
+                lists.append([[m.check, m.phase, m.scope, m.node, m.proc, m.slot,
+                               m.direction] for m in e.mismatches])
+        counts.append(launches.get("ell_spmm_packed", 0))
+    return lists, counts
+
+
+def stack_program_ms(prog, shards):
+    """Device ms of one program in lockstep across the processes (each
+    call holds collectives): the median of up to 10 calls, as many as fit
+    in ~1 s on the slower process (one call above 1 s)."""
+    once = time_ms(lambda: prog(shards), reps=1, warmup=1)
+    reps = max(1, min(10, int(1e3 / max(all_max(once), 1e-3))))
+    if reps == 1:
+        return once, 1
+    return time_ms(lambda: prog(shards), reps=reps, warmup=0), reps
+
+
+def stack_integrity(pid, a, topo, part, x, faults, mesh, method, local_compute,
+                    device, ell):
+    """(a) of a child for one method, on phase 9e's compiled plan (the
+    compile cache hands the instrumented operator the bare operator's
+    plan): the clean detect applies (digests, wall, peak, bytes), bare vs
+    instrumented device ms, peak and bytes, phase 8's faults replayed,
+    then one fault under recover per run.  Adds the ELL launches of every
+    apply to ``ell``."""
+    runs = MESH_RUNS[method]
+    t_start = t0 = time.perf_counter()
+    op = operator(a, topo, part, method=method, local_compute=local_compute,
+                  integrity="detect", device=device)
+    ex = op.executor
+    ex.compiled.ensure_abft()
+    rec = {"abft_s": time.perf_counter() - t0, "digests": {}}
+    for run in runs:
+        view = op.T if run == "t1" else op
+        v = x[RUN_OPERAND[run]]
+        with deterministic(run == "t1"):
+            w, rec[run] = mesh_apply(pid, f"{method} detect {run}", mesh,
+                                     lambda: view @ v)
+        rec["digests"][run] = digest(w)
+        ell[run_direction(run)].append(rec[run]["launches"].get("ell_spmm_packed", 0))
+        del w
+    rep = op.integrity_report()
+    rec["clean_mismatches"] = rep["wire_mismatches"] + rep["abft_mismatches"]
+    rec["wire_checks"] = rep["wire_checks"]
+    spec = zero_spec(ex)
+    for run in runs:
+        direction = run_direction(run)
+        shards = ex.packed(direction, x[RUN_OPERAND[run]])
+        for label, prog in (("bare", ex.program(direction)),
+                            ("instrumented", ex.program(direction, fault_spec=spec))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(mesh.stats)
+            with deterministic(run == "t1"):
+                y = prog(shards)
+                torch.cuda.synchronize()
+                moved = {k: mesh.stats[k] - before[k] for k in mesh.stats}
+                del y
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                ms, reps = stack_program_ms(prog, shards)
+            rec[f"{run}/{label}"] = dict(ms=ms, reps=reps, peak_gb=peak, **moved)
+        del shards
+        b, i = rec[f"{run}/bare"], rec[f"{run}/instrumented"]
+        print(f"  [p{pid}] {method} {run}: bare {b['ms']:.4f} ms (x{b['reps']}, "
+              f"peak {b['peak_gb']:.3f} GB, {b['sent_bytes_node'] + b['sent_bytes_nodexproc']}"
+              f" B to the other process, {b['staged_bytes']} B staged), "
+              f"instrumented {i['ms']:.4f} ms (x{i['reps']}, peak {i['peak_gb']:.3f} GB, "
+              f"{i['sent_bytes_node'] + i['sent_bytes_nodexproc']} B to the other "
+              f"process, {i['staged_bytes']} B staged)", flush=True)
+    t0 = time.perf_counter()
+    for direction in sorted({run_direction(run) for run in runs}):
+        view = op.T if direction == "transpose" else op
+        v = x["u1" if direction == "transpose" else "v1"]
+        rec[f"lists/{direction}"], counts = stack_lists(
+            view, faults[f"{method}/{direction}"], v, direction == "transpose")
+        ell[direction] += counts
+    rec["faults_s"] = time.perf_counter() - t0
+    rep = op.integrity_report()
+    rec["detect_report"] = {k: rep[k] for k in ("applies", "faults_injected",
+                                                "wire_mismatches", "abft_mismatches")}
+    n = sum(len(rec.get(f"lists/{d}", [])) for d in ("forward", "transpose"))
+    print(f"  [p{pid}] {method}: {n} faults of phase 8 replayed in {rec['faults_s']:.1f} s;"
+          f" {rec['detect_report']}", flush=True)
+    rec_op = operator(a, topo, part, method=method, local_compute=local_compute,
+                      integrity="recover", device=device)
+    for run in runs:
+        direction = run_direction(run)
+        view = rec_op.T if run == "t1" else rec_op
+        fault = next(f for f, _ in faults[f"{method}/{direction}"]
+                     if f["kind"] == "bitflip" and f["phase"] in ("inter", "pair", "direct"))
+        view.queue_fault(MessageFault(**fault))
+        reset_launches()
+        with deterministic(run == "t1"):
+            w = view @ x[RUN_OPERAND[run]]
+        ell[direction].append(launches.get("ell_spmm_packed", 0))
+        rec[f"recovered/{run}"] = digest(w)
+        del w
+    rec["recover_report"] = {k: v for k, v in rec_op.integrity_report().items()
+                             if k != "last_mismatches"}
+    rec["s"] = time.perf_counter() - t_start
+    return rec
+
+
+def stack_amg(pid, levels_file, topo):
+    """(b) of a child: ``level_operators(materialize=True)`` over the node
+    block, 10 PCG iterations and one V-cycle (deterministic mode, as phase
+    9), their walls, the ELL launches and one PCG iteration's busy share."""
+    levels, b = load_levels(levels_file)
+    a0 = scipy_of(levels[0].a)
+    t0 = time.perf_counter()
+    with deterministic():
+        ops = level_operators(levels, topo, comm="auto", materialize=True,
+                              spgemm_backend="torch", device=DEV)
+    rec = {"level_operators_s": time.perf_counter() - t0}
+    print(f"  [p{pid}] level_operators(materialize=True) {rec['level_operators_s']:.2f} s",
+          flush=True)
+    with deterministic():
+        res, rec["pcg_s"], rec["pcg_ell"] = timed_step(
+            lambda: amg_pcg(levels, ops, b, a0))
+        z, rec["vcycle_s"], rec["vcycle_ell"] = timed_step(
+            lambda: amg_vcycle(levels, b, operators=ops))
+
+        # one PCG iteration's device work: an A apply and a V-cycle
+        def iteration():
+            return amg_vcycle(levels, ops[0].a @ b, operators=ops)
+
+        _, rec["iteration_s"], _ = timed_step(iteration)
+        rec["iteration_busy_ms"] = profile_program(
+            f"p{pid} one PCG iteration's A apply and V-cycle", iteration,
+            rec["iteration_s"] * 1e3)
+    rec["res"], rec["vcycle"] = res, digest(z)
+    rec["distributed"] = sum(e.a is not None for e in ops)
+    print(f"  [p{pid}] PCG {rec['pcg_s']:.2f} s ({rec['pcg_ell']} ELL launches), "
+          f"V-cycle {rec['vcycle_s']:.3f} s, residuals {res}", flush=True)
+    del ops, levels, z
+    clear_spgemm_cache()
+    free()
+    return rec
+
+
+def stack_rest(pid, a, topo, spec, report):
+    """(b) and (c) of a child, after phase 9e's and (a)'s per-method work:
+    the AMG path, the service scenario, then one node lost, whose 31
+    survivors split into no block of whole nodes."""
+    ready = Path(f"{spec['levels']}.ready")      # written by the parent's phase 9
+    t0 = time.perf_counter()
+    while not ready.exists():
+        if time.perf_counter() - t0 > 900:
+            raise TimeoutError(f"no hierarchy at {spec['levels']} after 900 s")
+        time.sleep(1)
+    report["levels_wait_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["amg"] = stack_amg(pid, spec["levels"], topo)
+    report["amg_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["service"], report["service_walls"], report["service_ell"] = stack_service(
+        a, topo, spec["ckpt"], spec["seed"])
+    svc = SolverService(topo, backend="torch", device=DEV,
+                        fault_plan=FaultPlan.of(dead_node(1, STACK_DEAD[0])))
+    try:
+        for _ in range(8):          # silent past the heartbeat timeout
+            svc.step()
+        report["ragged"] = "no error"
+    except DiscoveryError as e:
+        report["ragged"] = f"DiscoveryError: {e}"
+    report["service_s"] = time.perf_counter() - t0
+    print(f"  [p{pid}] service scenario and one-node loss {report['service_s']:.1f} s",
+          flush=True)
+
+
+def stack_compare_integrity(reports, keep):
+    """(a)'s checks: every clean and recovered apply bit-equal to the
+    one-process results, every fault's mismatch list in both processes
+    equal to phase 8's one-process list, no false positive."""
+    want = {"nap/f1": keep["nap"]["w1"], "nap/f8": keep["nap"]["w8"],
+            "nap/t1": keep["nap"]["z1"], "multistep/f1": keep["multistep"]["w1"],
+            "multistep/t1": keep["multistep"]["z1"],
+            "standard/f1": keep["standard"]["w1"]}
+    want = {k: digest(w) for k, w in want.items()}
+    n = 0
+    for r in reports:
+        for method, runs in MESH_RUNS.items():
+            rec = r["integrity"][method]
+            if rec["clean_mismatches"] or not rec["wire_checks"]:
+                raise AssertionError(f"p{r['pid']} {method}: clean detect applies "
+                                     f"reported {rec['clean_mismatches']} mismatches")
+            for run in runs:
+                for label, got in (("clean", rec["digests"][run]),
+                                   ("recovered", rec[f"recovered/{run}"])):
+                    if got != want[f"{method}/{run}"]:
+                        raise AssertionError(f"p{r['pid']} {method} {run}: the {label} "
+                                             f"detect apply differs from one process")
+            rep = rec["recover_report"]
+            if not rep["retries"] == rep["recovered"] == len(runs):
+                raise AssertionError(f"p{r['pid']} {method} recover: {rep}")
+            for direction in ("forward", "transpose"):
+                lists = rec.get(f"lists/{direction}")
+                if lists is None:
+                    continue
+                wants = [[list(w)] for _, w in keep["faults"][f"{method}/{direction}"]]
+                if lists != wants:
+                    bad = next(i for i, (g, w) in enumerate(zip(lists, wants)) if g != w)
+                    raise AssertionError(
+                        f"p{r['pid']} {method} {direction} fault {bad}: mismatches "
+                        f"{lists[bad]}, one process {wants[bad]}")
+                n += len(lists)
+    for method in MESH_RUNS:
+        reps = [r["integrity"][method]["recover_report"] for r in reports]
+        if any(rep != reps[0] for rep in reps):
+            raise AssertionError(f"{method}: the processes' recover reports differ")
+    return n // len(reports)
+
+
+def phase_stack(keep, smi):
+    """[9h] integrity, the AMG path and the solver service over the two
+    processes of phase 9e's launch (gloo, each owning 16 of Topology(32,
+    16)'s nodes), held against phases 4, 6-9 and 9d (the one-process run
+    of the same service scenario).  Returns the ELL launches of the
+    phase's applies, forward and transpose, over the processes."""
+    t_phase = time.perf_counter()
+    reports, ckpt_written = keep["children"]["reports"], keep["children"]["ckpt"]
+    print(f"[9h] the stack across processes: the {MESH_PROCS} processes of 9e's "
+          f"launch (each owning 16 of Topology(32, 16)'s nodes, 256 ranks); "
+          f"integrity, AMG, the solver service ({smi})")
+    ell = {"forward": 0, "transpose": 0}
+    # (a) integrity
+    n_faults = stack_compare_integrity(reports, keep)
+    print(f"  (a) integrity: clean detect applies (nap f1 / f8 / t1, multistep f1 / t1, "
+          f"standard f1) and one recovered fault a run bit-equal to phases 4, 6 and 7 "
+          f"in both processes; {n_faults} faults of phase 8 a process (every kind on "
+          f"a live edge of every phase, senders in both blocks, inter / pair / direct "
+          f"bitflips from process 0 to process 1, ABFT bit-30 flips) raised phase 8's "
+          f"one-process mismatch list in both; recover reports equal [{smi}]")
+    for method, runs in MESH_RUNS.items():
+        for run in runs:
+            nv = 8 if run == "f8" else 1
+            one = keep["integrity_ms"][f"{method}/{run_direction(run)}/{nv}"]
+            cells = []
+            for label in ("bare", "instrumented"):
+                per = [r["integrity"][method][f"{run}/{label}"] for r in reports]
+                cells.append(
+                    f"{label} " + " / ".join(f"{p['ms']:.4f}" for p in per)
+                    + f" ms vs {one[f'{label}_ms']:.4f}, peak "
+                    + " / ".join(f"{p['peak_gb']:.3f}" for p in per)
+                    + f" vs {one[f'{label}_peak_gb']:.3f} GB, to the other process "
+                    + " / ".join(str(p["sent_bytes_node"] + p["sent_bytes_nodexproc"])
+                                 for p in per)
+                    + " B, staged " + " / ".join(str(p["staged_bytes"]) for p in per)
+                    + " B")
+            walls = " / ".join(f"{r['integrity'][method][run]['wall_ms']:.1f}"
+                               for r in reports)
+            print(f"  {method} {run} p0 / p1 vs one process: " + "; ".join(cells)
+                  + f"; detect apply wall {walls} ms [{smi}]")
+    # (b) AMG
+    amg_one = keep["amg"]
+    for r in reports:
+        rec = r["amg"]
+        if rec["res"] != amg_one["res"]:
+            raise AssertionError(f"p{r['pid']}: PCG residuals {rec['res']} differ from "
+                                 f"phase 9's {amg_one['res']}")
+        if rec["vcycle"] != amg_one["vcycle"]:
+            raise AssertionError(f"p{r['pid']}: the V-cycle differs from phase 9's")
+        if not all(abs(rd / rh - 1.0) <= 0.05 or max(rd, rh) <= 1e-5
+                   for rd, rh in zip(rec["res"], amg_one["res_host"])):
+            raise AssertionError(f"p{r['pid']}: PCG does not track the host twin")
+        if min(rec["pcg_ell"], rec["vcycle_ell"]) < 1:
+            raise AssertionError(f"p{r['pid']}: the AMG path launched no ELL kernel")
+        ell["forward"] += rec["pcg_ell"] + rec["vcycle_ell"]
+    per = [r["amg"] for r in reports]
+    print(f"  (b) AMG: 10 PCG residuals and the V-cycle bit-equal to phase 9's in both "
+          f"processes ({per[0]['distributed']} distributed levels); level_operators "
+          + " / ".join(f"{p['level_operators_s']:.2f}" for p in per)
+          + f" s vs {amg_one['level_operators_s']:.2f}; V-cycle "
+          + " / ".join(f"{p['vcycle_s']:.3f}" for p in per)
+          + f" s vs {amg_one['vcycle_s']:.3f}; PCG iteration "
+          + " / ".join(f"{p['pcg_s'] / 10:.3f}" for p in per)
+          + f" s vs {amg_one['pcg_s'] / 10:.3f}, device busy "
+          + " / ".join(f"{p['iteration_busy_ms']:.2f} ms of {1e3 * p['iteration_s']:.1f} ("
+                       f"{100 * p['iteration_busy_ms'] / 1e3 / p['iteration_s']:.2f}%)"
+                       for p in per)
+          + f" of its A apply and V-cycle [{smi}]")
+    # (c) the service, against phase 9d's run of the same scenario
+    one = keep["service"]
+    for r in reports:
+        got = r["service"]
+        for key in one:
+            if got[key] != one[key]:
+                raise AssertionError(f"p{r['pid']} service: {key} differs from one "
+                                     f"process: {got[key]} vs {one[key]}")
+        if min(r["service_ell"]) < 1:
+            raise AssertionError(f"p{r['pid']}: a service step launched no ELL kernel")
+        ell["forward"] += sum(r["service_ell"])
+        if "multiple of the process count" not in r["ragged"]:
+            raise AssertionError(f"p{r['pid']}: one node lost did not raise: {r['ragged']}")
+    if ckpt_written != one["checkpoints"]:
+        raise AssertionError("the job's checkpoint directory differs from one process's")
+    saves = [r["service_walls"]["saves"] for r in reports]
+    if not (saves[0] > 0 and saves[1:] == [0] * (MESH_PROCS - 1)):
+        raise AssertionError(f"checkpoint saves per process {saves}: process 0 alone writes")
+    print(f"  (c) service: node5 and node21 lost, resumed on Topology(30, 16); logs, "
+          f"stats, plan-cache counters, tickets, results and checkpoint digests "
+          f"({len(one['checkpoints'])} committed steps) equal phase 9d's in both "
+          f"processes; saves by process 0 only ({saves}); one node lost raises "
+          f"DiscoveryError in both")
+    w = [r["service_walls"] for r in reports] + [keep["service_walls"]]
+    for key, unit in (("step_s", "s"), ("swap_s", "s"), ("swap_step_s", "s"),
+                      ("save_s", "s"), ("restore_s", "s"), ("recover_rebuild_s", "s"),
+                      ("run_s", "s"), ("cg_iteration_s", "s"), ("cg_apply_ms", "ms")):
+        vals = " / ".join("-" if x[key] is None else f"{x[key]:.4f}" for x in w[:-1])
+        print(f"  service {key.rsplit('_', 1)[0]} {vals} {unit} vs {w[-1][key]:.4f} "
+              f"one process (9d) [{smi}]")
+    for r in reports:
+        if min(r["ell"]["forward"] + r["ell"]["transpose"]) < 1:
+            raise AssertionError(f"p{r['pid']}: an integrity apply launched no ELL kernel")
+        ell["forward"] += sum(r["ell"]["forward"])
+        ell["transpose"] += sum(r["ell"]["transpose"])
+        own = sum(r["integrity"][m]["s"] for m in MESH_RUNS) + r["amg_s"] + r["service_s"]
+        print(f"  p{r['pid']}: ELL launches forward {sum(r['ell']['forward'])}, transpose "
+              f"{sum(r['ell']['transpose'])} (integrity), AMG "
+              f"{r['amg']['pcg_ell'] + r['amg']['vcycle_ell']}, service "
+              f"{sum(r['service_ell'])}; 9h's share of the process: integrity "
+              + " + ".join(f"{r['integrity'][m]['s']:.1f}" for m in MESH_RUNS)
+              + f" s, AMG {r['amg_s']:.1f} s, service {r['service_s']:.1f} s, "
+              f"{own:.1f} s in all")
+    print(f"  ELL launches of phase 9h: forward {ell['forward']}, transpose "
+          f"{ell['transpose']} (both processes); checks {time.perf_counter() - t_phase:.1f} s"
+          f" [{smi}]")
     return ell
 
 
@@ -3619,7 +4291,7 @@ def main():
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's register and shared-memory report")
     ap.add_argument("--mesh-child", metavar="SPEC",
-                    help="run one process of phase 9e (set by its launcher)")
+                    help="run one process of phases 9e and 9h (set by its launcher)")
     ap.add_argument("--moe-child", metavar="SPEC",
                     help="run one process of phase 9f (set by its launcher)")
     ap.add_argument("--coll-child", metavar="SPEC",
@@ -3709,7 +4381,7 @@ def main():
     by_name = {e["name"]: e for e in entries}
     fwd, tr, nap_ref = phase_nap(op, a, oracles)
     # phases 4, 6 and 7's results and the float64 oracles, for phase 9e
-    keep = dict(nap=nap_ref, standard={}, multistep={},
+    keep = dict(nap=nap_ref, standard={}, multistep={}, faults={}, integrity_ms={},
                 oracles={k: oracles[k] for k in ("w1", "w8", "z1")})
     nap_ref["local_compute"] = op.spec.local_compute
     nap_padded, nap_effective = traffic_bytes(op.stats())
@@ -3728,14 +4400,21 @@ def main():
                                   args.n == 2024, keep["multistep"])
     free()
     t0 = time.perf_counter()
-    i_ell, i_bsr, nap_det = phase_integrity(a, topo, part, oracles, a_b)
+    i_ell, i_bsr, nap_det = phase_integrity(a, topo, part, oracles, a_b, keep)
+    # phases 9e and 9h's children run while this process does work that
+    # times nothing on the card: the simulate backend, phase 9's hierarchy,
+    # level operators and host twins; their checks follow phase 9d
+    mesh_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    children = start_mesh_children(mesh_tmp.name, a, args.seed, keep)
     phase_simulate(a, topo, part, oracles, a_b, nap_det, nap_ref["w1"],
                    nap_ref["z1"])
     print(f"  phase 8 {time.perf_counter() - t0:.1f} s")
     del oracles, nap_ref, nap_det
     free()
     t0 = time.perf_counter()
-    amg = phase_amg(a, topo, gen, args.seed, args.n == 2024)
+    amg = phase_amg(a, topo, gen, args.seed, args.n == 2024, keep,
+                    levels_file=str(Path(mesh_tmp.name) / "levels.npz"),
+                    children=children)
     print(f"  phase 9 {time.perf_counter() - t0:.1f} s")
     free()
     t0 = time.perf_counter()
@@ -3743,10 +4422,12 @@ def main():
     phase_examples()
     print(f"  phases 9b-9c {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    svc_ell = phase_service(a, a_b, topo, args.seed)
+    svc_ell = phase_service(a, a_b, topo, args.seed, keep)
     print(f"  phase 9d {time.perf_counter() - t0:.1f} s")
     free()
-    mesh_ell = phase_mesh(a, args.seed, keep)
+    mesh_ell = phase_mesh(a, keep)
+    stack_ell = phase_stack(keep, smi)
+    mesh_tmp.cleanup()
     del a, a_b, keep
     free()
     phase_moe(args.seed)
@@ -3763,13 +4444,14 @@ def main():
     # counts were reset just before it); the AMG solve's launches, forward
     # and transpose together, the materialized Galerkin operator's apply
     # and the solver service's applies count with the forward entry; the
-    # mesh phase's are those of its child processes
+    # mesh phases' are those of their child processes (9h's AMG and service
+    # applies with the forward entry too)
     by_name["ell_spmm_packed"]["launches"] = sum(
         d.get("ell_spmm_packed", 0) for d in (fwd, s_fwd1, s_fwd8, m_fwd, amg)) \
-        + i_ell["forward"] + svc_ell + mesh_ell["forward"]
+        + i_ell["forward"] + svc_ell + mesh_ell["forward"] + stack_ell["forward"]
     by_name["ell_spmm_packed:transpose"]["launches"] = sum(
         d.get("ell_spmm_packed", 0) for d in (tr, s_tr, m_tr)) + i_ell["transpose"] \
-        + mesh_ell["transpose"]
+        + mesh_ell["transpose"] + stack_ell["transpose"]
     by_name["fused_bsr_spmm_packed"]["launches"] = (
         cnt_p.get("fused_bsr_spmm_packed", 0) + i_bsr.get("fused_bsr_spmm_packed", 0))
     by_name["fused_bsr_spmm"]["launches"] = cnt_c.get("fused_bsr_spmm", 0)

@@ -19,7 +19,6 @@ from repro_torch.amg.hierarchy import Level, _diag
 from repro_torch.core.integrity import IntegrityError
 from repro_torch.core.partition import contiguous_partition
 from repro_torch.device import DeviceLike
-from repro_torch.mesh.buffers import refuse_multiprocess
 from repro_torch.sparse.csr import CSR
 
 
@@ -86,10 +85,16 @@ def level_operators(levels: Sequence[Level], topo, *, method: str = "nap",
     product, is held against the hierarchy's host assembly (bit for bit
     on ``"simulate"``, to float32 round-off growing with the chain depth
     on ``"torch"``), and the coarse operators are built from it.
+
+    In a multi-process job each operator compiles as a node-block plan
+    (:func:`repro_torch.mesh.buffers.plan_mesh`) and every apply returns
+    the whole vector in every process, so the host solvers run unchanged
+    and alike everywhere.  The SpGEMM of ``materialize=True`` runs the
+    whole layout in each process (the reference's has no block form
+    either): every process assembles the same coarse matrices.
     """
     import repro_torch.api as nap
 
-    refuse_multiprocess("the AMG level operators")
     floor = topo.n_procs if min_rows is None else min_rows
     if parts is None:
         parts = [contiguous_partition(lvl.a.shape[0], topo.n_procs)

@@ -256,19 +256,28 @@ class _TorchExecutor(_IntegritySurface):
         ``"recover"`` retry once from the retained packed shards with the
         fault consumed (the same program on the same inputs, so the
         fault-free result bit for bit).  A mismatch that persists, or any
-        under ``"detect"``, raises :class:`IntegrityError`."""
+        under ``"detect"``, raises :class:`IntegrityError`.
+
+        A plan that owns a node block of a multi-process job stages the
+        block's rows of the (job-wide) fault spec, so a fault fires in the
+        process that owns its sender, and all-gathers the checksum and ABFT
+        words before it verifies them, as the reference fetches them: every
+        process sees the same mismatches and takes the same branch (a
+        process that retried alone would leave the others' collectives
+        unmatched)."""
         st, c = self._integrity, self.compiled
+        rows = slice(None) if c.mesh is None else slice(*c.mesh.nodes)
         if self._fault_spec is None:     # staged once, never aliasing host arrays
-            self._fault_spec = torch.zeros(st.fetch_spec().shape, dtype=torch.int32,
-                                           device=self.device)
+            self._fault_spec = torch.zeros(st.fetch_spec()[rows].shape,
+                                           dtype=torch.int32, device=self.device)
         n_terms = c.rows_pad + c.packed_x_len
         prog = self.program(direction, fault_spec=self._fault_spec, **options)
 
         def run():
-            self._fault_spec.copy_(torch.from_numpy(st.fetch_spec()))
+            self._fault_spec.copy_(torch.from_numpy(st.fetch_spec()[rows]))
             w, chk, abft = prog(shards)
-            return w, st.verify(chk.cpu().numpy(), abft.cpu().numpy(),
-                                direction, n_terms)
+            return w, st.verify(fetch_mesh_array(chk, c.mesh),
+                                fetch_mesh_array(abft, c.mesh), direction, n_terms)
 
         st.counters["applies"] += 1
         st.arm(direction)

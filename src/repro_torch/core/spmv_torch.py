@@ -1282,15 +1282,6 @@ def _unbatch(c: CompiledNAP, w: torch.Tensor, single: bool) -> torch.Tensor:
     return out[..., 0] if single else out
 
 
-def _check_integrity_layout(c) -> None:
-    """The instrumented programs run in one process only."""
-    if c.mesh is not None:
-        raise NotImplementedError(
-            "integrity across processes (the checksum and fault exchanges "
-            "over the communicator) is not ported yet: ROADMAP Queue 1 "
-            "item 4b; run integrity in one process")
-
-
 _COO_KEYS = ("on_proc", "on_node", "off_node")
 
 
@@ -1342,6 +1333,35 @@ def _live_direct_block(c: CompiledNAP, nv: int):
         c._stage(key, (_elements(torch.from_numpy(src_b).to(c.device), nv),
                        _elements(torch.from_numpy(dst_b).to(c.device), nv),
                        [int(k) for k in counts[0]], [int(k) for k in counts[1]]))
+    return c._tensors[key]
+
+
+def _live_direct_messages(c: CompiledNAP):
+    """The instrumented multi-step transpose's live direct slots, row
+    indices ``(src, dst, slot, msg)``: ``msg`` places each live value of
+    the off-node contributions (``dst``) in the padded message table
+    ``[P_loc, P, direct_pad]`` its receiver sends back, ``slot`` reads it
+    from the exchanged table ``[P_loc, P, direct_pad]`` of its owner, and
+    ``src`` is the owner's v_loc row it sums into.  One process: the flat
+    ``direct_live_*`` arrays.  A rank block: the entries whose receiver
+    (``msg``, ``dst``) or owner (``slot``, ``src``) the block holds,
+    counted from the block's first rank, in the same order, so every row
+    sums in the one-process order.  Staged once."""
+    names = ["direct_live_src", "direct_live_dst", "direct_live_slot",
+             "direct_live_msg"]
+    c.ensure_live_direct()
+    if c.mesh is None:
+        return tuple(c.tensors(names).values())
+    key = "live_direct_messages"
+    if key not in c._tensors:
+        src, dst, slot, msg = (c.arrays[k] for k in names)
+        boff_pad = c.arrays["boff_gather"].shape[1]
+        (r0, r1), table = c.mesh.ranks, c.topo.n_procs * c.pads["direct"]
+        own = (src // c.cols_pad >= r0) & (src // c.cols_pad < r1)
+        recv = (dst // boff_pad >= r0) & (dst // boff_pad < r1)
+        block = (src[own] - r0 * c.cols_pad, dst[recv] - r0 * boff_pad,
+                 slot[own] - r0 * table, msg[recv] - r0 * table)
+        c._stage(key, tuple(torch.from_numpy(x).to(c.device) for x in block))
     return c._tensors[key]
 
 
@@ -1475,8 +1495,10 @@ class _Wire:
         return recv
 
     def chk(self, c, phases: Sequence[str], max_slots: int) -> torch.Tensor:
+        """``[n_local_nodes, ppn, n_phases, 2, max_slots]``: the owned
+        ranks' rows (a rank block's under a mesh)."""
         out = _stack_chk([self.chks[p] for p in phases], max_slots)
-        return out.reshape((c.topo.n_nodes, c.topo.ppn) + out.shape[1:])
+        return out.reshape((-1, c.topo.ppn) + out.shape[1:])
 
 
 def _exchanged(wire: Optional[_Wire], phase: str, buf: torch.Tensor, fn):
@@ -1486,10 +1508,10 @@ def _exchanged(wire: Optional[_Wire], phase: str, buf: torch.Tensor, fn):
 
 def _abft(c, y: torch.Tensor, vecs: Tuple[torch.Tensor, torch.Tensor],
           segs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """ABFT triple ``(sum(y_p), c_p . x, |c_p| . |x|)`` per rank and rhs,
-    ``[n_nodes, ppn, 3, nv]``: ``vecs`` are the checksum vector and its
-    absolute twin over the concatenated ``segs`` (the buffers the local
-    compute read)."""
+    """ABFT triple ``(sum(y_p), c_p . x, |c_p| . |x|)`` per owned rank and
+    rhs, ``[n_local_nodes, ppn, 3, nv]``: ``vecs`` are the checksum vector
+    and its absolute twin over the concatenated ``segs`` (the buffers the
+    local compute read)."""
     vec, vec_abs = vecs
     d = s = 0
     off = 0
@@ -1499,7 +1521,7 @@ def _abft(c, y: torch.Tensor, vecs: Tuple[torch.Tensor, torch.Tensor],
         s = s + torch.bmm(vec_abs[:, None, off: off + n], x.abs())[:, 0]
         off += n
     out = torch.stack([y.sum(1), d, s], dim=1)
-    return out.reshape((c.topo.n_nodes, c.topo.ppn) + out.shape[1:])
+    return out.reshape((-1, c.topo.ppn) + out.shape[1:])
 
 
 def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
@@ -1526,17 +1548,20 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
     direct phase cross processes through :mod:`repro_torch.mesh.comm`.
 
     ``fault_spec`` (int32 ``[n_nodes, ppn, n_phases, 4]``, see
-    :func:`repro_torch.core.integrity.build_fault_spec`) runs the
-    INSTRUMENTED program: every message is checksummed by its sender, the
-    armed fault applied at the pack boundary, the checksum words exchanged
-    with the payload and recomputed by the receiver; the compute fault
-    hits the local result, and the ABFT triple is taken over the buffers
-    the local compute read.  It returns ``(w, chk, abft)``: ``chk`` int64
-    ``[n_nodes, ppn, n_msg_phases, 2, max_slots]`` of uint32 values
-    (sender row 0, receiver row 1), ``abft`` f32 ``[n_nodes, ppn, 3, nv]``.
-    The direct phase then runs its literal padded exchange, whose
-    messages are the reference's.  Without a spec the program is the
-    bare one, launch for launch.
+    :func:`repro_torch.core.integrity.build_fault_spec`; a rank-block plan
+    takes the block's rows) runs the INSTRUMENTED program: every message
+    is checksummed by its sender, the armed fault applied at the pack
+    boundary, the checksum words (int64) exchanged with the payload
+    through the same exchange, across processes too, and recomputed by
+    the receiver; the compute fault hits the local result, and the ABFT
+    triple is taken over the buffers the local compute read.  It returns
+    ``(w, chk, abft)``: ``chk`` int64 ``[n_nodes, ppn, n_msg_phases, 2,
+    max_slots]`` of uint32 values (sender row 0, receiver row 1), ``abft``
+    f32 ``[n_nodes, ppn, 3, nv]``, both the block's rows for a rank-block
+    plan (the receivers' rows: every fault is seen by the process that
+    owns its receiver).  The direct phase then runs its literal padded
+    exchange, whose messages are the reference's.  Without a spec the
+    program is the bare one, launch for launch.
     """
     fmt = c.resolve_local_compute(local_compute)
     if fmt == "bsr":
@@ -1549,7 +1574,6 @@ def nap_forward(c: CompiledNAP, v_shards, local_compute: str = "auto",
     ms = c.comm == "multistep"
     wire = None
     if fault_spec is not None:
-        _check_integrity_layout(c)
         c.ensure_abft()
         wire = _Wire(fault_spec, c.comm)
         live_direct = False
@@ -1664,7 +1688,6 @@ def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
     ms = c.comm == "multistep"
     wire = None
     if fault_spec is not None:
-        _check_integrity_layout(c)
         c.ensure_abft()
         wire = _Wire(fault_spec, c.comm)
     proc = functools.partial(proc_all_to_all, ppn=ppn)
@@ -1707,20 +1730,16 @@ def nap_transpose(c: CompiledNAP, u_shards, local_compute: str = "auto",
         # slots, so the sums are the live form's (the literal adjoint's
         # padding adds zeros to row 0, and its 530M-entry scatter is more
         # than PyTorch's deterministic index_add_ holds at the paper's size)
-        c.ensure_live_direct()
-        t = c.tensors(["direct_live_src", "direct_live_dst", "direct_live_slot",
-                       "direct_live_msg"])
+        src, dst, slot, msg_idx = _live_direct_messages(c)
         dpad = pads["direct"]
         comb = _scatter(c, c_off, "boff_live_gather", comb_len + 1)
-        msg = torch.zeros((p * p * dpad, nv), dtype=u.dtype, device=u.device)
-        msg.index_add_(0, t["direct_live_msg"],
-                       c_off.reshape(-1, nv).index_select(0, t["direct_live_dst"]))
-        direct_out_c = wire.exchange("direct", msg.view(p, p, dpad, nv),
-                                     rank_all_to_all)
+        msg = torch.zeros((p * n_procs * dpad, nv), dtype=u.dtype, device=u.device)
+        msg.index_add_(0, msg_idx, c_off.reshape(-1, nv).index_select(0, dst))
+        direct_out_c = wire.exchange("direct", msg.view(p, n_procs, dpad, nv),
+                                     functools.partial(rank_all_to_all, mesh=c.mesh))
         del msg
         z_direct = torch.zeros((p * cols_pad, nv), dtype=u.dtype, device=u.device)
-        z_direct.index_add_(0, t["direct_live_src"], direct_out_c.reshape(-1, nv)
-                            .index_select(0, t["direct_live_slot"]))
+        z_direct.index_add_(0, src, direct_out_c.reshape(-1, nv).index_select(0, slot))
         z_direct = z_direct.reshape(p, cols_pad, nv)
     elif live_direct:
         c.ensure_live_direct()
@@ -1802,28 +1821,32 @@ def _exchange_pair(c: CompiledStandard, v: torch.Tensor,
 
     send = take(v.permute(2, 0, 1).reshape(nv, -1), "send_idx", c.cols_pad)
     if wire is not None:
-        sent = _pair_checksums(send.reshape(nv, p, p, pad))
-        send = _fault_pair(send.reshape(nv, p, p, pad), wire.spec[:, wire.ph["pair"]])
+        sent = _pair_checksums(send.reshape(nv, p, n_procs, pad))
+        send = _fault_pair(send.reshape(nv, p, n_procs, pad),
+                           wire.spec[:, wire.ph["pair"]])
     recv = rank_all_to_all(send.reshape(nv, p, n_procs, pad), c.mesh, lead=1)
     del send
     if wire is not None:
-        wire.chks["pair"] = (sent.T, _pair_checksums(recv))
+        # the senders' words travel to their receivers as the payload does
+        expect = rank_all_to_all(sent[:, :, None], c.mesh)[:, :, 0]
+        wire.chks["pair"] = (expect, _pair_checksums(recv))
     buf = take(recv.reshape(nv, -1), "buf_gather", n_procs * pad)
     return buf.reshape(nv, p, c.buf_pad).permute(1, 2, 0).contiguous()
 
 
 def _fault_pair(send: torch.Tensor, spec: torch.Tensor) -> torch.Tensor:
     """:func:`_apply_fault` on the column-major send table ``[nv, S, R,
-    pad]``: each sender's targeted message is taken out in its row-major
-    ``[pad, nv]`` order, transformed and written back."""
-    nv, p, _, pad = send.shape
+    pad]`` (S the owned senders, R every receiver): each sender's targeted
+    message is taken out in its row-major ``[pad, nv]`` order,
+    transformed and written back."""
+    nv, p, n_r, pad = send.shape
     ranks = torch.arange(p, device=send.device)
-    slot = torch.remainder(spec[:, 1], p)
+    slot = torch.remainder(spec[:, 1], n_r)
 
     def message(dst):
         return send[:, ranks, dst].permute(1, 2, 0).reshape(p, pad * nv)
 
-    new = _fault_rows(message(slot), message(torch.remainder(slot + 1, p)), spec)
+    new = _fault_rows(message(slot), message(torch.remainder(slot + 1, n_r)), spec)
     send[:, ranks, slot] = new.reshape(p, pad, nv).permute(2, 0, 1)
     return send
 
@@ -1845,7 +1868,6 @@ def standard_forward(c: CompiledStandard, v_shards, local_compute: str = "auto",
     p, _, nv = v.shape
     wire = None
     if fault_spec is not None:
-        _check_integrity_layout(c)
         c.ensure_abft()
         wire = _Wire(fault_spec, "standard")
     segs = (v, _exchange_pair(c, v, wire))
@@ -1871,7 +1893,7 @@ def standard_forward(c: CompiledStandard, v_shards, local_compute: str = "auto",
         return _unbatch(c, w.contiguous(), single)
     w = wire.fault("compute", w[:, None])[:, 0]
     abft = _abft(c, w, tuple(c.tensors(["abft_col", "abft_col_abs"]).values()), segs)
-    return _unbatch(c, w, single), wire.chk(c, ("pair",), p), abft
+    return _unbatch(c, w, single), wire.chk(c, ("pair",), c.topo.n_procs), abft
 
 
 def standard_transpose(c: CompiledStandard, u_shards,
@@ -1902,7 +1924,6 @@ def standard_transpose(c: CompiledStandard, u_shards,
     cols_pad, pair_pad, n_procs = c.cols_pad, c.pair_pad, c.topo.n_procs
     wire = None
     if fault_spec is not None:
-        _check_integrity_layout(c)
         c.ensure_abft()
         wire = _Wire(fault_spec, "standard")
     if fmt == "ell":
@@ -1922,8 +1943,8 @@ def standard_transpose(c: CompiledStandard, u_shards,
     if wire is None:
         out_c = rank_all_to_all(recv_c.reshape(p, n_procs, pair_pad, nv), c.mesh)
     else:
-        out_c = wire.exchange("pair", recv_c.reshape(p, p, pair_pad, nv),
-                              lambda b: b.transpose(0, 1).contiguous())
+        out_c = wire.exchange("pair", recv_c.reshape(p, n_procs, pair_pad, nv),
+                              functools.partial(rank_all_to_all, mesh=c.mesh))
     del recv_c
     # reverse of send = v_loc[send_idx]
     if live_scatter:
@@ -1936,7 +1957,7 @@ def standard_transpose(c: CompiledStandard, u_shards,
     z = _unbatch(c, (contrib[:, :cols_pad] + back).contiguous(), single)
     if wire is None:
         return z
-    return z, wire.chk(c, ("pair",), p), abft
+    return z, wire.chk(c, ("pair",), n_procs), abft
 
 
 # ---------------------------------------------------------------------------

@@ -19,9 +19,10 @@ buffers and placement, the communicator, the scaling harness.
 Importing the package starts no process and touches no device.
 """
 from repro_torch.mesh.buffers import (BufferNamespace, BufferRegistry,
-                                      ProcessMesh, default_registry,
-                                      fetch_mesh_array, input_stager,
-                                      is_multiprocess, mesh_for,
+                                      ProcessMesh, broadcast_from_first,
+                                      default_registry, fetch_mesh_array,
+                                      input_stager, is_first_process,
+                                      is_multiprocess, job_barrier, mesh_for,
                                       process_count, stage_mesh_array)
 from repro_torch.mesh.discover import (DiscoveryError, discover_topology,
                                        discovery_report)
@@ -31,7 +32,8 @@ from repro_torch.mesh.launcher import (LaunchError, LaunchResult, attach,
 
 __all__ = [
     "BufferNamespace", "BufferRegistry", "default_registry", "ProcessMesh",
-    "fetch_mesh_array", "input_stager", "is_multiprocess", "mesh_for",
+    "broadcast_from_first", "fetch_mesh_array", "input_stager",
+    "is_first_process", "is_multiprocess", "job_barrier", "mesh_for",
     "process_count", "stage_mesh_array",
     "DiscoveryError", "discover_topology", "discovery_report",
     "LaunchError", "LaunchResult", "attach", "detach", "launch",

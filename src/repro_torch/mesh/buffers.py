@@ -38,8 +38,8 @@ import torch
 from repro_torch.core.topology import Topology
 
 __all__ = ["BufferNamespace", "BufferRegistry", "default_registry",
-           "ProcessMesh", "process_count", "is_multiprocess", "refuse_multiprocess",
-           "local_ranks",
+           "ProcessMesh", "process_count", "is_multiprocess", "is_first_process",
+           "job_barrier", "broadcast_from_first", "local_ranks",
            "mesh_for", "plan_mesh", "stage_mesh_array", "input_stager",
            "fetch_mesh_array"]
 
@@ -64,15 +64,34 @@ def is_multiprocess() -> bool:
     return process_count() > 1
 
 
-def refuse_multiprocess(what: str) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP Queue 1 item 4b when
-    this process is part of a multi-process job: ``what`` runs in one
-    process only (its operators would compile as node-block plans, which
-    it does not drive)."""
+def is_first_process() -> bool:
+    """Whether this is process 0 of the job (or the only process): the
+    one that writes what every process must read, such as checkpoints."""
+    dist = _dist()
+    return dist is None or int(dist.get_rank()) == 0
+
+
+def _group(mesh: Optional["ProcessMesh"]):
+    return None if mesh is None else mesh.group
+
+
+def job_barrier(mesh: Optional["ProcessMesh"] = None) -> None:
+    """Wait until every process of the job reaches this call (over
+    ``mesh.group``, else the default group); nothing in one process."""
     if is_multiprocess():
-        raise NotImplementedError(
-            f"{what} across processes is not ported yet: ROADMAP Queue 1 "
-            f"item 4b; run it in one process")
+        _dist().barrier(group=_group(mesh))
+
+
+def broadcast_from_first(obj, mesh: Optional["ProcessMesh"] = None):
+    """``obj`` as the job's process 0 holds it, returned in every process
+    (a picklable object, over ``mesh.group``, else the default group);
+    ``obj`` itself in one process.  A collective: it also orders every
+    process after process 0's work before the call."""
+    if not is_multiprocess():
+        return obj
+    box = [obj]
+    _dist().broadcast_object_list(box, src=0, group=_group(mesh))
+    return box[0]
 
 
 def local_ranks() -> int:
@@ -109,7 +128,7 @@ class ProcessMesh:
         "sent_bytes_node": 0, "sent_bytes_nodexproc": 0,
         "inter_node_bytes_node": 0, "inter_node_bytes_nodexproc": 0,
         "staged_bytes": 0, "collectives": 0})
-    _pinned: Dict[str, torch.Tensor] = dataclasses.field(
+    _pinned: Dict[tuple, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
 
     @property
@@ -137,14 +156,17 @@ class ProcessMesh:
         return (self.world, self.nodes, id(self.group))
 
     def pinned(self, role: str, shape, dtype: torch.dtype) -> torch.Tensor:
-        """A pinned host buffer of ``shape`` for ``role``, kept and reused
-        (grown when a larger one is asked for): pinning is slow, and a
-        blocking copy finishes before the buffer is used again."""
+        """A pinned host buffer of ``shape`` for ``role`` and ``dtype``,
+        kept and reused (grown when a larger one is asked for): pinning is
+        slow, a blocking copy finishes before the buffer is used again, and
+        the instrumented programs alternate float32 payloads with int64
+        checksum words."""
         n = int(np.prod(shape, dtype=np.int64))
-        buf = self._pinned.get(role)
-        if buf is None or buf.dtype != dtype or buf.numel() < n:
+        key = (role, dtype)
+        buf = self._pinned.get(key)
+        if buf is None or buf.numel() < n:
             buf = torch.empty(n, dtype=dtype, pin_memory=True)
-            self._pinned[role] = buf
+            self._pinned[key] = buf
         return buf[:n].view(shape)
 
 

@@ -41,7 +41,7 @@ import numpy as np
 from repro_torch.core.partition import RowPartition
 from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device
-from repro_torch.mesh.buffers import refuse_multiprocess
+from repro_torch.mesh.buffers import plan_mesh
 
 
 def structure_key(a, row_part: RowPartition, col_part: RowPartition,
@@ -82,15 +82,22 @@ class PlanCache:
     """LRU cache of live :class:`repro_torch.api.NapOperator`s,
     structure-keyed.  ``operator_kwargs`` go to every operator (e.g.
     ``device=``); the torch backend runs on CUDA unless ``device="cpu"``
-    is passed, and raises here when CUDA is absent."""
+    is passed, and raises here when CUDA is absent.
+
+    ``mesh`` is the process mesh the torch backend's plans compile their
+    node blocks for in a multi-process job (None in one process, and for
+    the host simulators): a topology that does not split into whole-node
+    blocks raises :class:`repro_torch.mesh.discover.DiscoveryError`, here
+    or in :meth:`rebuild`."""
 
     def __init__(self, topo: Topology, *, method: str = "nap",
                  backend: str = "torch", local_compute: str = "auto",
                  max_entries: int = 8, integrity: str = "off",
                  **operator_kwargs):
-        refuse_multiprocess("the plan cache")
+        self.mesh = None
         if backend == "torch":
             resolve_device(operator_kwargs.get("device"))
+            self.mesh = plan_mesh(topo)
         self.topo = topo
         self.method, self.backend = method, backend
         self.local_compute = local_compute
@@ -147,14 +154,18 @@ class PlanCache:
         """Elastic rebuild: drop EVERY cached plan (all are stale on a
         changed topology) and retarget the factory at ``new_topo``.
         Returns the number of plans dropped; subsequent ``operator_for``
-        calls recompile against the survivor layout."""
+        calls recompile against the survivor layout.  The old mesh goes
+        with them: the survivors' blocks are ``new_topo``'s (raises, with
+        the cache untouched, when ``new_topo`` has no whole-node block per
+        process)."""
+        mesh = plan_mesh(new_topo) if self.backend == "torch" else None
         dropped = len(self._entries)
         for ent in self._entries.values():
             self.stats["buffer_bytes_released"] = (
                 self.stats.get("buffer_bytes_released", 0)
                 + release_operator_buffers(ent["op"]))
         self._entries.clear()
-        self.topo = new_topo
+        self.topo, self.mesh = new_topo, mesh
         self.stats["rebuilds"] += 1
         return dropped
 

@@ -35,6 +35,16 @@ hot-swaps into the cached compiled program with no program build.
 The service runs the device programs (``backend="torch"``) on CUDA
 unless ``device="cpu"`` is passed; ``backend="simulate"`` runs the
 float64 host simulators, the JAX package's default.
+
+In a multi-process ``torch.distributed`` job every process runs the same
+service: its plans compile the node block the process owns, every apply
+returns the whole result in every process, so every decision (batches,
+retries, recoveries, the log) is taken alike.  Checkpoints are written by
+process 0 alone, which then tells the others how the save went; a
+restore reads the directory in every process between two barriers.  A
+recovery needs the survivors to split into whole-node blocks again
+(:func:`repro_torch.mesh.buffers.mesh_for` raises ``DiscoveryError`` in
+every process otherwise).
 """
 from __future__ import annotations
 
@@ -52,7 +62,8 @@ from repro_torch.core.partition import (RowPartition, contiguous_partition,
                                         survivor_partition)
 from repro_torch.core.topology import Topology
 from repro_torch.device import DeviceLike
-from repro_torch.mesh.buffers import refuse_multiprocess
+from repro_torch.mesh.buffers import (broadcast_from_first, is_first_process,
+                                      job_barrier)
 from repro_torch.runtime.fault import (ElasticPolicy, HeartbeatMonitor,
                                        StragglerDetector)
 from repro_torch.serve.faultplan import FabricError, FaultPlan, ManualClock
@@ -188,7 +199,6 @@ class SolverService:
                  max_attempts: int = 4, backoff: float = 1.0,
                  plan_cache_max: int = 8, device: DeviceLike = None,
                  integrity: str = "off", quarantine_strikes: int = 3):
-        refuse_multiprocess("the solver service")
         self.clock = clock if clock is not None else ManualClock()
         self.dt = float(dt)
         self.topo = topo
@@ -546,15 +556,21 @@ class SolverService:
             def hook():
                 raise OSError("scripted torn checkpoint: writer killed "
                               "before _COMMITTED")
-        try:
-            self.ckpt.save(self._save_seq, {"x": np.asarray(X), "ids": ids},
-                           extra={"matrix": name, "version": version,
-                                  "iteration": it},
-                           block=True, on_before_commit=hook)
-        except RuntimeError as e:
+        failed = None
+        if is_first_process():      # two writers would race on one step
+            try:
+                self.ckpt.save(self._save_seq, {"x": np.asarray(X), "ids": ids},
+                               extra={"matrix": name, "version": version,
+                                      "iteration": it},
+                               block=True, on_before_commit=hook)
+            except RuntimeError as e:
+                failed = str(e.__cause__)
+        # every process learns process 0's outcome once its save is done
+        failed = broadcast_from_first(failed, self.plans.mesh)
+        if failed is not None:
             self.stats["torn_saves"] += 1
             self.log.append(f"step {self.step_no}: checkpoint save "
-                            f"{self._save_seq} failed ({e.__cause__}); "
+                            f"{self._save_seq} failed ({failed}); "
                             f"previous committed step stands")
 
     def _recover(self, evicted: List[str]) -> None:
@@ -573,6 +589,9 @@ class SolverService:
             self.log.append(f"step {self.step_no}: fleet fully degraded "
                             f"({evicted} evicted, nobody left)")
             return
+        # first, so a survivor layout without a whole-node block per
+        # process raises before anything changes
+        dropped = self.plans.rebuild(new_topo)
         dead_ranks = sorted(
             r for n in evicted
             for r in self.topo.ranks_on_node(self.nodes.index(n)))
@@ -581,7 +600,6 @@ class SolverService:
             m["row_part"] = survivor_partition(m["row_part"], dead_ranks)
             m["col_part"] = (m["row_part"] if same else
                              survivor_partition(m["col_part"], dead_ranks))
-        dropped = self.plans.rebuild(new_topo)
         survivors = [n for n in self.nodes if n not in set(evicted)]
         self.nodes = survivors
         self.topo = new_topo
@@ -613,10 +631,15 @@ class SolverService:
     def _restore_solver_state(self) -> None:
         if self.ckpt is None:
             return
+        # every process reads what process 0 committed, and none writes
+        # (or collects old steps) until all have read
+        job_barrier(self.plans.mesh)
         try:
             tree, extra = self.ckpt.restore()
         except FileNotFoundError:
             return                      # nothing committed yet
+        finally:
+            job_barrier(self.plans.mesh)
         name, version = extra.get("matrix"), extra.get("version")
         m = self.matrices.get(name)
         if m is None or m["version"] != version:
