@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the node-aware SpMV,
 the multi-step exchange, wire integrity, the float64 simulate backend,
 the distributed SpGEMM and the AMG solver path, the solver service, the
-multi-process mesh, the MoE token dispatch, the hierarchical collectives
-and the gemma2-2b serving path.
+multi-process mesh, the MoE token dispatch, the hierarchical collectives,
+the gemma2-2b serving path, and gemma2-2b's prefill and training.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -93,7 +93,7 @@ Phases, each fatal on failure:
    1e-13 x max |ref|), its ``galerkin(materialize=True)`` against the
    lazy chain (one apply each, timed side by side) and its standard
    ``A @ P`` from the live slots of the pair exchange (the literal
-   table's bytes printed); then 10 iterations of AMG-preconditioned CG
+   table's bytes printed); then 5 iterations of AMG-preconditioned CG
    through the device operators beside the same solver on float64 host
    matvecs, the true residual of each iteration side by side, and the
    V-cycle's wall and ELL launches (``level_operators``, the device PCG
@@ -176,9 +176,9 @@ Phases, each fatal on failure:
    raising phase 8's one-process mismatch list in both processes; one
    cross-process bitflip a run under ``"recover"``, bit-equal to the clean
    result with equal counters; (b) ``level_operators(materialize=True)``
-   from phase 9's hierarchy (an npz), 10 PCG iterations and one V-cycle
-   in deterministic mode, every residual and the V-cycle bit-equal to
-   phase 9's, and one iteration's device busy share; (c) phase 9d's
+   from phase 9's hierarchy (an npz), 5 PCG iterations and one V-cycle
+   in deterministic mode, every residual and the V-cycle
+   bit-equal to phase 9's, and one iteration's device busy share; (c) phase 9d's
    service scenario over the node blocks (process 0 writes the
    checkpoints): log, stats, plan-cache counters, tickets, results and
    checkpoint digests equal 9d's, then one node lost raises
@@ -265,7 +265,39 @@ Phases, each fatal on failure:
    layers in float32, 8 steps through the kernel, then the same steps
    with the plain version swapped into ``models.attention`` by this
    script, logits compared at atol 1e-3;
-13. the whole script's seconds, a JSON line of every kernel (with
+13. prefill held on the card, on phase 12's config and weights:
+    ``LM.prefill`` of a seeded [4, 64] prompt, its last logits and its
+    k / v against the teacher-forced ``decode_step`` at atol 1e-3, and
+    ``LM.hidden`` + the head against every teacher-forced step at rtol
+    2e-2 / atol 2e-3;
+14. prefill at full width on phase 11's weights and prompts (26 layers,
+    bf16, 4 x 512): device ms (CUDA events, median of 5) beside phase
+    11's teacher-forced prompt, peak memory, busy share, the last logits'
+    max |diff| against the teacher-forced ones and whether the greedy ids
+    agree (recorded), finite logits (gated);
+15. (run inside phase 9, while it waits for the 9e / 9h children; its
+    CPU half in a thread from phase 8 on, its results kept on the card)
+    training held on the card, phase 12's config (``grad_accum`` 1):
+    4 ``make_train_step`` steps of seeded bigram batches on the card and
+    the same 4 on the CPU from the same weights, for float32 and int8
+    moments: losses within rtol 1e-4, parameters within 2 lr x steps
+    and 99% of them within 1e-6 of max |p|, int8 codes within +-1;
+    ``grad_accum`` 2 against 1 on the same batches at the same
+    tolerance; in deterministic mode 4 steps of
+    ``repro_torch.launch.train.train`` straight against 2 steps, the
+    checkpoint, ``resume`` and 2 steps, bit-equal parameters, state and
+    losses;
+16. ``repro_torch.launch.train.main`` at full width (``--arch gemma2-2b
+    --full --steps 8 --batch 4 --seq 512``: 26 layers, bf16 weights,
+    fp32 masters and moments, remat): the driver's own decrease rule and
+    finite losses and grad norms gated; step ms (CUDA events, median of
+    steps 2-8) split into forward + backward and the AdamW update,
+    tokens/s, the share of the bf16 peak (6 N T), peak memory and the
+    profiler's busy share of one more step;
+17. (run inside phase 9 after phase 15) the port's training example,
+    ``repro_torch.examples.train_lm``, at its defaults (300 steps) to its
+    0.5 loss-drop assertion;
+18. the whole script's seconds, a JSON line of every kernel (with
     ``device_ms`` and, for the BSR kernels, ``library_bsr_ms``), then the
     result line.
 
@@ -283,6 +315,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -325,8 +358,15 @@ from repro_torch.kernels.decode_attn import (decode_attention_grouped,  # noqa: 
 from repro_torch.kernels.ell_spmv import (ell_spmm_packed,  # noqa: E402
                                           ell_spmm_packed_ref)
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+import repro_torch.optim.adamw as adamw_mod  # noqa: E402
+from repro_torch.optim.adamw import tree_at, tree_leaves_with_path, tree_map  # noqa: E402
 from repro_torch.amg.matmul import csr_matmul  # noqa: E402
-from repro_torch.examples import amg_spmv, moe_nap_dispatch, quickstart  # noqa: E402
+from repro_torch.examples import (amg_spmv, moe_nap_dispatch, quickstart,  # noqa: E402
+                                  train_lm)
 import repro_torch.spgemm.spgemm_torch as spgemm_torch  # noqa: E402
 from repro_torch.spgemm import (assert_matches_host, build_spgemm_plan,  # noqa: E402
                                 clear_spgemm_cache, compile_spgemm,
@@ -339,8 +379,9 @@ from repro_torch.core.hier_collectives import (flat_all_to_all,  # noqa: E402
                                                nap_all_to_all, nap_moe_dispatch,
                                                nap_psum_compressed, nap_psum_tree,
                                                nap_reduce_scatter)
-from repro_torch.models import attention, build_model, count_params  # noqa: E402
-from repro_torch.models.common import dense_init  # noqa: E402
+from repro_torch.models import (attention, build_model,  # noqa: E402
+                                count_active_params, count_params)
+from repro_torch.models.common import dense_init, head_logits  # noqa: E402
 from repro_torch.models.transformer import block_init  # noqa: E402
 from repro_torch.models.moe import (_router as moe_router,  # noqa: E402
                                     moe_apply_local, moe_init)
@@ -1100,14 +1141,19 @@ def phase_multistep(a, topo, part, oracles, nap_ref, gen, full_size, keep):
 
 class deterministic:
     """PyTorch's deterministic algorithms for the block (``index_add_`` of
-    the transposes then sums in a fixed order), when ``on``."""
+    the transposes then sums in a fixed order), when ``on``.  With
+    ``warn_only`` an op without a deterministic form warns instead of
+    raising: cuBLAS's matmuls, which raise without a
+    ``CUBLAS_WORKSPACE_CONFIG`` though they are deterministic on one
+    stream."""
 
-    def __init__(self, on=True):
+    def __init__(self, on=True, warn_only=False):
         self.on = on
+        self.warn_only = warn_only
 
     def __enter__(self):
         if self.on:
-            torch.use_deterministic_algorithms(True)
+            torch.use_deterministic_algorithms(True, warn_only=self.warn_only)
 
     def __exit__(self, *exc):
         if self.on:
@@ -1507,12 +1553,15 @@ def check_level(label, got, want):
     return float(np.abs(got - want).max()) / scale
 
 
-def amg_pcg(levels, ops, b, a0):
-    """10 AMG-preconditioned CG iterations from zero; the true relative
+AMG_PCG = 5      # PCG iterations of phases 9 and 9h (10 before the time limit forced a cut)
+
+
+def amg_pcg(levels, ops, b, a0, iterations=AMG_PCG):
+    """AMG-preconditioned CG iterations from zero; the true relative
     residual ||b - A x|| / ||b|| (float64 host A) of each iterate."""
     b_norm = float(np.linalg.norm(b))
     hist = []
-    cg_solve(levels[0].a, b, tol=0.0, maxiter=10, spmv=ops[0].a,
+    cg_solve(levels[0].a, b, tol=0.0, maxiter=iterations, spmv=ops[0].a,
              precond=lambda r: amg_vcycle(levels, r, operators=ops),
              callback=lambda it, x: hist.append(
                  float(np.linalg.norm(b - a0 @ x)) / b_norm))
@@ -1520,7 +1569,7 @@ def amg_pcg(levels, ops, b, a0):
 
 
 def phase_amg(a, topo, gen, seed, full_size, keep, levels_file=None,
-              children=None):
+              children=None, host_work=None):
     """[9] the AMG solver path on the main path's matrix.  The device
     SpGEMM, the PCG and the V-cycle run in deterministic mode (their
     ``index_add_`` sums in a fixed order), so that phase 9h's processes can
@@ -1529,8 +1578,9 @@ def phase_amg(a, topo, gen, seed, full_size, keep, levels_file=None,
     With ``levels_file`` the hierarchy and the right-hand side are written
     there for 9h's children (and ``levels_file + ".ready"`` when done);
     ``children`` (``start_mesh_children``'s ``finish``) is waited for after
-    ``level_operators`` and the float64 host twins, before the first
-    timing on the card, its result kept as ``keep["children"]``."""
+    ``level_operators``, the float64 host twins and ``host_work`` (host
+    work of a later phase that needs no card), before the first timing on
+    the card, its result kept as ``keep["children"]``."""
     import repro_torch.api as api_mod
     rng = np.random.default_rng(seed + 8)
     print(f"[9] AMG: n={int(np.sqrt(a.shape[0]))}, smoothed aggregation theta 0.1, "
@@ -1603,6 +1653,8 @@ def phase_amg(a, topo, gen, seed, full_size, keep, levels_file=None,
     t0 = time.perf_counter()
     ap_host = csr_matmul(levels[0].a, levels[0].p)
     t_ap_host = time.perf_counter() - t0
+    if host_work is not None:
+        host_work()
     if children is not None:
         t0 = time.perf_counter()
         keep["children"] = children()
@@ -1683,11 +1735,11 @@ def phase_amg(a, topo, gen, seed, full_size, keep, levels_file=None,
     del products
     free()
 
-    # AMG-preconditioned CG, 10 iterations, on the card (the host-matvec
+    # AMG-preconditioned CG, AMG_PCG iterations, on the card (the host-matvec
     # twin ran above)
     t0 = time.perf_counter()
     with deterministic():
-        res_dev, counts = drive("PCG, 10 iterations, device operators",
+        res_dev, counts = drive(f"PCG, {AMG_PCG} iterations, device operators",
                                 lambda: amg_pcg(levels, ops, b, a0))
     t_dev = time.perf_counter() - t0
     print("  PCG true relative residual ||b - A x|| / ||b|| (float64 host A), device "
@@ -1699,7 +1751,7 @@ def phase_amg(a, topo, gen, seed, full_size, keep, levels_file=None,
     # |p| |A p| (0.6% at n = 2024), so the f32 rounding of the device's
     # A p (~4e-5 of |A p|) moves it by ~0.5% and the residuals by up to
     # ~2% (the z . A z comparison below).  The limit is 5%, 2.5x that.
-    if len(res_dev) != 10 or not all(
+    if len(res_dev) != AMG_PCG or not all(
             abs(rd / rh - 1.0) <= 0.05 or max(rd, rh) <= 1e-5
             for rd, rh in zip(res_dev, res_host)):
         raise AssertionError("device PCG does not track the host-matvec PCG")
@@ -2998,8 +3050,9 @@ def stack_integrity(pid, a, topo, part, x, faults, mesh, method, local_compute,
 
 def stack_amg(pid, levels_file, topo):
     """(b) of a child: ``level_operators(materialize=True)`` over the node
-    block, 10 PCG iterations and one V-cycle (deterministic mode, as phase
-    9), their walls, the ELL launches and one PCG iteration's busy share."""
+    block, ``AMG_PCG`` PCG iterations and one V-cycle (deterministic
+    mode, as phase 9), their walls, the ELL launches and one PCG
+    iteration's busy share."""
     levels, b = load_levels(levels_file)
     a0 = scipy_of(levels[0].a)
     t0 = time.perf_counter()
@@ -3011,7 +3064,7 @@ def stack_amg(pid, levels_file, topo):
           flush=True)
     with deterministic():
         res, rec["pcg_s"], rec["pcg_ell"] = timed_step(
-            lambda: amg_pcg(levels, ops, b, a0))
+            lambda: amg_pcg(levels, ops, b, a0, AMG_PCG))
         z, rec["vcycle_s"], rec["vcycle_ell"] = timed_step(
             lambda: amg_vcycle(levels, b, operators=ops))
 
@@ -3162,13 +3215,14 @@ def phase_stack(keep, smi):
             raise AssertionError(f"p{r['pid']}: the AMG path launched no ELL kernel")
         ell["forward"] += rec["pcg_ell"] + rec["vcycle_ell"]
     per = [r["amg"] for r in reports]
-    print(f"  (b) AMG: 10 PCG residuals and the V-cycle bit-equal to phase 9's in both "
+    print(f"  (b) AMG: {AMG_PCG} PCG residuals and "
+          f"the V-cycle bit-equal to phase 9's in both "
           f"processes ({per[0]['distributed']} distributed levels); level_operators "
           + " / ".join(f"{p['level_operators_s']:.2f}" for p in per)
           + f" s vs {amg_one['level_operators_s']:.2f}; V-cycle "
           + " / ".join(f"{p['vcycle_s']:.3f}" for p in per)
           + f" s vs {amg_one['vcycle_s']:.3f}; PCG iteration "
-          + " / ".join(f"{p['pcg_s'] / 10:.3f}" for p in per)
+          + " / ".join(f"{p['pcg_s'] / AMG_PCG:.3f}" for p in per)
           + f" s vs {amg_one['pcg_s'] / 10:.3f}, device busy "
           + " / ".join(f"{p['iteration_busy_ms']:.2f} ms of {1e3 * p['iteration_s']:.1f} ("
                        f"{100 * p['iteration_busy_ms'] / 1e3 / p['iteration_s']:.2f}%)"
@@ -4234,9 +4288,12 @@ def phase_serve(n_layers, seed):
                   cfg.attn_softcap, cfg.head_dim ** -0.5)
     profile_program("serve: 4 greedy decode steps",
                     lambda: [model.decode_step(cache, tok) for _ in range(4)], 4 * step)
-    del model, res, cache
+    # the model and the prompts' teacher-forced result, for phase 14
+    served = dict(model=model, prompts=prompts, prefill_ms=res.prefill_ms,
+                  prompt_logits=res.prompt_logits[:, 0], first_ids=res.tokens[:, 0])
+    del res, cache
     free()
-    return n_launch
+    return n_launch, served
 
 
 def phase_step_check(seed):
@@ -4279,6 +4336,419 @@ def phase_step_check(seed):
         raise AssertionError("decode step through the kernel disagrees with the plain one")
     del model, got, want
     free()
+
+
+# gemma2-2b prefill and training (phases 13-17) ------------------------------------
+BF16_FLOPS = 989e12          # H100 SXM dense bf16 (NVIDIA's data sheet)
+HELD = dict(batch=4, seq=64, steps=4, lr=1e-3)   # the held training steps
+
+
+def held_config():
+    """Phase 12's config: gemma2-2b at full width, 2 layers, float32."""
+    return get_config("gemma2-2b").replace(n_layers=2, dtype="float32")
+
+
+def within(got, want, rtol, atol):
+    """max of |got - want| - (atol + rtol |want|): <= 0 when allclose."""
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def phase_prefill_held(seed):
+    """[13] ``LM.prefill`` against the teacher-forced ``decode_step`` and
+    against ``hidden`` + head, on phase 12's config and weights."""
+    cfg = held_config()
+    batch, s = 4, 64
+    model = build_model(cfg).init(seed)
+    toks = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab, (batch, s))).to(DEV)
+    logits, cache = model.prefill(toks)
+    dcache, steps = model.init_cache(batch, s), []
+    for t in range(s):
+        out, dcache = model.decode_step(dcache, toks[:, t:t + 1])
+        steps.append(out[:, 0])
+    steps = torch.stack(steps, 1)
+    with torch.no_grad():
+        full = head_logits(model.hidden(toks), model.head_matrix(), cfg.final_softcap)
+    torch.cuda.synchronize()
+    err = dict(logits=float((logits - steps[:, -1]).abs().max()),
+               k=float((cache["layers"]["k"] - dcache["layers"]["k"]).abs().max()),
+               v=float((cache["layers"]["v"] - dcache["layers"]["v"]).abs().max()))
+    over = within(full, steps, 2e-2, 2e-3)
+    print(f"[13] prefill, {cfg.name} 2 layers float32, [{batch}, {s}] prompt: last "
+          f"logits vs teacher-forced decode_step max_abs_err {err['logits']:.3e}, "
+          f"k {err['k']:.3e}, v {err['v']:.3e} (tolerance 1e-3); hidden + head vs "
+          f"every decode step: max excess over rtol 2e-2 / atol 2e-3 {over:.3e} (<= 0 "
+          f"passes); cache length {cache['length'].tolist()}, pos {cache['pos']}")
+    if not (max(err.values()) <= 1e-3 and over <= 0 and torch.isfinite(logits).all()
+            and cache["pos"] == s):
+        raise AssertionError("prefill disagrees with the teacher-forced decode step")
+    del model, cache, dcache, steps, full
+    free()
+
+
+def phase_prefill_full(served):
+    """[14] ``LM.prefill`` at full width on phase 11's weights and prompts."""
+    model = served["model"]
+    cfg = model.cfg
+    toks = torch.from_numpy(served["prompts"]).to(DEV)
+    b, s = toks.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache = model.prefill(toks)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.isfinite(logits).all():
+        raise AssertionError("full-width prefill: non-finite logits")
+    diff = float((logits - served["prompt_logits"]).abs().max())
+    same_ids = bool((logits.argmax(-1) == served["first_ids"]).all())
+    del cache
+    ms = time_ms(lambda: model.prefill(toks), reps=5, warmup=1)
+    busy = profile_program("prefill", lambda: model.prefill(toks), ms)
+    # matmul FLOPs of the layers (the embedding is a lookup), the head at
+    # the last position, and the attention blocks as computed (full
+    # [S, S] blocks: S <= block_q)
+    n_layer = count_params(model) - cfg.vocab * cfg.d_model
+    flops = 2 * n_layer * b * s + 2 * cfg.d_model * cfg.vocab * b \
+        + 4 * b * s * s * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    print(f"[14] prefill at full width: {cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, "
+          f"{b} x {s} prompts (phase 11's): {ms:.4f} ms (CUDA events, median of 5) "
+          f"against the teacher-forced prompt's {served['prefill_ms']:.1f} ms "
+          f"({served['prefill_ms'] / ms:.1f}x); peak memory {peak / 1e9:.3f} GB; "
+          f"{flops / 1e12:.2f} TFLOP, {100 * flops / (ms / 1e3) / BF16_FLOPS:.1f}% of "
+          f"the bf16 peak; busy {100 * busy / ms:.1f}%; last logits vs the "
+          f"teacher-forced ones max_abs_err {diff:.3e} (bf16, recorded), greedy ids "
+          f"agree: {same_ids}; logits finite")
+
+
+def release():
+    """Drop the freed tensors' cached blocks (``free`` without clearing the
+    SpMV compile cache, which phase 9's operators still use)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def held_setup(seed):
+    """Phase 15's config (phase 12's, one microbatch) and bigram batches."""
+    cfg = held_config().replace(grad_accum=1)
+    ds = SyntheticLM(cfg.vocab, HELD["seq"], seed=seed)
+    return cfg, [ds.batch(i, HELD["batch"]) for i in range(HELD["steps"])]
+
+
+def held_opt(dtype):
+    return AdamWConfig(lr=HELD["lr"], warmup_steps=1, total_steps=HELD["steps"],
+                       state_dtype=dtype)
+
+
+def int8_codes(state, device=None):
+    """A copy of the int8 moment codes, by path, on ``device`` (the
+    state's own by default)."""
+    return {(key,) + path: t.detach().to(device or t.device, copy=True)
+            for key in ("m", "v") for path, t in tree_leaves_with_path(state[key])
+            if t.dtype == torch.int8}
+
+
+def run_steps(model, opt_cfg, batches):
+    """Steps of ``make_train_step`` on ``model``'s device: the losses, the
+    state, and the int8 codes after the first step (None for float32)."""
+    opt_state = adamw_init(model.param_tree(), opt_cfg)
+    step_fn, losses, first = make_train_step(model, opt_cfg), [], None
+    for b in batches:
+        loss, _ = step_fn(opt_state, train.to_device(b, model.device))
+        losses.append(float(loss))
+        if first is None and opt_cfg.state_dtype == "int8":
+            first = int8_codes(opt_state)
+    return losses, opt_state, first
+
+
+def row_slices(t, rows=8192):
+    """Slices of ``t``'s leading axis (all of a 1-D tensor): the int8
+    blocks run along the last axis, so a slice of rows holds whole blocks
+    and its scales are the same rows of theirs."""
+    if t.dim() < 2:
+        return [slice(None)]
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
+def code_flips(got, want):
+    """(max |code difference|, codes that differ, codes) of two code sets."""
+    worst, flips, total = 0, 0, 0
+    for k, w in want.items():
+        for sl in row_slices(w):
+            d = (got[k][sl].to(torch.int16) - w[sl].to(torch.int16)).abs()
+            worst, flips, total = max(worst, int(d.max())), \
+                flips + int((d > 0).sum()), total + d.numel()
+    return worst, flips, total
+
+
+def held_cpu_twin(seed, threads=None):
+    """Phase 15's host half: the 4 steps on the CPU for both moment dtypes,
+    from weights drawn from the seed on the CPU, on ``threads`` threads
+    (all by default).  The starting weights and the results (weights,
+    codes) move to the card, so the host holds none of them while the
+    script runs on."""
+    cfg, batches = held_setup(seed)
+    before = torch.get_num_threads()
+    threads = threads or before
+    torch.set_num_threads(threads)
+    out = {}
+    try:
+        start = build_model(cfg, device="cpu").init(seed).param_tree()
+        out["start"] = tree_map(lambda t: t.detach().to(DEV, copy=True), start)
+        for dtype in ("float32", "int8"):
+            t0 = time.perf_counter()
+            host = build_model(cfg.replace(opt_state_dtype=dtype), device="cpu").load(start)
+            losses, state, first = run_steps(host, held_opt(dtype), batches)
+            out[dtype] = dict(
+                losses=losses, seconds=time.perf_counter() - t0,
+                params=tree_map(lambda t: t.detach().to(DEV), host.param_tree()),
+                first=first and {k: t.to(DEV) for k, t in first.items()},
+                last=int8_codes(state, DEV) if dtype == "int8" else None)
+            del host, state
+        del start
+    finally:
+        torch.set_num_threads(before)
+    print(f"  [15] the CPU half of phase 15 ({threads} threads): 4 steps float32 "
+          f"{out['float32']['seconds']:.1f} s, int8 {out['int8']['seconds']:.1f} s")
+    return out
+
+
+def start_cpu_twin(seed, threads=3):
+    """Phase 15's CPU half in a background thread, beside the 9e / 9h
+    children and the host work of phases 8-9 (it runs no kernel on the
+    card); returns ``finish()``, which waits for it and returns its
+    result."""
+    box = {}
+
+    def work():
+        try:
+            box["out"] = held_cpu_twin(seed, threads)
+        except BaseException as e:      # re-raised by finish()
+            box["err"] = e
+
+    thread = threading.Thread(target=work, daemon=True)
+    thread.start()
+
+    def finish():
+        t0 = time.perf_counter()
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        print(f"  waited {time.perf_counter() - t0:.1f} s for phase 15's CPU half")
+        return box.pop("out")     # held nowhere else once phase 15 is done
+
+    return finish
+
+
+def int8_codec_check(state, first, host):
+    """The card's int8 codecs against the CPU's on the card's own moments
+    (each leaf dequantized on the card, then quantized on the card and on
+    the CPU): codes within +-1, the scales within 1e-6 relative.  The
+    free-running codes of the two devices are recorded, not gated: the
+    steps' float32 moments differ at round-off, and in a block whose values
+    all sit at round-off (the saturated softcap makes many) the codes
+    differ freely."""
+    worst, flips, total, scale_rel = 0, 0, 0, 0.0
+    for key, deq, quant in (("m", adamw_mod._q8_dequant, adamw_mod._q8_quant),
+                            ("v", adamw_mod._q8l_dequant, adamw_mod._q8l_quant)):
+        for path, q in tree_leaves_with_path(state[key]):
+            if path[-1] != "q":
+                continue
+            st = tree_at(state[key], path[:-1])
+            for sl in row_slices(q):
+                x = deq({part: t[sl] for part, t in st.items()})
+                on_card, on_cpu = quant(x), quant(x.cpu())
+                d = (on_card["q"].cpu().to(torch.int16) - on_cpu["q"].to(torch.int16)).abs()
+                worst, flips, total = max(worst, int(d.max())), \
+                    flips + int((d > 0).sum()), total + d.numel()
+                for part in on_cpu:
+                    if part != "q":
+                        a, b = on_card[part].cpu(), on_cpu[part]
+                        scale_rel = max(scale_rel, float(((a - b).abs() / b.abs().clamp_min(
+                            1e-30)).max()))
+                del x, on_card, on_cpu
+    if worst > 1 or scale_rel > 1e-6:
+        raise AssertionError(f"int8 codecs on the card vs the CPU: codes differ by "
+                             f"{worst}, scales by {scale_rel:.3e} relative")
+    c1 = code_flips(first, host["first"])
+    c4 = code_flips(int8_codes(state), host["last"])
+    return (f"; the card's int8 codecs against the CPU's on the card's moments: codes "
+            f"within +-{worst} ({flips} of {total} differ), scales within "
+            f"{scale_rel:.1e} relative; the free-running codes (recorded) after step 1 "
+            f"max |diff| {c1[0]} ({c1[1]} differ), after step {HELD['steps']} "
+            f"{c4[0]} ({c4[1]} differ)")
+
+
+def held_close(label, got, want, moved):
+    """Parameters of two runs: every element within ``2 moved`` (AdamW moves
+    an element by about +-lr a step wherever its gradient sits at
+    round-off level) and 99% within 1e-6 of max |p|; returns the worst.
+    Compared on ``got``'s device, a leaf at a time."""
+    pairs = list(zip([t for _, t in tree_leaves_with_path(got)],
+                     [t for _, t in tree_leaves_with_path(want)]))
+    scale = max(float(w.detach().abs().max()) for _, w in pairs)
+    worst, outside, n = 0.0, 0, 0
+    for g, w in pairs:
+        d = (g.detach().float() - w.detach().to(g.device).float()).abs()
+        worst = max(worst, float(d.max()))
+        outside += int((d > 1e-6 * scale).sum())
+        n += d.numel()
+        del d
+    if not (worst <= 2 * moved and outside <= 0.01 * n):
+        raise AssertionError(f"{label}: parameters differ by {worst:.3e} (limit "
+                             f"{2 * moved:.3e}), {outside} of {n} beyond 1e-6 of max |p|")
+    return worst, outside / n
+
+
+def phase_train_held(seed, twin=None):
+    """[15] training held on the card: card against CPU for both moment
+    dtypes (``twin``: ``held_cpu_twin``'s result, computed here when
+    None), grad_accum 2 against 1, and a resumed run bit-equal to a
+    straight one, on phase 12's config.  It times nothing on the card (a
+    few seconds of kernels; the rest is comparisons on the card and
+    checkpoint I/O), so the script runs it while phase 9 waits for the
+    9e / 9h children; it leaves the SpMV compile cache, which phase 9's
+    operators use, alone."""
+    t0 = time.perf_counter()
+    cfg, batches = held_setup(seed)
+    twin = twin or held_cpu_twin(seed)
+    moved = HELD["lr"] * HELD["steps"]
+    start = twin.pop("start")
+    print(f"[15] training held on the card: {cfg.name}, 2 layers, float32, "
+          f"{count_params(build_model(cfg, device='cpu'))} parameters drawn from the "
+          f"seed on the CPU; {HELD['steps']} steps of {HELD['batch']} x {HELD['seq']} "
+          f"bigram tokens, lr {HELD['lr']}")
+    for dtype in ("float32", "int8"):
+        host = twin[dtype]
+        card = build_model(cfg.replace(opt_state_dtype=dtype)).load(start)
+        t1 = time.perf_counter()
+        losses, state, first = run_steps(card, held_opt(dtype), batches)
+        t_card = time.perf_counter() - t1
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, host["losses"]))
+        worst, share = held_close(f"card vs CPU ({dtype})", card.param_tree(),
+                                  host["params"], moved)
+        codes = ""
+        if dtype == "int8":
+            codes = int8_codec_check(state, first, host)
+        print(f"  card vs CPU, {dtype} moments: losses {[round(x, 4) for x in losses]} "
+              f"max rel diff {rel:.3e} (rtol 1e-4); parameters max |diff| {worst:.3e} "
+              f"(limit {2 * moved:.1e}), {100 * share:.4f}% beyond 1e-6 of max |p|{codes}; "
+              f"card {t_card:.1f} s, CPU {host['seconds']:.1f} s")
+        if not rel <= 1e-4:
+            raise AssertionError(f"card vs CPU losses ({dtype}) differ by {rel:.3e}")
+        del card, state
+        release()
+    del start, twin
+    # grad_accum = 2 against 1 on the same global batches
+    one = build_model(cfg).init(seed)
+    one_losses, _, _ = run_steps(one, held_opt("float32"), batches)
+    two = build_model(cfg.replace(grad_accum=2)).init(seed)
+    two_losses, _, _ = run_steps(two, held_opt("float32"), batches)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(two_losses, one_losses))
+    worst, share = held_close("grad_accum 2 vs 1", two.param_tree(), one.param_tree(), moved)
+    print(f"  grad_accum 2 vs 1 on the card: losses max rel diff {rel:.3e} (rtol 1e-4); "
+          f"parameters max |diff| {worst:.3e}, {100 * share:.4f}% beyond 1e-6 of max |p|")
+    if not rel <= 1e-4:
+        raise AssertionError("grad_accum 2 disagrees with 1")
+    del one, two
+    release()
+    # a resumed run against a straight one, deterministic mode; int8 moments
+    # (their codes and scales go through the checkpoint too, at half the
+    # bytes of float32 ones)
+    cfg = cfg.replace(opt_state_dtype="int8")
+    kw = dict(steps=HELD["steps"], batch=HELD["batch"], seq=HELD["seq"], lr=HELD["lr"],
+              seed=seed, device=DEV, log_every=HELD["steps"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp, \
+            deterministic(warn_only=True):
+        t1 = time.perf_counter()
+        straight = train.train(cfg, ckpt_dir=f"{tmp}/a", ckpt_every=2, **kw)
+        t_straight = time.perf_counter() - t1
+        # the run as if it stopped after step 2's checkpoint
+        shutil.copytree(f"{tmp}/a/step_00000002", f"{tmp}/b/step_00000002")
+        t1 = time.perf_counter()
+        resumed = train.train(cfg, ckpt_dir=f"{tmp}/b", ckpt_every=0, resume=True, **kw)
+        t_resumed = time.perf_counter() - t1
+        ckpt_gb = dir_bytes(f"{tmp}/b/step_00000002") / 1e9
+    same = [torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_leaves_with_path((straight.model.param_tree(), straight.opt_state)),
+        tree_leaves_with_path((resumed.model.param_tree(), resumed.opt_state)))
+        if isinstance(a, torch.Tensor)]
+    ok = all(same) and resumed.losses == straight.losses[2:] and \
+        resumed.opt_state["step"] == straight.opt_state["step"] == HELD["steps"]
+    print(f"  resume (deterministic mode, int8 moments): {HELD['steps']} steps straight "
+          f"({t_straight:.1f} s, checkpoints at 2 and {HELD['steps']}) against 2 steps, "
+          f"checkpoint ({ckpt_gb:.3f} "
+          f"GB), --resume, 2 steps ({t_resumed:.1f} s): {sum(same)} of {len(same)} "
+          f"parameter and state tensors bit-equal, losses equal {resumed.losses == straight.losses[2:]}")
+    if not ok:
+        raise AssertionError("a resumed run is not bit-equal to the straight one")
+    del straight, resumed
+    release()
+    print(f"  phase 15 {time.perf_counter() - t0:.1f} s")
+
+
+def phase_train_full(seed, smi):
+    """[16] ``repro_torch.launch.train.main`` at gemma2-2b's full width."""
+    b, s, n_steps = 4, 512, 8
+    args = ["--arch", "gemma2-2b", "--full", "--steps", str(n_steps), "--batch", str(b),
+            "--seq", str(s), "--seed", str(seed)]
+    print(f"[16] training at full width: python -m repro_torch.launch.train "
+          f"{' '.join(args)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        run = train.main(args)
+    except SystemExit as e:
+        raise AssertionError(f"full-width training: {e}") from e
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(run.losses).all() and np.isfinite(run.grad_norms).all()):
+        raise AssertionError("full-width training: a loss or grad norm is not finite")
+    cfg = run.model.cfg
+    fb, up = run.fwd_bwd_ms[1:], run.update_ms[1:]
+    step = statistics.median([x + y for x, y in zip(fb, up)])
+    tokens = b * s
+    n_active = count_active_params(run.model)
+    share = 6 * n_active * tokens / (step / 1e3 * BF16_FLOPS)
+    # attention scores and values as computed (full [S, S] blocks),
+    # forward, backward (2x) and the remat recompute of the forward
+    attn = 4 * 4 * b * s * s * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    state_gb = sum(t.nbytes for _, t in tree_leaves_with_path(run.opt_state)
+                   if isinstance(t, torch.Tensor)) / 1e9
+    param_gb = sum(p.nbytes for p in run.model.parameters()) / 1e9
+    batch = train.to_device(SyntheticLM(cfg.vocab, s, seed=seed).batch(n_steps, b), DEV)
+    busy = profile_program("one full-width train step",
+                           lambda: run.step_fn(run.opt_state, batch), step)
+    masters = "fp32 masters and " if "master" in run.opt_state else ""
+    print(f"  {cfg.n_layers} layers, {cfg.dtype} weights ({param_gb:.3f} GB), {masters}"
+          f"{cfg.opt_state_dtype} moments ({state_gb:.3f} GB), remat "
+          f"{cfg.remat}, grad_accum {cfg.grad_accum}; losses "
+          f"{[round(x, 4) for x in run.losses]}, grad norms "
+          f"{[round(x, 3) for x in run.grad_norms]} (finite); the driver's rule passed")
+    print(f"  step {step:.2f} ms (CUDA events, median of steps 2-{n_steps}; min "
+          f"{min(x + y for x, y in zip(fb, up)):.2f}, max {max(x + y for x, y in zip(fb, up)):.2f}"
+          f"): forward + backward {statistics.median(fb):.2f} ms, AdamW update "
+          f"{statistics.median(up):.2f} ms; {tokens / (step / 1e3):.0f} tokens/s; "
+          f"6 N T / (step x 989 TFLOP/s) = {100 * share:.2f}% of the bf16 peak (N "
+          f"{n_active} active parameters, T {tokens} tokens; attention "
+          f"{attn / 1e12:.2f} TFLOP a step beside 6 N T = {6 * n_active * tokens / 1e12:.2f}); "
+          f"peak memory {peak / 1e9:.3f} GB; busy {100 * busy / step:.1f}% of a step; "
+          f"first step {run.fwd_bwd_ms[0] + run.update_ms[0]:.1f} ms; wall {wall:.1f} s "
+          f"[{smi}]")
+    del run, batch
+    free()
+
+
+def phase_example_train(cleanup=free):
+    """[17] the port's training example at its defaults on the card (its
+    seconds are a wall; the script runs it inside phase 9's wait, beside
+    the 9e / 9h children, so ``cleanup`` is ``release`` there)."""
+    t0 = time.perf_counter()
+    out = train_lm.main([])
+    print(f"[17] repro_torch.examples.train_lm: loss {out['first']:.3f} -> "
+          f"{out['last']:.3f} (drop > 0.5 asserted; floor {out['floor']:.3f}), "
+          f"{time.perf_counter() - t0:.1f} s")
+    cleanup()
 
 
 def main():
@@ -4401,20 +4871,26 @@ def main():
     free()
     t0 = time.perf_counter()
     i_ell, i_bsr, nap_det = phase_integrity(a, topo, part, oracles, a_b, keep)
-    # phases 9e and 9h's children run while this process does work that
-    # times nothing on the card: the simulate backend, phase 9's hierarchy,
-    # level operators and host twins; their checks follow phase 9d
+    # phases 9e and 9h's children, and phase 15's CPU half in a thread of
+    # this process, run while this process does work that times nothing on
+    # the card: the simulate backend, phase 9's hierarchy, level operators
+    # and host twins; their checks follow phase 9d
     mesh_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
     children = start_mesh_children(mesh_tmp.name, a, args.seed, keep)
+    cpu_twin = start_cpu_twin(args.seed)
     phase_simulate(a, topo, part, oracles, a_b, nap_det, nap_ref["w1"],
                    nap_ref["z1"])
     print(f"  phase 8 {time.perf_counter() - t0:.1f} s")
     del oracles, nap_ref, nap_det
     free()
     t0 = time.perf_counter()
+    # phases 15 (its CPU half done by then) and 17 run while phase 9 waits
+    # for the children: they time nothing on the card
     amg = phase_amg(a, topo, gen, args.seed, args.n == 2024, keep,
                     levels_file=str(Path(mesh_tmp.name) / "levels.npz"),
-                    children=children)
+                    children=children,
+                    host_work=lambda: (phase_train_held(args.seed, cpu_twin()),
+                                       phase_example_train(release)))
     print(f"  phase 9 {time.perf_counter() - t0:.1f} s")
     free()
     t0 = time.perf_counter()
@@ -4436,9 +4912,16 @@ def main():
     # 10-12. gemma2-2b serving ---------------------------------------------------
     entries.append(phase_decode_attn(rng, gen))
     by_name["decode_attention_grouped"] = entries[-1]
-    by_name["decode_attention_grouped"]["launches"] = phase_serve(args.lm_layers,
-                                                                  args.seed)
+    by_name["decode_attention_grouped"]["launches"], served = phase_serve(
+        args.lm_layers, args.seed)
     phase_step_check(args.seed)
+
+    # 13-17. prefill and training ---------------------------------------------------
+    phase_prefill_held(args.seed)
+    phase_prefill_full(served)
+    del served
+    free()
+    phase_train_full(args.seed, smi)
 
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it); the AMG solve's launches, forward
@@ -4458,7 +4941,7 @@ def main():
     for e in entries:
         if e["launches"] < 1:
             raise AssertionError(f"{e['name']} was not launched on its path")
-    print(f"[13] whole script {time.perf_counter() - T_START:.1f} s")
+    print(f"[18] whole script {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

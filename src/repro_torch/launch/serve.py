@@ -31,12 +31,13 @@ from repro_torch.models.transformer import LM
 class Generation:
     tokens: torch.Tensor        # [B, gen] greedy ids (int64)
     logits: torch.Tensor        # [B, 1, V] float32 of the last step
+    prompt_logits: torch.Tensor  # [B, 1, V] float32 after the prompt
     cache: Dict
     prefill_ms: float           # the teacher-forced prompt, all steps
     step_ms: List[float]        # each greedy decode step
 
 
-class _Clock:
+class Clock:
     """Marks on the device's timeline (CUDA events: the step time as the
     card sees it, no sync per step) or on the host's."""
 
@@ -66,13 +67,14 @@ def generate(model: LM, prompts, gen: int, max_seq: int) -> Generation:
     b, s = prompts.shape
     if s < 1 or s + gen > max_seq:
         raise ValueError(f"prompt {s} + gen {gen} must be within 1..max_seq {max_seq}")
-    clock = _Clock(model.device)
+    clock = Clock(model.device)
     cache = model.init_cache(b, max_seq)
     clock.mark()
     logits = None
     for t in range(s):
         logits, cache = model.decode_step(cache, prompts[:, t:t + 1])
     clock.mark()
+    prompt_logits = logits
     out: List[torch.Tensor] = []
     tok = logits[:, -1].argmax(-1, keepdim=True)
     for _ in range(gen):
@@ -82,8 +84,8 @@ def generate(model: LM, prompts, gen: int, max_seq: int) -> Generation:
         clock.mark()
     times = clock.intervals_ms()
     tokens = torch.cat(out, dim=1) if out else prompts.new_zeros((b, 0))
-    return Generation(tokens=tokens, logits=logits, cache=cache,
-                      prefill_ms=times[0], step_ms=times[1:])
+    return Generation(tokens=tokens, logits=logits, prompt_logits=prompt_logits,
+                      cache=cache, prefill_ms=times[0], step_ms=times[1:])
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Generation:

@@ -1,9 +1,9 @@
-"""GQA attention (+ sliding window / softcap / qk-norm) for decoding.
+"""GQA attention (+ sliding window / softcap / qk-norm): the full
+sequence (training, prefill) and one token against a cache (decoding).
 
 Functions on tensors, mirroring ``repro/models/attention.py``: weights
-``[d_in, d_out]`` used as ``x @ w``, caches ``[B, S, Hkv, D]``.  MLA and
-the full-sequence ``gqa_apply`` wait for their slices (ROADMAP Queue 1
-items 17d and 17b).
+``[d_in, d_out]`` used as ``x @ w``, caches ``[B, S, Hkv, D]``.  MLA
+waits for its slice (ROADMAP Queue 1 item 7d).
 """
 from __future__ import annotations
 
@@ -13,10 +13,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.decode_attn.kernel import decode_attention_grouped
-from repro_torch.models.common import apply_rope, dense_init, rms_norm
+from repro_torch.models.common import (apply_rope, blocked_attention,
+                                       dense_init, init_device, rms_norm)
 
 
-def gqa_init(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
+def gqa_init(gen: Optional[torch.Generator], cfg, dtype) -> Dict[str, torch.Tensor]:
     d, dh = cfg.d_model, cfg.head_dim
     p = {
         "wq": dense_init(gen, d, cfg.n_heads * dh, dtype),
@@ -25,8 +26,8 @@ def gqa_init(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
         "wo": dense_init(gen, cfg.n_heads * dh, d, dtype),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((dh,), dtype=dtype, device=gen.device)
-        p["k_norm"] = torch.ones((dh,), dtype=dtype, device=gen.device)
+        p["q_norm"] = torch.ones((dh,), dtype=dtype, device=init_device(gen))
+        p["k_norm"] = torch.ones((dh,), dtype=dtype, device=init_device(gen))
     return p
 
 
@@ -45,6 +46,26 @@ def _project_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
                    cfg.rope_theta).reshape(b, s, hkv, g, dh)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def gqa_attend(p, cfg, x: torch.Tensor, *, window: Optional[int] = None,
+               causal: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence attention and the k, v it attended over:
+    x [B, S, d] -> (out [B, S, d], k and v [B, S, Hkv, dh])."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = blocked_attention(q, k, v, causal=causal, window=window,
+                            softcap=cfg.attn_softcap, block_q=cfg.attn_block_q,
+                            block_kv=cfg.attn_block_kv)
+    return out.reshape(b, s, -1) @ p["wo"], k, v
+
+
+def gqa_apply(p, cfg, x: torch.Tensor, *, window: Optional[int] = None,
+              causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (training / prefill): x [B, S, d] -> [B, S, d]."""
+    return gqa_attend(p, cfg, x, window=window, causal=causal)[0]
 
 
 def gqa_init_cache(cfg, batch: int, max_seq: int, dtype, device) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,6 @@
 """Parameters of the JAX package's trees, for the port: the ``LM.init``
-tree for the port's ``LM`` and the ``moe_init`` tree for its MoE layer.
+tree for the port's ``LM``, its AdamW state for ``optim.adamw``, and the
+``moe_init`` tree for its MoE layer.
 
 The reference stacks the layers on a leading axis (``layers/attn/wq`` is
 ``[L, d, H * dh]``); the port keeps one tree per layer.  Arrays arrive as
@@ -27,18 +28,39 @@ def _map(fn: Callable, t):
     return fn(t)
 
 
+def _first_leaf(t):
+    while isinstance(t, dict):
+        t = t[sorted(t)[0]]
+    return t
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     """``{"embed", "final_norm", ["head"], "layers": stacked}`` ->
     ``{"embed", "final_norm", ["head"], "layers": [one tree per layer]}``
-    for ``LM.load``."""
+    for ``LM.load``.  A leaf may itself be a dict of arrays (the int8
+    moment codes and their scales): each array is sliced by layer."""
     unknown = set(tree) - {"embed", "final_norm", "head", "layers"}
     if unknown:
         raise NotImplementedError(f"parameter groups the port has no model for: "
                                   f"{sorted(unknown)}")
-    out = {k: _tensor(v) for k, v in tree.items() if k != "layers"}
-    n_layers = len(tree["layers"]["norm1"])
+    out = {k: _map(_tensor, v) for k, v in tree.items() if k != "layers"}
+    n_layers = len(_first_leaf(tree["layers"]))
     out["layers"] = [_map(lambda a: _tensor(a[i]), tree["layers"])
                      for i in range(n_layers)]
+    return out
+
+
+def opt_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's AdamW state (``step``; ``m``, ``v`` and optional
+    ``master`` trees stacked over layers, float32 leaves or the int8
+    ``{"q", "s"}`` / ``{"q", "lo", "st"}`` dicts) -> the port's: ``step``
+    a host int, each tree with one entry per layer.  The int8 blocks run
+    along the last axis, so a layer's codes and scales are the slices of
+    the stacked ones."""
+    out: Dict[str, Any] = {"step": int(np.asarray(state["step"]))}
+    for key in ("m", "v", "master"):
+        if key in state:
+            out[key] = params_from_jax(state[key])
     return out
 
 

@@ -1,17 +1,24 @@
-"""Decoder-only LM of the dense GQA family, for serving.
+"""Decoder-only LM of the dense GQA family: training, prefill and decoding.
 
 Mirrors ``repro/models/transformer.py``: the same parameter tree (layers
 as a list instead of a leading stacked axis), the same per-layer windows,
-and a Python loop over an ``nn.ModuleList`` where the reference scans.
+and a Python loop over an ``nn.ModuleList`` where the reference scans;
+``cfg.remat`` checkpoints each layer (``torch.utils.checkpoint``) where
+the reference wraps its scan body in ``jax.checkpoint``.
 
     LM(cfg, device).init(seed)       -> the model, weights from a Generator
-    LM(cfg, device).load(tree)       -> the model, weights from a tree
+    LM(cfg, device).load(tree)       -> the model, weights copied from a tree
                                         (``models.convert.params_from_jax``)
+    param_tree()                     -> the trainable weights as that tree
+    hidden(tokens [B, S])            -> [B, S, d] after the final norm
+    loss({"tokens", "labels"})       -> mean token NLL (chunked_xent)
+    prefill(tokens [B, S])           -> (last logits [B, V] float32, cache
+                                        filled to S)
     init_cache(batch, max_seq)       -> {"layers": {"k", "v"}, "length", "pos"}
     decode_step(cache, tokens [B,1]) -> (logits [B, 1, V] float32, cache)
 
-``hidden``, ``loss`` and ``prefill``, and the MoE, MLA, SSM, hybrid and
-encoder-decoder families, wait for their slices (ROADMAP Queue 1 item 7).
+The MoE, MLA, SSM, hybrid and encoder-decoder families wait for their
+slices (ROADMAP Queue 1 items 7d-7g).
 """
 from __future__ import annotations
 
@@ -21,11 +28,13 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (dense_init, dtype_of, embed_init,
-                                       head_logits, rms_norm)
+from repro_torch.models.common import (chunked_xent, dense_init, dtype_of,
+                                       embed_init, head_logits, init_device,
+                                       rms_norm)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn_apply, ffn_init
 
@@ -48,14 +57,15 @@ def unported_reason(cfg: ModelConfig) -> Optional[str]:
 # single transformer block
 # ---------------------------------------------------------------------------
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, dtype, *, d_ff: int) -> Dict:
+def block_init(gen: Optional[torch.Generator], cfg: ModelConfig, dtype, *,
+               d_ff: int) -> Dict:
     norm = torch.zeros if cfg.post_norms else torch.ones
-    d = cfg.d_model
-    p = {"norm1": norm((d,), dtype=dtype, device=gen.device),
-         "norm2": norm((d,), dtype=dtype, device=gen.device)}
+    d, dev = cfg.d_model, init_device(gen)
+    p = {"norm1": norm((d,), dtype=dtype, device=dev),
+         "norm2": norm((d,), dtype=dtype, device=dev)}
     if cfg.post_norms:  # gemma2 sandwich norms (stored as w-1 -> zeros)
-        p["norm1_post"] = torch.zeros((d,), dtype=dtype, device=gen.device)
-        p["norm2_post"] = torch.zeros((d,), dtype=dtype, device=gen.device)
+        p["norm1_post"] = torch.zeros((d,), dtype=dtype, device=dev)
+        p["norm2_post"] = torch.zeros((d,), dtype=dtype, device=dev)
     p["attn"] = attn.gqa_init(gen, cfg, dtype)
     p["ffn"] = ffn_init(gen, d, d_ff, dtype)
     return p
@@ -63,6 +73,35 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, dtype, *, d_ff: int) -> D
 
 def _norm(cfg, x, w):
     return rms_norm(x, w, plus_one=cfg.post_norms)
+
+
+def _act(cfg) -> str:
+    return "gelu" if cfg.family == "audio" else "silu"
+
+
+def _ffn_half(p, cfg, x):
+    """The block's second residual branch: norm, FFN, post-norm."""
+    h = ffn_apply(p.ffn, _norm(cfg, x, p.norm2), act=_act(cfg))
+    if cfg.post_norms:
+        h = _norm(cfg, h, p.norm2_post)
+    return x + h
+
+
+def block_prefill(p, cfg: ModelConfig, x: torch.Tensor, *,
+                  window: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One layer over the full sequence, and its cache ``{"k", "v"}`` of
+    ``[B, S, Hkv, dh]`` (the reference's ``LM._prefill_block``)."""
+    h, k, v = attn.gqa_attend(p.attn, cfg, _norm(cfg, x, p.norm1), window=window)
+    if cfg.post_norms:
+        h = _norm(cfg, h, p.norm1_post)
+    return _ffn_half(p, cfg, x + h), {"k": k, "v": v}
+
+
+def block_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
+                window: Optional[int] = None) -> torch.Tensor:
+    """One layer over the full sequence (training)."""
+    return block_prefill(p, cfg, x, window=window)[0]
 
 
 def block_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
@@ -73,11 +112,7 @@ def block_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
                                window=window)
     if cfg.post_norms:
         h = _norm(cfg, h, p.norm1_post)
-    x = x + h
-    h = ffn_apply(p.ffn, _norm(cfg, x, p.norm2))
-    if cfg.post_norms:
-        h = _norm(cfg, h, p.norm2_post)
-    return x + h, cache
+    return _ffn_half(p, cfg, x + h), cache
 
 
 def _layer_windows(cfg: ModelConfig, n_layers: int, max_seq: int) -> List[int]:
@@ -89,10 +124,6 @@ def _layer_windows(cfg: ModelConfig, n_layers: int, max_seq: int) -> List[int]:
     return [max_seq] * n_layers
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Block(nn.Module):
     """One layer's parameters: ``norm*`` tensors, and ``attn`` and ``ffn``
     dictionaries keyed as in the reference (``p.attn["wq"]``)."""
@@ -102,9 +133,15 @@ class Block(nn.Module):
         for name, t in tree.items():
             if isinstance(t, dict):
                 setattr(self, name, nn.ParameterDict(
-                    {k: _frozen(v) for k, v in t.items()}))
+                    {k: nn.Parameter(v) for k, v in t.items()}))
             else:
-                self.register_parameter(name, _frozen(t))
+                self.register_parameter(name, nn.Parameter(t))
+
+    def tree(self) -> Dict[str, Any]:
+        """The layer's parameters as the reference's block tree."""
+        return {name: (dict(m.items()) if isinstance(m, nn.ParameterDict) else m)
+                for name, m in list(self.named_parameters(recurse=False))
+                + list(self.named_children())}
 
 
 # ---------------------------------------------------------------------------
@@ -124,45 +161,118 @@ class LM(nn.Module):
         self.layers = nn.ModuleList()
 
     # ---- params -------------------------------------------------------------
-    def init(self, seed: Union[int, torch.Generator] = 0) -> "LM":
-        """Random weights drawn on the model's device, in the reference's
-        order (embed, head, layers); a Generator or a seed for one."""
+    def init_tree(self, gen: Optional[torch.Generator]) -> Dict[str, Any]:
+        """A parameter tree drawn from ``gen`` in the reference's order
+        (embed, head, layers), on the generator's device; with no
+        generator, meta tensors of the same shapes and dtypes."""
         cfg = self.cfg
-        gen = seed if isinstance(seed, torch.Generator) else \
-            torch.Generator(device=self.device).manual_seed(seed)
         dtype = dtype_of(cfg)
         tree: Dict[str, Any] = {
             "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype),
             "final_norm": (torch.zeros if cfg.post_norms else torch.ones)(
-                (cfg.d_model,), dtype=dtype, device=gen.device),
+                (cfg.d_model,), dtype=dtype, device=init_device(gen)),
         }
         if not cfg.tie_embeddings:
             tree["head"] = dense_init(gen, cfg.d_model, cfg.vocab, dtype)
         tree["layers"] = [block_init(gen, cfg, dtype, d_ff=cfg.d_ff)
                           for _ in range(cfg.n_layers)]
-        return self.load(tree)
+        return tree
+
+    def init(self, seed: Union[int, torch.Generator] = 0) -> "LM":
+        """Random weights drawn on the model's device; a Generator or a
+        seed for one."""
+        gen = seed if isinstance(seed, torch.Generator) else \
+            torch.Generator(device=self.device).manual_seed(seed)
+        return self._set(self.init_tree(gen), copy=False)
 
     def load(self, tree: Dict[str, Any]) -> "LM":
         """Take a parameter tree ({"embed", "final_norm", ["head"],
-        "layers": [block trees]}), moved to the model's device and dtype."""
+        "layers": [block trees]}), copied to the model's device and dtype
+        (training updates the weights in place; the caller's tree stays
+        as it was)."""
+        return self._set(tree, copy=True)
+
+    def _set(self, tree: Dict[str, Any], copy: bool) -> "LM":
         dtype = dtype_of(self.cfg)
-        move = lambda t: t.to(device=self.device, dtype=dtype)  # noqa: E731
+        move = lambda t: t.to(device=self.device, dtype=dtype, copy=copy)  # noqa: E731
         if len(tree["layers"]) != self.cfg.n_layers:
             raise ValueError(f"{len(tree['layers'])} layers for a config of "
                              f"{self.cfg.n_layers}")
         for name in ("embed", "final_norm", "head"):
             if name in tree:
-                self.register_parameter(name, _frozen(move(tree[name])))
+                self.register_parameter(name, nn.Parameter(move(tree[name])))
         self.layers = nn.ModuleList(
             Block({k: ({n: move(t) for n, t in v.items()} if isinstance(v, dict)
                        else move(v)) for k, v in lp.items()})
             for lp in tree["layers"])
         return self
 
+    def param_tree(self) -> Dict[str, Any]:
+        """The weights (``nn.Parameter``s, trainable) as the reference's
+        tree with the layers as a list: what ``optim.adamw`` and the
+        checkpoints walk."""
+        tree: Dict[str, Any] = {name: getattr(self, name) for name in
+                                ("embed", "final_norm", "head") if hasattr(self, name)}
+        tree["layers"] = [lp.tree() for lp in self.layers]
+        return tree
+
     def head_matrix(self) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             return self.embed.T
         return self.head
+
+    # ---- forward ------------------------------------------------------------
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = F.embedding(tokens, self.embed)
+        if self.cfg.embed_scale:
+            # sqrt(d) rounded to the weights' dtype, as the reference does
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model)).to(x.dtype).item()
+        return x
+
+    def _windows(self, seq: int) -> List[Optional[int]]:
+        """Each layer's window for a sequence of ``seq`` (None: no window)."""
+        cfg = self.cfg
+        if not (cfg.alt_local_global and cfg.sliding_window):
+            return [None] * cfg.n_layers
+        return _layer_windows(cfg, cfg.n_layers, seq)
+
+    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, S] -> hidden [B, S, d] (after the final norm)."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for lp, w in zip(self.layers, self._windows(tokens.shape[1])):
+            x = (checkpoint(block_apply, lp, cfg, x, window=w, use_reentrant=False)
+                 if remat else block_apply(lp, cfg, x, window=w))
+        return _norm(cfg, x, self.final_norm)
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean token NLL of ``batch["labels"]`` (-1 ignored), float32."""
+        h = self.hidden(batch["tokens"])
+        return chunked_xent(h, self.head_matrix(), batch["labels"],
+                            chunk=self.cfg.xent_chunk,
+                            softcap=self.cfg.final_softcap)
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """The prompt in one pass: (logits of the last position [B, V]
+        float32, the cache filled to S).  The cache is the reference's,
+        ``k`` and ``v`` of ``[L, B, S, Hkv, dh]`` and ``length`` = S, plus
+        the host's ``pos`` = S."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        x = self._embed(tokens)
+        ks, vs = [], []
+        for lp, w in zip(self.layers, self._windows(s)):
+            x, c = block_prefill(lp, cfg, x, window=w)
+            ks.append(c["k"])
+            vs.append(c["v"])
+        x = _norm(cfg, x, self.final_norm)
+        logits = head_logits(x[:, -1], self.head_matrix(), cfg.final_softcap)
+        cache = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)},
+                 "length": torch.full((b,), s, dtype=torch.int32, device=x.device),
+                 "pos": s}
+        return logits, cache
 
     # ---- serving ------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int) -> Dict:
@@ -186,16 +296,11 @@ class LM(nn.Module):
         """
         cfg = self.cfg
         length, pos = cache["length"], cache["pos"]
-        x = F.embedding(tokens, self.embed)
-        if cfg.embed_scale:
-            # sqrt(d) rounded to the weights' dtype, as the reference does
-            x = x * torch.tensor(math.sqrt(cfg.d_model)).to(x.dtype).item()
+        x = self._embed(tokens)
         ks, vs = cache["layers"]["k"], cache["layers"]["v"]
-        windows = _layer_windows(cfg, cfg.n_layers, ks.shape[2])
-        has_window = bool(cfg.alt_local_global and cfg.sliding_window)
-        for i, lp in enumerate(self.layers):
+        for i, (lp, w) in enumerate(zip(self.layers, self._windows(ks.shape[2]))):
             x, _ = block_decode(lp, cfg, x, {"k": ks[i], "v": vs[i]}, length,
-                                pos=pos, window=windows[i] if has_window else None)
+                                pos=pos, window=w)
         cache["length"] = length + 1
         cache["pos"] = pos + 1
         x = _norm(cfg, x, self.final_norm)

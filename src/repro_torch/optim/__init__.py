@@ -1,0 +1,7 @@
+"""AdamW with fp32 or int8 moments and fp32 masters
+(:mod:`repro_torch.optim.adamw`)."""
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     cosine_schedule, global_norm)
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
+           "global_norm"]

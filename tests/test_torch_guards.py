@@ -275,3 +275,38 @@ def test_solver_service_and_plan_cache_raise_without_cuda(monkeypatch):
         svc.run()
         np.testing.assert_allclose(t.result(), a.to_dense() @ np.ones(36))
     assert PlanCache(topo, device="cpu").backend == "torch"
+
+
+def test_training_modules_import_loads_neither_jax_nor_reference():
+    """The training slice: data, optimizer, steps, the driver and its
+    example load neither JAX nor the JAX package."""
+    code = ("import sys, repro_torch.data, repro_torch.data.pipeline\n"
+            "import repro_torch.optim, repro_torch.optim.adamw\n"
+            "import repro_torch.launch.steps, repro_torch.launch.train\n"
+            "import repro_torch.examples.train_lm, repro_torch.models.registry\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\nprint('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "clean" in proc.stdout
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    """The driver, its ``train`` function and the torch training example
+    run on CUDA unless asked for the CPU."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced("gemma2-2b").replace(grad_accum=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "gemma2-2b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.train(cfg, steps=1, batch=2, seq=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm.main(["--steps", "1"])
+    run = train.train(cfg, steps=1, batch=2, seq=8, device="cpu")
+    assert run.model.device.type == "cpu" and np.isfinite(run.losses).all()
