@@ -3,7 +3,8 @@
 the multi-step exchange, wire integrity, the float64 simulate backend,
 the distributed SpGEMM and the AMG solver path, the solver service, the
 multi-process mesh, the MoE token dispatch, the hierarchical collectives,
-the gemma2-2b serving path, and gemma2-2b's prefill and training.
+the gemma2-2b serving path, gemma2-2b's prefill and training, and
+serving the MoE LMs (qwen3-moe-235b-a22b, deepseek-v2-236b).
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -71,7 +72,11 @@ Phases, each fatal on failure:
    path's grid against the device programs and the float64 host product,
    the node-aware method at full size against phase 4's device results,
    and one scripted wire fault attributed as on the device;
-9. the AMG solver path on the same matrix: the smoothed-aggregation
+9. the AMG solver path on the same operator family at the AMG grid
+   (``--amg-n``, 1024 x 1024: 1,048,576 rows, over Topology(32, 16), a
+   quarter of the main path's rows: the hierarchy, the level operators
+   and the service's CG are host work that grows with them): the
+   smoothed-aggregation
    hierarchy (theta 0.1, coarse_size 2 x ranks), ``level_operators(...,
    comm="auto", materialize=True, spgemm_backend="torch")``: every
    coarse A is the product of two device SpGEMMs (``A @ P``, then
@@ -116,8 +121,8 @@ Phases, each fatal on failure:
    ``amg_spmv`` and ``moe_nap_dispatch``, on the card to their final
    checks;
 9d. the solver service (``repro_torch.serve.SolverService``, backend
-   torch, checkpoints every 4 CG iterations) on the main path's matrix
-   and topology: 8 spmv requests run as ONE nv = 8 apply (the ELL
+   torch, checkpoints every 4 CG iterations) on phase 9's matrix and
+   the main path's topology: 8 spmv requests run as ONE nv = 8 apply (the ELL
    launches of one direct ``op @ V``, one plan-cache miss) within rtol
    1e-4 / atol 1e-5 of the float64 host product; ``update_values`` with
    an integer SPD matrix of the same structure hot-swaps (no program
@@ -176,10 +181,11 @@ Phases, each fatal on failure:
    raising phase 8's one-process mismatch list in both processes; one
    cross-process bitflip a run under ``"recover"``, bit-equal to the clean
    result with equal counters; (b) ``level_operators(materialize=True)``
-   from phase 9's hierarchy (an npz), 5 PCG iterations and one V-cycle
+   from phase 9's hierarchy (an npz, at the AMG grid), 5 PCG
+   iterations and one V-cycle
    in deterministic mode, every residual and the V-cycle
    bit-equal to phase 9's, and one iteration's device busy share; (c) phase 9d's
-   service scenario over the node blocks (process 0 writes the
+   service scenario (the AMG grid) over the node blocks (process 0 writes the
    checkpoints): log, stats, plan-cache counters, tickets, results and
    checkpoint digests equal 9d's, then one node lost raises
    ``DiscoveryError`` in both; per-process walls beside the one-process
@@ -297,16 +303,48 @@ Phases, each fatal on failure:
 17. (run inside phase 9 after phase 15) the port's training example,
     ``repro_torch.examples.train_lm``, at its defaults (300 steps) to its
     0.5 loss-drop assertion;
-18. the whole script's seconds, a JSON line of every kernel (with
-    ``device_ms`` and, for the BSR kernels, ``library_bsr_ms``), then the
-    result line.
+19. the MoE LMs held on the card, their reduced configs in float32
+    with weights from the seed: (a) qwen3-moe's 8 decode steps through
+    the kernel, then with the plain version swapped in, logits at atol
+    1e-3 (phase 12's check); (b) both archs' ``LM.prefill`` of a seeded
+    [4, 64] prompt against the teacher-forced ``decode_step``, last
+    logits and every cache tensor (``k`` / ``v`` or MLA's ``c_kv`` /
+    ``k_rope``, deepseek's dense layer too) at atol 1e-3, and ``hidden``
+    + head against every step at rtol 2e-2 / atol 2e-3 (phase 13's
+    check); (c) both archs on ``mesh=Topology(2, 2)`` (flat and nap, the
+    f32 wire, the capacity factor doubled until no copy drops): prefill
+    logits within 1e-4 of max |logits| of the local path's;
+20. the MoE LMs at full width, their depth cut to ``--moe-layers`` (4:
+    qwen3-moe 4 of 94 layers, 22.39 GB; deepseek-v2 its dense first
+    layer and 3 MoE layers of 60, 26.61 GB), bf16 weights from the seed
+    on the card, one model at a time: ``serve.generate`` with batch 4, a
+    32-token prompt teacher-forced and 32 greedy tokens, max_seq 128
+    (median step ms, the decode kernel's launches: layers x 64 for
+    qwen3-moe and none for deepseek's MLA, which decodes in plain
+    float32 as the reference does; peak, busy share, the step's bound
+    of every parameter byte and the cache rows read once, the cache
+    bytes a token and layer, finite logits); for qwen3-moe the kernel
+    against its plain version on the served bf16 cache (g = 16, D =
+    128), timed beside SDPA; then ``LM.prefill`` of a seeded [4, 512]
+    prompt through the local path (the dense-masked oracle in chunks of
+    256 tokens) and through the island on Topology(4, 8) with the
+    config's own dispatch, wire and capacity factor (one sequence a
+    pod): device ms (CUDA events, median of 3), peak, the island's
+    dropped copies, finite logits (gated), the island's max |diff| from
+    the local path and whether the greedy ids agree (recorded);
+21. the whole script's seconds with every phase's, a JSON line of every
+    kernel (with ``device_ms`` and, for the BSR kernels,
+    ``library_bsr_ms``; the decode kernel a second time at qwen3-moe's
+    served shapes), then the result line.
 
 Launch counts are reset right before each path is driven and read right
 after, and the peak of allocated device memory is reset and read around
 it.  Each phase frees its tensors before the next.  TF32 is switched off,
-so the plain versions' products are f32.  ``--n`` and ``--bsr-n`` shrink
-the grids of the SpMV phases and ``--lm-layers`` the depth of phase 11,
-for a short first call after a kernel change.
+so the plain versions' products are f32.  Each phase prints its
+seconds.  ``--n``, ``--bsr-n`` and ``--amg-n`` shrink the grids of the
+SpMV, BSR and AMG / service phases, ``--lm-layers`` the depth of phase
+11 and ``--moe-layers`` that of phase 20, for a short first call after a
+kernel change.
 """
 import argparse
 import dataclasses
@@ -338,7 +376,7 @@ from repro_torch.amg import (LevelOperators, amg_vcycle, cg_solve,  # noqa: E402
                              level_operators, smoothed_aggregation_hierarchy)
 from repro_torch.api import operator  # noqa: E402
 from repro_torch.comm import choose_comm  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core.cost_model import (BLUE_WATERS,  # noqa: E402
                                          BLUE_WATERS_POSTAL, PostalParams)
 from repro_torch.core.integrity import (FAULT_KINDS, IntegrityError,  # noqa: E402
@@ -382,7 +420,7 @@ from repro_torch.core.hier_collectives import (flat_all_to_all,  # noqa: E402
 from repro_torch.models import (attention, build_model,  # noqa: E402
                                 count_active_params, count_params)
 from repro_torch.models.common import dense_init, head_logits  # noqa: E402
-from repro_torch.models.transformer import block_init  # noqa: E402
+from repro_torch.models.transformer import MOE_CHUNK, block_init  # noqa: E402
 from repro_torch.models.moe import (_router as moe_router,  # noqa: E402
                                     moe_apply_local, moe_init)
 from repro_torch.moe import (build_dispatch_plans, codec_sweep,  # noqa: E402
@@ -2501,8 +2539,7 @@ def mesh_child(spec_file):
     info = attach(verbose=True)
     pid = info["process_id"]
     torch.backends.cuda.matmul.allow_tf32 = False
-    with np.load(spec["matrix"]) as z:
-        a = CSR(z["indptr"], z["indices"], z["data"], tuple(int(d) for d in z["shape"]))
+    a = load_csr(spec["matrix"])
     topo = Topology(32, 16)
     part = contiguous_partition(a.shape[0], topo.n_procs)
     x = draw_operands(np.random.default_rng(spec["seed"]), a.shape[0])
@@ -2558,7 +2595,7 @@ def mesh_child(spec_file):
     del op
     free()
     if stack:
-        stack_rest(pid, a, topo, spec, report)
+        stack_rest(pid, load_csr(spec["amg_matrix"]), topo, spec, report)
     report["digests"] = {k: digest(w) for k, w in results.items()}
     out = Path(spec["out"])
     if pid == 0:
@@ -2568,7 +2605,17 @@ def mesh_child(spec_file):
     print(f"  [p{pid}] done", flush=True)
 
 
-def start_mesh_children(tmp, a, seed, keep):
+def save_csr(path, a):
+    np.savez(path, indptr=a.indptr, indices=a.indices, data=a.data,
+             shape=np.asarray(a.shape))
+
+
+def load_csr(path):
+    with np.load(path) as z:
+        return CSR(z["indptr"], z["indices"], z["data"], tuple(int(d) for d in z["shape"]))
+
+
+def start_mesh_children(tmp, a, a_amg, seed, keep):
     """Start the gloo children of phases 9e and 9h (this script with
     ``--mesh-child``) on the card, in the background, with the main path's
     matrix (a file, so they need not generate it again) and 9h's inputs:
@@ -2582,14 +2629,17 @@ def start_mesh_children(tmp, a, seed, keep):
     (LaunchError, raised by ``finish``)."""
     tmp = Path(tmp)
     matrix = tmp / "a.npz"
-    np.savez(matrix, indptr=a.indptr, indices=a.indices, data=a.data,
-             shape=np.asarray(a.shape))
+    save_csr(matrix, a)
+    amg_matrix = matrix if a_amg is a else tmp / "a_amg.npz"
+    if a_amg is not a:
+        save_csr(amg_matrix, a_amg)
     (tmp / "ckpt").mkdir()
     faults = {k: [(dataclasses.asdict(f), list(w)) for f, w in v]
               for k, v in keep["faults"].items()}
     spec_file = tmp / "spec.json"
     spec_file.write_text(json.dumps(dict(
-        matrix=str(matrix), seed=seed, runs=MESH_RUNS, out=str(tmp),
+        matrix=str(matrix), amg_matrix=str(amg_matrix), seed=seed, runs=MESH_RUNS,
+        out=str(tmp),
         faults=faults, levels=str(tmp / "levels.npz"), ckpt=str(tmp / "ckpt"))))
     box = {}
 
@@ -3650,7 +3700,6 @@ def moe_processes(cfg, topo, seed, one):
 
 def phase_moe(seed):
     """[9f] MoE token dispatch at qwen3-moe-235b-a22b's full width."""
-    t0 = time.perf_counter()
     cfg = get_config(MOE_ARCH)
     topo = Topology(*MOE_TOPO)
     print(f"[9f] moe: {MOE_ARCH} (d_model {cfg.d_model}, {cfg.n_experts} experts, "
@@ -3670,7 +3719,7 @@ def phase_moe(seed):
     moe_processes(cfg, topo, seed, keep)
     del keep
     free()
-    print(f"  phase 9f {time.perf_counter() - t0:.1f} s (f32 capacity factor {cf})")
+    print(f"  9f's f32 island ran at capacity factor {cf}")
 
 
 # the hierarchical collectives (phase 9g) ----------------------------------------
@@ -4073,7 +4122,6 @@ def coll_processes(seed):
 
 def phase_collectives(seed):
     """[9g] the hierarchical collectives at a gemma2-2b layer's gradient."""
-    t0 = time.perf_counter()
     cfg = get_config(COLL_ARCH)
     topo = Topology(*COLL_TOPO)
     shapes = layer_grad_shapes(cfg)
@@ -4098,7 +4146,6 @@ def phase_collectives(seed):
     free()
     coll_processes(seed)
     free()
-    print(f"  phase 9g {time.perf_counter() - t0:.1f} s")
 
 
 # gemma2-2b serving (phases 10-12) ------------------------------------------------
@@ -4296,10 +4343,10 @@ def phase_serve(n_layers, seed):
     return n_launch, served
 
 
-def phase_step_check(seed):
-    """[12] the decode step through the kernel vs through the plain version."""
-    cfg = get_config("gemma2-2b").replace(n_layers=2, dtype="float32")
-    batch, n_steps = 4, 8
+def step_check(label, cfg, seed, batch=4, n_steps=8):
+    """``n_steps`` decode steps through the kernel, then the same steps
+    with the plain version swapped into ``models.attention``: the logits,
+    the kernel's launches (layers x steps) and the plain run's (none)."""
     model = build_model(cfg).init(seed)
     toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
         0, cfg.vocab, (batch, n_steps))).to(DEV)
@@ -4324,18 +4371,26 @@ def phase_step_check(seed):
         attention.decode_attention_grouped = kernel
     err = float((got - want).abs().max())
     # Both runs do the same f32 products on the card and differ only in the
-    # attention's summation order (<= 8 rows, D = 256: ~1e-6 relative);
-    # through two layers and the head that stays below 1e-4 on logits
-    # bounded by the final softcap of 30, so 1e-3 leaves a wide margin.
+    # attention's summation order (<= 8 rows: ~1e-6 relative); through the
+    # layers and the head that stays below 1e-4 on logits of tens, so 1e-3
+    # leaves a wide margin.
     tol = 1e-3
-    print(f"[12] decode step, {cfg.name} 2 layers float32, {n_steps} steps: kernel "
-          f"({n_launch} launches) vs plain ({plain_launches}) logits max_abs_err "
-          f"{err:.3e} (tolerance {tol:.0e}), max |logit| {float(want.abs().max()):.2f}")
-    if n_launch != 2 * n_steps or plain_launches != 0 or not err <= tol \
+    print(f"{label} decode step, {cfg.name} {cfg.n_layers} layers {cfg.dtype}, "
+          f"{n_steps} steps: kernel ({n_launch} launches) vs plain ({plain_launches}) "
+          f"logits max_abs_err {err:.3e} (tolerance {tol:.0e}), max |logit| "
+          f"{float(want.abs().max()):.2f}")
+    if n_launch != cfg.n_layers * n_steps or plain_launches != 0 or not err <= tol \
             or not torch.isfinite(got).all():
-        raise AssertionError("decode step through the kernel disagrees with the plain one")
+        raise AssertionError(f"{label} decode step through the kernel disagrees "
+                             f"with the plain one")
     del model, got, want
     free()
+
+
+def phase_step_check(seed):
+    """[12] the decode step through the kernel vs through the plain version."""
+    step_check("[12]", get_config("gemma2-2b").replace(n_layers=2, dtype="float32"),
+               seed)
 
 
 # gemma2-2b prefill and training (phases 13-17) ------------------------------------
@@ -4353,11 +4408,11 @@ def within(got, want, rtol, atol):
     return float(((got - want).abs() - (atol + rtol * want.abs())).max())
 
 
-def phase_prefill_held(seed):
-    """[13] ``LM.prefill`` against the teacher-forced ``decode_step`` and
-    against ``hidden`` + head, on phase 12's config and weights."""
-    cfg = held_config()
-    batch, s = 4, 64
+def prefill_check(label, cfg, seed, batch=4, s=64):
+    """``LM.prefill`` of a seeded [batch, s] prompt against the
+    teacher-forced ``decode_step`` (last logits and every cache tensor,
+    the dense layers' too, at atol 1e-3) and ``LM.hidden`` + the head
+    against every step (rtol 2e-2 / atol 2e-3)."""
     model = build_model(cfg).init(seed)
     toks = torch.from_numpy(np.random.default_rng(seed + 2).integers(
         0, cfg.vocab, (batch, s))).to(DEV)
@@ -4370,20 +4425,29 @@ def phase_prefill_held(seed):
     with torch.no_grad():
         full = head_logits(model.hidden(toks), model.head_matrix(), cfg.final_softcap)
     torch.cuda.synchronize()
-    err = dict(logits=float((logits - steps[:, -1]).abs().max()),
-               k=float((cache["layers"]["k"] - dcache["layers"]["k"]).abs().max()),
-               v=float((cache["layers"]["v"] - dcache["layers"]["v"]).abs().max()))
+    err = dict(logits=float((logits - steps[:, -1]).abs().max()))
+    for group in (g for g in ("dense_layers", "layers") if g in cache):
+        for name, t in cache[group].items():
+            err[f"{group}/{name}"] = float((t - dcache[group][name]).abs().max())
     over = within(full, steps, 2e-2, 2e-3)
-    print(f"[13] prefill, {cfg.name} 2 layers float32, [{batch}, {s}] prompt: last "
-          f"logits vs teacher-forced decode_step max_abs_err {err['logits']:.3e}, "
-          f"k {err['k']:.3e}, v {err['v']:.3e} (tolerance 1e-3); hidden + head vs "
-          f"every decode step: max excess over rtol 2e-2 / atol 2e-3 {over:.3e} (<= 0 "
-          f"passes); cache length {cache['length'].tolist()}, pos {cache['pos']}")
+    print(f"{label} prefill, {cfg.name} {cfg.n_layers} layers {cfg.dtype}, [{batch}, "
+          f"{s}] prompt: last logits and caches vs teacher-forced decode_step max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items()) + " (tolerance 1e-3); "
+          f"hidden + head vs every decode step: max excess over rtol 2e-2 / atol 2e-3 "
+          f"{over:.3e} (<= 0 passes); cache length {cache['length'].tolist()}, pos "
+          f"{cache['pos']}")
     if not (max(err.values()) <= 1e-3 and over <= 0 and torch.isfinite(logits).all()
             and cache["pos"] == s):
-        raise AssertionError("prefill disagrees with the teacher-forced decode step")
+        raise AssertionError(f"{label} prefill disagrees with the teacher-forced "
+                             f"decode step")
     del model, cache, dcache, steps, full
     free()
+
+
+def phase_prefill_held(seed):
+    """[13] ``LM.prefill`` against the teacher-forced ``decode_step`` and
+    against ``hidden`` + head, on phase 12's config and weights."""
+    prefill_check("[13]", held_config(), seed)
 
 
 def phase_prefill_full(served):
@@ -4751,12 +4815,235 @@ def phase_example_train(cleanup=free):
     cleanup()
 
 
+# the MoE LMs (phases 19-20) -------------------------------------------------------
+MOE_LM_ARCHS = ("qwen3-moe-235b-a22b", "deepseek-v2-236b")
+MOE_LM_TOPO = (2, 2)         # phase 19's island: 2 pods of 2 chips
+MOE_LM_SERVE = dict(batch=4, prompt=32, gen=32, max_seq=128)
+MOE_LM_PREFILL = (4, 512)    # one 512-token sequence a pod of MOE_TOPO
+
+
+def island_drops(stats):
+    """Copies the island dropped over its calls, by stage."""
+    out = {}
+    for st in stats:
+        for k, v in st["dropped"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def island_held(arch, seed):
+    """The LM on ``Topology(*MOE_LM_TOPO)`` with the f32 wire against its
+    local path: prefill logits within 1e-4 of max |logits|, for flat and
+    nap, the capacity factor doubled until no copy drops."""
+    base = get_reduced(arch).replace(wire_dtype="f32")
+    toks = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, base.vocab, (4, 64))).to(DEV)
+    local = build_model(base).init(seed)
+    want, _ = local.prefill(toks)
+    scale = float(want.abs().max())
+    for mode in ("flat", "nap"):
+        cf = base.capacity_factor
+        while True:
+            cfg = base.replace(moe_dispatch=mode, capacity_factor=cf)
+            island = build_model(cfg, mesh=Topology(*MOE_LM_TOPO))
+            island.load(local.param_tree())
+            island.moe_stats = []
+            got, _ = island.prefill(toks)
+            drops = island_drops(island.moe_stats)
+            if not any(drops.values()) or cf >= 64:
+                break
+            cf *= 2
+        err = float((got - want).abs().max())
+        print(f"  island {arch} {mode} on Topology{MOE_LM_TOPO}, f32 wire, capacity "
+              f"factor {cf}: prefill logits max_abs_err {err:.3e} (limit 1e-4 x max "
+              f"|logits| {scale:.3f}); dropped {drops}; modes "
+              f"{sorted({st['mode'] for st in island.moe_stats})}")
+        if any(drops.values()) or not err <= 1e-4 * scale:
+            raise AssertionError(f"{arch} {mode}: the island LM disagrees with the "
+                                 f"local path")
+        del island
+    del local
+    free()
+
+
+def phase_moe_lm_held(seed):
+    """[19] the MoE LMs held on the card: reduced configs in float32."""
+    print("[19] the MoE LMs held on the card (reduced configs, float32)")
+    step_check("  [19a]", get_reduced(MOE_LM_ARCHS[0]), seed)
+    for arch in MOE_LM_ARCHS:
+        prefill_check("  [19b]", get_reduced(arch), seed)
+    for arch in MOE_LM_ARCHS:
+        island_held(arch, seed)
+
+
+def cache_bytes_per_token(cfg):
+    """KV-cache bytes a token and layer in the model's dtype: MLA's latent
+    and rope key, or GQA's k and v."""
+    item = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    if cfg.mla_kv_lora:
+        return (cfg.mla_kv_lora + cfg.mla_rope_dim) * item
+    return 2 * cfg.n_kv_heads * cfg.head_dim * item
+
+
+def prefill_timed(label, model, toks):
+    """One ``LM.prefill`` with its peak and the island's drops, then its
+    device ms (CUDA events, median of 3)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model.moe_stats = [] if model.mesh is not None else None
+    logits, cache = model.prefill(toks)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    drops = island_drops(model.moe_stats) if model.moe_stats is not None else None
+    modes = sorted({st["mode"] for st in model.moe_stats or []})
+    model.moe_stats = None
+    del cache
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{label}: non-finite logits")
+    ms = time_ms(lambda: model.prefill(toks), reps=3, warmup=1)
+    print(f"  prefill {label}: {ms:.4f} ms (CUDA events, median of 3); peak memory "
+          f"{peak / 1e9:.3f} GB" + (f"; island {modes}, dropped copies {drops}"
+                                    if drops is not None else "") + "; logits finite")
+    return logits
+
+
+def moe_lm_full(arch, n_layers, seed, smi):
+    """One MoE LM at full width, cut to ``n_layers``: ``serve.generate``,
+    the decode kernel on the served cache (GQA), ``LM.prefill`` through
+    the local path and through the island on ``Topology(*MOE_TOPO)``."""
+    t0 = time.perf_counter()
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    sv = MOE_LM_SERVE
+    batch, prompt_len, gen_len, max_seq = sv["batch"], sv["prompt"], sv["gen"], sv["max_seq"]
+    model = build_model(cfg).init(seed)
+    torch.cuda.synchronize()
+    param_bytes = sum(p.nbytes for p in model.parameters())
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    print(f"[20] {arch} at full width: d {cfg.d_model}, {cfg.n_experts} experts top-"
+          f"{cfg.top_k}, moe_dff {cfg.moe_dff}, shared {cfg.n_shared_experts}, "
+          f"{'MLA r_kv ' + str(cfg.mla_kv_lora) if cfg.mla_kv_lora else 'GQA Hkv ' + str(cfg.n_kv_heads)}"
+          f", {cfg.n_layers} layers ({cfg.first_dense_layers} dense + {n_moe} MoE) of "
+          f"{get_config(arch).n_layers}, {cfg.dtype}; init from seed {seed} on the card "
+          f"{time.perf_counter() - t0:.2f} s, {count_params(model)} parameters, "
+          f"{param_bytes / 1e9:.3f} GB")
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, prompt_len))
+    res, counts = drive("generate", lambda: generate(model, prompts, gen_len, max_seq))
+    steps = prompt_len + gen_len
+    n_launch = counts.get("decode_attention_grouped", 0)
+    # MLA decodes in plain PyTorch (its scores are r_kv + rope wide, as in
+    # the reference); GQA through the kernel, once a layer and step
+    want = 0 if cfg.mla_kv_lora else cfg.n_layers * steps
+    if n_launch != want:
+        raise AssertionError(f"{arch}: decode_attention_grouped launched {n_launch} "
+                             f"times, not {want}")
+    if not torch.isfinite(res.logits).all():
+        raise AssertionError(f"{arch} serve: non-finite logits")
+    step = statistics.median(res.step_ms)
+    per_token = cache_bytes_per_token(cfg)
+    c = prompt_len + gen_len // 2 + 1         # tokens stored at the median step
+    cache_bytes = c * batch * per_token * cfg.n_layers
+    step_bound = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    tok = res.tokens[:, -1:]
+    cache = res.cache
+    busy = profile_program(f"{arch}: 4 greedy decode steps",
+                           lambda: [model.decode_step(cache, tok) for _ in range(4)],
+                           4 * step)
+    gqa_bytes = 2 * cfg.n_heads * cfg.head_dim * 2 if cfg.mla_kv_lora else per_token
+    print(f"  kernel launches {n_launch} (= {want}); prompt {res.prefill_ms:.1f} ms "
+          f"({res.prefill_ms / prompt_len:.3f} ms/step); greedy step median {step:.4f} "
+          f"ms (min {min(res.step_ms):.4f}, max {max(res.step_ms):.4f}), "
+          f"{batch * 1e3 / step:.1f} tok/s; step bound {step_bound:.4f} ms (params "
+          f"{param_bytes / 1e9:.3f} GB + cache rows {cache_bytes / 1e6:.2f} MB at 3.35 "
+          f"TB/s), {100 * step_bound / step:.2f}% of it; busy {100 * busy / (4 * step):.1f}% "
+          f"of 4 steps; cache {per_token} bytes a token and layer"
+          + (f" (an equivalent GQA cache, {cfg.n_heads} heads of k and v: {gqa_bytes})"
+             if cfg.mla_kv_lora else "")
+          + f"; logits finite; greedy ids [batch 0] {res.tokens[0, :8].tolist()}... [{smi}]")
+    entry = None
+    if not cfg.mla_kv_lora:
+        # the kernel against its plain version on the served cache, read in
+        # place, its lengths after the last step, a query from the seed
+        g = cfg.n_heads // cfg.n_kv_heads
+        q = torch.randn((batch, cfg.n_kv_heads, g, cfg.head_dim), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(seed)
+                        ).to(cache["layers"]["k"].dtype)
+        entry = attn_case(f"served cache, layer 0, g {g}", q,
+                          cache["layers"]["k"][0].transpose(1, 2),
+                          cache["layers"]["v"][0].transpose(1, 2), cache["length"], 0,
+                          cfg.attn_softcap, cfg.head_dim ** -0.5)
+        entry = dict(name="decode_attention_grouped:" + arch, route="cuda",
+                     source=ATTN_SOURCE, replaces=ATTN_REPLACES, launches=n_launch,
+                     **entry)
+        # the same heads at phase 10's decode_32k lengths, where the k/v
+        # rows each of the g / 8 query tiles reads again dominate
+        b, s = 8, 32768
+        lengths = torch.tensor([1, 17, 4096, 4097, 9000, 20000, 30000, s],
+                               dtype=torch.int32, device=DEV)
+        kv = [torch.randn((b, s, cfg.n_kv_heads, cfg.head_dim), generator=gen,
+                          device=DEV).to(torch.bfloat16) for gen in
+              (torch.Generator(device=DEV).manual_seed(seed + i) for i in (1, 2))]
+        q = torch.randn((b, cfg.n_kv_heads, g, cfg.head_dim), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(seed + 3)
+                        ).to(torch.bfloat16)
+        attn_case(f"B {b}, S {s}, g {g}, D {cfg.head_dim}, bf16 [B,S,Hkv,D]", q,
+                  kv[0].transpose(1, 2), kv[1].transpose(1, 2), lengths, 0,
+                  cfg.attn_softcap, cfg.head_dim ** -0.5)
+        del kv, q
+    del res, cache
+    free()
+    toks = torch.from_numpy(np.random.default_rng(seed + 4).integers(
+        0, cfg.vocab, MOE_LM_PREFILL)).to(DEV)
+    local = prefill_timed(f"{list(MOE_LM_PREFILL)} local (dense-masked oracle, chunks of "
+                          f"{MOE_CHUNK} tokens)", model, toks)
+    # the same weights with the MoE blocks on the island, the config's own
+    # dispatch and wire (the batch splits as one sequence a pod)
+    model.mesh = Topology(*MOE_TOPO)
+    island = prefill_timed(f"{list(MOE_LM_PREFILL)} island Topology{MOE_TOPO} "
+                           f"{cfg.moe_dispatch} / {cfg.wire_dtype} wire, capacity factor "
+                           f"{cfg.capacity_factor}", model, toks)
+    model.mesh = None
+    diff = float((island - local).abs().max())
+    same = bool((island.argmax(-1) == local.argmax(-1)).all())
+    print(f"  island vs local prefill: last logits max_abs_err {diff:.3e} (max |logits| "
+          f"{float(local.abs().max()):.3f}; recorded), greedy ids agree: {same}; "
+          f"phase 20 {arch} {time.perf_counter() - t0:.1f} s")
+    del model, local, island, toks
+    free()
+    return entry
+
+
+def phase_moe_lm_full(n_layers, seed, smi):
+    """[20] the MoE LMs at full width, one after the other; the kernels
+    line's entry of the decode kernel at qwen3-moe's shapes."""
+    entries = [moe_lm_full(arch, n_layers, seed, smi) for arch in MOE_LM_ARCHS]
+    return [e for e in entries if e is not None]
+
+
+class PhaseClock:
+    """Seconds of each phase of ``main``, printed as each ends (a phase
+    run inside another's wait counts in that one's)."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.seconds = {}
+
+    def done(self, label):
+        t = time.perf_counter()
+        self.seconds[label] = t - self.t0
+        print(f"  phase {label} {t - self.t0:.1f} s")
+        self.t0 = t
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=2024, help="main-path grid side")
     ap.add_argument("--bsr-n", type=int, default=512, help="BSR-path grid side")
+    ap.add_argument("--amg-n", type=int, default=1024,
+                    help="grid side of the AMG path and the solver service (9, 9d, 9h)")
     ap.add_argument("--lm-layers", type=int, default=26,
                     help="gemma2-2b depth of the serving phase")
+    ap.add_argument("--moe-layers", type=int, default=4,
+                    help="depth of phase 20's MoE LMs (deepseek: 1 dense + the rest MoE)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's register and shared-memory report")
@@ -4793,12 +5080,14 @@ def main():
           f"device {name}, count {torch.cuda.device_count()}; TF32 off")
 
     # 2. build ----------------------------------------------------------------
+    clock = PhaseClock()
     info = build_all(ptxas_verbose=args.ptxas)
     print(f"[2] built {info['built']} in {info['seconds']:.2f} s")
     if args.ptxas:
         for src, log in info["log"].items():
             print(f"[2] nvcc {src}:\n{log}")
 
+    clock.done("2")
     # host plans of the NAP paths and the float64 oracles -------------------
     topo = Topology(32, 16)
     t0 = time.perf_counter()
@@ -4845,10 +5134,12 @@ def main():
                    z1=host_apply(a, oracles["u1"], transpose=True),
                    wb=host_apply(a_b, oracles["vb"]))
     print(f"[plan] float64 host oracles {time.perf_counter() - t0:.2f} s")
+    clock.done("plan")
 
     # 3-9. the phases ---------------------------------------------------------
     entries = phase_kernels(c, cb, a, a_b, oracles, gen)
     by_name = {e["name"]: e for e in entries}
+    clock.done("3")
     fwd, tr, nap_ref = phase_nap(op, a, oracles)
     # phases 4, 6 and 7's results and the float64 oracles, for phase 9e
     keep = dict(nap=nap_ref, standard={}, multistep={}, faults={}, integrity_ms={},
@@ -4859,69 +5150,88 @@ def main():
                        cost=op.cost(BLUE_WATERS))
     del op, c
     free()
+    clock.done("4")
     cnt_p, cnt_c = phase_bsr(op_b, a_b, oracles)
     del op_b, cb
     free()
+    clock.done("5")
     s_fwd1, s_fwd8, s_tr = phase_standard(a, a_b, topo, part, oracles,
                                           nap_summary, args.n == 2024,
                                           keep["standard"])
     free()
+    clock.done("6")
     m_fwd, m_tr = phase_multistep(a, topo, part, oracles, nap_ref, gen,
                                   args.n == 2024, keep["multistep"])
     free()
-    t0 = time.perf_counter()
+    clock.done("7")
     i_ell, i_bsr, nap_det = phase_integrity(a, topo, part, oracles, a_b, keep)
     # phases 9e and 9h's children, and phase 15's CPU half in a thread of
     # this process, run while this process does work that times nothing on
     # the card: the simulate backend, phase 9's hierarchy, level operators
     # and host twins; their checks follow phase 9d
     mesh_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
-    children = start_mesh_children(mesh_tmp.name, a, args.seed, keep)
+    # phases 9, 9d and 9h's AMG path and service run on the AMG grid
+    a_amg = a if args.amg_n == args.n else rotated_anisotropic_2d(args.amg_n)
+    children = start_mesh_children(mesh_tmp.name, a, a_amg, args.seed, keep)
     cpu_twin = start_cpu_twin(args.seed)
     phase_simulate(a, topo, part, oracles, a_b, nap_det, nap_ref["w1"],
                    nap_ref["z1"])
-    print(f"  phase 8 {time.perf_counter() - t0:.1f} s")
     del oracles, nap_ref, nap_det
     free()
-    t0 = time.perf_counter()
+    clock.done("8")
     # phases 15 (its CPU half done by then) and 17 run while phase 9 waits
     # for the children: they time nothing on the card
-    amg = phase_amg(a, topo, gen, args.seed, args.n == 2024, keep,
+    amg = phase_amg(a_amg, topo, gen, args.seed, args.n == 2024, keep,
                     levels_file=str(Path(mesh_tmp.name) / "levels.npz"),
                     children=children,
                     host_work=lambda: (phase_train_held(args.seed, cpu_twin()),
                                        phase_example_train(release)))
-    print(f"  phase 9 {time.perf_counter() - t0:.1f} s")
     free()
-    t0 = time.perf_counter()
+    clock.done("9 (with 15 and 17 in its wait)")
     phase_spgemm_small(a_b, topo, args.seed)
+    clock.done("9b")
     phase_examples()
-    print(f"  phases 9b-9c {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    svc_ell = phase_service(a, a_b, topo, args.seed, keep)
-    print(f"  phase 9d {time.perf_counter() - t0:.1f} s")
+    clock.done("9c")
+    svc_ell = phase_service(a_amg, a_b, topo, args.seed, keep)
     free()
+    clock.done("9d")
     mesh_ell = phase_mesh(a, keep)
+    clock.done("9e")
     stack_ell = phase_stack(keep, smi)
     mesh_tmp.cleanup()
-    del a, a_b, keep
+    del a, a_b, a_amg, keep
     free()
+    clock.done("9h")
     phase_moe(args.seed)
+    clock.done("9f")
     phase_collectives(args.seed)
+    clock.done("9g")
 
     # 10-12. gemma2-2b serving ---------------------------------------------------
     entries.append(phase_decode_attn(rng, gen))
     by_name["decode_attention_grouped"] = entries[-1]
+    clock.done("10")
     by_name["decode_attention_grouped"]["launches"], served = phase_serve(
         args.lm_layers, args.seed)
+    clock.done("11")
     phase_step_check(args.seed)
+    clock.done("12")
 
     # 13-17. prefill and training ---------------------------------------------------
     phase_prefill_held(args.seed)
+    clock.done("13")
     phase_prefill_full(served)
     del served
     free()
+    clock.done("14")
     phase_train_full(args.seed, smi)
+    clock.done("16")
+
+    # 19-20. the MoE LMs ---------------------------------------------------------------
+    phase_moe_lm_held(args.seed)
+    clock.done("19")
+    entries.extend(phase_moe_lm_full(args.moe_layers, args.seed, smi))
+    clock.done("20")
 
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it); the AMG solve's launches, forward
@@ -4941,7 +5251,8 @@ def main():
     for e in entries:
         if e["launches"] < 1:
             raise AssertionError(f"{e['name']} was not launched on its path")
-    print(f"[18] whole script {time.perf_counter() - T_START:.1f} s")
+    print(f"[21] whole script {time.perf_counter() - T_START:.1f} s; phases: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in clock.seconds.items()))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,16 +1,17 @@
 """Architecture registry of the port: ``get_config(name)``, ``get_reduced``.
 
-The port carries the dense GQA configs (the families its ``LM`` runs) and
-qwen3-moe-235b-a22b, whose MoE layer runs through :mod:`repro_torch.moe`
-(its ``build_model`` still raises: the LM with MoE blocks is ROADMAP
-Queue 1 item 7d).  Every other architecture of the JAX package resolves
-by name and raises ``NotImplementedError`` naming the ROADMAP item that
-ports its family.
+The port carries the dense GQA configs and the two MoE ones,
+qwen3-moe-235b-a22b and deepseek-v2-236b (MLA attention, shared experts,
+a dense first layer): the families its ``LM`` runs.  Every other
+architecture of the JAX package resolves by name and raises
+``NotImplementedError`` naming the ROADMAP item that ports its family;
+``all_arch_ids`` lists them all, and ``shapes`` holds the input-shape
+grid.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
@@ -25,10 +26,9 @@ ALIASES: Dict[str, str] = {
 }
 
 PORTED = ("gemma2_2b", "gemma2_9b", "gemma2_27b", "llama3_405b",
-          "chameleon_34b", "qwen3_moe_235b_a22b")
+          "chameleon_34b", "qwen3_moe_235b_a22b", "deepseek_v2_236b")
 
 WAITING: Dict[str, str] = {
-    "deepseek_v2_236b": "MoE with MLA attention (ROADMAP Queue 1 item 7d)",
     "whisper_small": "the encoder-decoder family (ROADMAP Queue 1 item 7e)",
     "zamba2_2p7b": "the hybrid SSM family (ROADMAP Queue 1 item 7f)",
     "rwkv6_3b": "the RWKV SSM family (ROADMAP Queue 1 item 7g)",
@@ -50,3 +50,7 @@ def get_config(name: str) -> ModelConfig:
 
 def get_reduced(name: str) -> ModelConfig:
     return _module(name).reduced()
+
+
+def all_arch_ids() -> List[str]:
+    return list(ALIASES.keys())

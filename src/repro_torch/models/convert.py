@@ -1,6 +1,6 @@
 """Parameters of the JAX package's trees, for the port: the ``LM.init``
-tree for the port's ``LM``, its AdamW state for ``optim.adamw``, and the
-``moe_init`` tree for its MoE layer.
+tree for the port's ``LM`` (dense, MoE and MLA blocks), its AdamW state
+for ``optim.adamw``, and the ``moe_init`` tree for its MoE layer.
 
 The reference stacks the layers on a leading axis (``layers/attn/wq`` is
 ``[L, d, H * dh]``); the port keeps one tree per layer.  Arrays arrive as
@@ -35,18 +35,31 @@ def _first_leaf(t):
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """``{"embed", "final_norm", ["head"], "layers": stacked}`` ->
-    ``{"embed", "final_norm", ["head"], "layers": [one tree per layer]}``
-    for ``LM.load``.  A leaf may itself be a dict of arrays (the int8
-    moment codes and their scales): each array is sliced by layer."""
-    unknown = set(tree) - {"embed", "final_norm", "head", "layers"}
+    """``{"embed", "final_norm", ["head"], ["dense_layers"], "layers":
+    stacked}`` -> the same with ``dense_layers`` and ``layers`` as lists of
+    one tree per layer, for ``LM.load``.  A layer's ``moe`` sub-tree goes
+    through ``moe_params_from_jax``; MLA's attention tree is a dict like
+    GQA's.  A leaf may itself be a dict of arrays (the int8 moment codes
+    and their scales): each array is sliced by layer."""
+    unknown = set(tree) - {"embed", "final_norm", "head", "dense_layers", "layers"}
     if unknown:
         raise NotImplementedError(f"parameter groups the port has no model for: "
                                   f"{sorted(unknown)}")
-    out = {k: _map(_tensor, v) for k, v in tree.items() if k != "layers"}
-    n_layers = len(_first_leaf(tree["layers"]))
-    out["layers"] = [_map(lambda a: _tensor(a[i]), tree["layers"])
-                     for i in range(n_layers)]
+    out = {k: _map(_tensor, v) for k, v in tree.items() if not k.endswith("layers")}
+    for group in ("dense_layers", "layers"):
+        if group in tree:
+            out[group] = [_layer(tree[group], i)
+                          for i in range(len(_first_leaf(tree[group])))]
+    return out
+
+
+def _layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i`` of a stacked block tree."""
+    lp = {k: v for k, v in stacked.items() if k != "moe"}
+    out = _map(lambda a: _tensor(a[i]), lp)
+    if "moe" in stacked:
+        out["moe"] = moe_params_from_jax(_map(lambda a: np.asarray(a)[i],
+                                              stacked["moe"]))
     return out
 
 

@@ -30,13 +30,14 @@ from repro_torch.moe.dispatch import (EPInfo, _expert_compute,  # noqa: F401
 __all__ = ["EPInfo", "moe_init", "moe_apply_local", "moe_apply_sharded"]
 
 
-def moe_init(gen: Union[int, torch.Generator], cfg, dtype,
+def moe_init(gen: Union[None, int, torch.Generator], cfg, dtype,
              device: DeviceLike = None) -> Dict:
     """``{"router" [d, E] float32, "w_gate" / "w_up" [E, d, ff], "w_down"
     [E, ff, d], optional "shared"}`` in ``dtype``, drawn in the reference's
     order from ``gen`` (a Generator, whose device they fill, or a seed for
-    one on ``device``: CUDA unless ``"cpu"``)."""
-    if not isinstance(gen, torch.Generator):
+    one on ``device``: CUDA unless ``"cpu"``); ``None`` gives meta
+    tensors of the same shapes (``registry.param_shapes``)."""
+    if gen is not None and not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=resolve_device(device)).manual_seed(gen)
     d, ff, E = cfg.d_model, cfg.moe_dff, cfg.n_experts
     p = {
@@ -53,8 +54,10 @@ def moe_init(gen: Union[int, torch.Generator], cfg, dtype,
     return p
 
 
-def _expert_init(gen: torch.Generator, E: int, d_in: int, d_out: int,
+def _expert_init(gen: Optional[torch.Generator], E: int, d_in: int, d_out: int,
                  dtype) -> torch.Tensor:
+    if gen is None:
+        return torch.empty((E, d_in, d_out), dtype=dtype, device="meta")
     w = torch.randn((E, d_in, d_out), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (w * (1.0 / math.sqrt(d_in))).to(dtype)

@@ -9,12 +9,17 @@ from repro_torch.models.transformer import LM
 from repro_torch.optim.adamw import tree_leaves_with_path
 
 
-def build_model(cfg: ModelConfig, device: DeviceLike = None) -> LM:
-    """The dense LM on CUDA (``device="cpu"`` to stay on the host), without
-    weights until ``.init(seed)`` or ``.load(tree)``.  Whisper, zamba,
-    rwkv, MoE and MLA configs raise ``NotImplementedError`` naming the
-    ROADMAP item that ports them."""
-    return LM(cfg, device=device)
+def build_model(cfg: ModelConfig, device: DeviceLike = None, *, mesh: Any = None,
+                ep: Any = None) -> LM:
+    """The LM on CUDA (``device="cpu"`` to stay on the host), without
+    weights until ``.init(seed)`` or ``.load(tree)``: the dense family
+    and the MoE family (qwen3-moe; deepseek-v2 with MLA, shared experts
+    and a dense first layer).  ``mesh=None`` runs the MoE blocks through
+    the local oracle; a ``Topology`` or ``ProcessMesh`` through the
+    expert-parallel island (``ep``: its axes, by default pod over model).
+    Whisper, zamba and rwkv configs raise ``NotImplementedError`` naming
+    the ROADMAP item that ports them."""
+    return LM(cfg, device=device, mesh=mesh, ep=ep)
 
 
 def param_shapes(model: LM) -> Any:
