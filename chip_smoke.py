@@ -253,9 +253,13 @@ Phases, each fatal on failure:
    rows of a long sequence fail it), kernel /
    plain / ``scaled_dot_product_attention`` ms (softcap 0 for the
    library, where it computes the same function), the profiler's device
-   time of the kernel's two launches, and the bound over the k/v rows
-   inside the masks; then the kernel's other query-tile instantiations
-   at small shapes, untimed;
+   time of the kernel's launches, the bound over the k/v rows inside the
+   masks and the partials' scratch beside the k/v bytes; then
+   chameleon-34b's heads (Hkv 8, g 8, D 128, bf16) at phase 20's
+   decode_32k lengths, timed the same way; then the kernel's other
+   instantiations (one and two M-tiles of 16 rows, a group of more than
+   32 rows, both D buckets, both types) at small shapes, each split
+   over blocks with the combine and in one block without it, untimed;
 11. the serving path at full width: gemma2-2b, all 26 layers, bf16,
    weights drawn from the seed on the card, through
    ``repro_torch.launch.serve.generate``: batch 4, a 512-token prompt
@@ -393,6 +397,9 @@ from repro_torch.kernels.bsr_spmv import (bsr_spmm_padded,  # noqa: E402
                                           fused_bsr_spmm_ref)
 from repro_torch.kernels.decode_attn import (decode_attention_grouped,  # noqa: E402
                                              decode_attention_ref)
+from repro_torch.kernels.decode_attn.kernel import (TILE,  # noqa: E402
+                                                    launch_blocks, scratch_floats,
+                                                    split_units)
 from repro_torch.kernels.ell_spmv import (ell_spmm_packed,  # noqa: E402
                                           ell_spmm_packed_ref)
 from repro_torch.launch.serve import generate  # noqa: E402
@@ -4208,7 +4215,8 @@ def attn_case(label, q, k, v, lengths, window, softcap, scale, timed=True):
               f"{[f'{t:.3e}' for t in tol.tolist()]}")
         raise AssertionError(f"{label}: kernel disagrees with its plain version")
     b, hkv, g, d = q.shape
-    n = lengths.long().clamp(max=window) if window else lengths.long()
+    n = lengths.long().clamp(min=0, max=k.shape[2])
+    n = n.clamp(max=window) if window else n
     rows = int(n.sum())
     nbytes = (2 * rows * hkv * d * k.element_size() + q.nbytes
               + b * hkv * g * d * 4 + lengths.nbytes)
@@ -4230,6 +4238,19 @@ def attn_case(label, q, k, v, lengths, window, softcap, scale, timed=True):
     ms0 = time_ms(lambda: decode_attention_grouped(q, k, v, lengths, scale=scale,
                                                    window=window))
     profile_program(label, run, entry["ms"])
+    # the work's split: one block a (b, kv head), or the units of the split
+    # and the partials' scratch allocated and written (one slot a unit)
+    n_blocks = launch_blocks(q, k, window)
+    units = split_units((-(-n // TILE)).tolist(), hkv, n_blocks) if n_blocks else []
+    part_alloc = 4 * scratch_floats(b * hkv, g, d, n_blocks)
+    part_written = 4 * len(units) * g * (d + 2)
+    print(f"  {label}: " + ("one block a (b, kv head), one launch (no combine)"
+                            if not n_blocks else
+                            f"{len(units)} units of up to {max(u[3] for u in units)} tiles "
+                            f"on {n_blocks} blocks, and the combine; partials "
+                            f"{part_alloc / 1e6:.3f} MB allocated, {part_written / 1e6:.3f} "
+                            f"MB written and read back")
+          + f", beside {2 * rows * hkv * d * k.element_size() / 1e6:.3f} MB of k/v rows")
     print(f"  {label}: {rows} k/v rows of {k.shape[2]} x {b}, {nbytes / 1e9:.4f} GB; "
           f"kernel {entry['ms']:.4f} ms (device {entry['device_ms']:.4f}; softcap 0: "
           f"{ms0:.4f}), bound {bms:.4f} ms "
@@ -4239,7 +4260,28 @@ def attn_case(label, q, k, v, lengths, window, softcap, scale, timed=True):
     return entry
 
 
-def phase_decode_attn(rng, gen):
+def decode_32k_case(arch, seed):
+    """The decode kernel at ``arch``'s heads, bf16 [B, S, Hkv, D] caches of
+    B 8, S 32768 drawn from the seed, at decode_32k's ragged lengths."""
+    cfg = get_config(arch)
+    b, s, hkv, d = 8, 32768, cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // hkv
+    lengths = torch.tensor([1, 17, 4096, 4097, 9000, 20000, 30000, s],
+                           dtype=torch.int32, device=DEV)
+    kv = [torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
+          for gen in (torch.Generator(device=DEV).manual_seed(seed + i) for i in (1, 2))]
+    q = torch.randn((b, hkv, g, d), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(seed + 3)
+                    ).to(torch.bfloat16)
+    entry = attn_case(f"{arch} heads: B {b}, S {s}, Hkv {hkv}, g {g}, D {d}, bf16 "
+                      f"[B,S,Hkv,D]", q, kv[0].transpose(1, 2), kv[1].transpose(1, 2),
+                      lengths, 0, cfg.attn_softcap, d ** -0.5)
+    del kv, q
+    free()
+    return entry
+
+
+def phase_decode_attn(rng, gen, seed=0):
     """[10] the decode-attention kernel at gemma2-2b's decode_32k shapes."""
     cfg = get_config("gemma2-2b")
     b, s, hkv, d = 8, 32768, cfg.n_kv_heads, cfg.head_dim
@@ -4265,17 +4307,25 @@ def phase_decode_attn(rng, gen):
     attn_case("f32 [B,Hkv,S,D] window 0", q.float(), k32, v32, lengths, 0, cap, scale)
     del k32, v32
     free()
-    # the kernel's other instantiations (query tiles of 1, 4 and 8 rows,
-    # two tiles at g = 16), untimed at small shapes
+    # chameleon-34b's heads: g = 8 at D = 128
+    decode_32k_case("chameleon-34b", seed)
+    # the kernel's other instantiations (one and two M-tiles, rows past 32
+    # in a second launch, D buckets 128 / 256 with D % 16 = 8, both
+    # types), untimed at small shapes: S = 1000 in one block a pair (window
+    # 0 and 100), S = 3000 split over blocks with the combine
     for gg, dd, dtype in ((1, 64, torch.float32), (3, 128, torch.bfloat16),
-                          (8, 256, torch.bfloat16), (16, 96, torch.float32)):
+                          (8, 256, torch.bfloat16), (16, 96, torch.float32),
+                          (16, 128, torch.bfloat16), (4, 256, torch.bfloat16),
+                          (6, 56, torch.bfloat16), (24, 120, torch.bfloat16),
+                          (40, 40, torch.float32), (40, 200, torch.bfloat16)):
         qs = torch.randn((2, 2, gg, dd), generator=gen, device=DEV).to(dtype)
-        ks, vs = (torch.randn((2, 1000, 2, dd), generator=gen, device=DEV).to(dtype)
+        ks, vs = (torch.randn((2, 3000, 2, dd), generator=gen, device=DEV).to(dtype)
                   for _ in range(2))
-        ls = torch.tensor([1000, 333], dtype=torch.int32, device=DEV)
-        for w in (0, 100):
-            attn_case(f"g {gg} D {dd} {str(dtype)[6:]} window {w}", qs,
-                      ks.transpose(1, 2), vs.transpose(1, 2), ls, w, 30.0,
+        for s_len, w, ls in ((1000, 0, [1000, 333]), (1000, 100, [1000, 333]),
+                             (3000, 0, [3000, 1500])):
+            attn_case(f"g {gg} D {dd} {str(dtype)[6:]} S {s_len} window {w}", qs,
+                      ks[:, :s_len].transpose(1, 2), vs[:, :s_len].transpose(1, 2),
+                      torch.tensor(ls, dtype=torch.int32, device=DEV), w, 30.0,
                       dd ** -0.5, timed=False)
     return dict(name="decode_attention_grouped", route="cuda", source=ATTN_SOURCE,
                 replaces=ATTN_REPLACES, launches=0, **main)
@@ -4974,22 +5024,10 @@ def moe_lm_full(arch, n_layers, seed, smi):
         entry = dict(name="decode_attention_grouped:" + arch, route="cuda",
                      source=ATTN_SOURCE, replaces=ATTN_REPLACES, launches=n_launch,
                      **entry)
-        # the same heads at phase 10's decode_32k lengths, where the k/v
-        # rows each of the g / 8 query tiles reads again dominate
-        b, s = 8, 32768
-        lengths = torch.tensor([1, 17, 4096, 4097, 9000, 20000, 30000, s],
-                               dtype=torch.int32, device=DEV)
-        kv = [torch.randn((b, s, cfg.n_kv_heads, cfg.head_dim), generator=gen,
-                          device=DEV).to(torch.bfloat16) for gen in
-              (torch.Generator(device=DEV).manual_seed(seed + i) for i in (1, 2))]
-        q = torch.randn((b, cfg.n_kv_heads, g, cfg.head_dim), device=DEV,
-                        generator=torch.Generator(device=DEV).manual_seed(seed + 3)
-                        ).to(torch.bfloat16)
-        attn_case(f"B {b}, S {s}, g {g}, D {cfg.head_dim}, bf16 [B,S,Hkv,D]", q,
-                  kv[0].transpose(1, 2), kv[1].transpose(1, 2), lengths, 0,
-                  cfg.attn_softcap, cfg.head_dim ** -0.5)
-        del kv, q
     del res, cache
+    if not cfg.mla_kv_lora:
+        # the same heads at decode_32k's lengths
+        decode_32k_case(arch, seed)
     free()
     toks = torch.from_numpy(np.random.default_rng(seed + 4).integers(
         0, cfg.vocab, MOE_LM_PREFILL)).to(DEV)
@@ -5208,7 +5246,7 @@ def main():
     clock.done("9g")
 
     # 10-12. gemma2-2b serving ---------------------------------------------------
-    entries.append(phase_decode_attn(rng, gen))
+    entries.append(phase_decode_attn(rng, gen, args.seed))
     by_name["decode_attention_grouped"] = entries[-1]
     clock.done("10")
     by_name["decode_attention_grouped"]["launches"], served = phase_serve(

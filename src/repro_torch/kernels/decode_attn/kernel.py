@@ -21,7 +21,8 @@ kernel or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -29,10 +30,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn.ref import decode_attention_ref
 
 NAME = "decode_attention_grouped"
-WARPS = 4                 # warps per thread block (kWarps in the source)
-MAX_D = 256               # one 8-element slice of D per lane of a warp
-BLOCKS_IN_FLIGHT = 2112   # 16 blocks of WARPS warps for each of 132 SMs
-MIN_WARP_ROWS = 16        # fewest positions worth a warp of its own
+MAX_D = 256               # D a multiple of 8 up to this
+TILE = 32                 # positions of a staged k/v tile (kTile in the source)
+MAX_ROWS = 32             # query rows a launch holds (kMaxRows): two M-tiles of 16
+ONE_BLOCK_SPAN = 1024     # spans up to this take one block a (b, kv head), no combine
+MIN_TILES = 16            # fewest tiles (512 positions) a unit of the split takes
+MAX_BLOCKS = 65535        # blocks of the split (kMaxBlocks in the source)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 
@@ -42,28 +45,87 @@ def _fn():
     if fn.argtypes is None:
         p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, i, ll, ll, ll, ll, ll, ll, p, p,
-                       i, i, i, i, i, i, i, i, i, f, f, p]
+                       i, i, i, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def query_tile(g: int) -> int:
-    """Query rows one warp carries: the next power of two of g, at most 8
-    (larger groups take several tiles, each reading k/v again)."""
-    return min(8, 1 << (g - 1).bit_length())
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(n_tiles: int, span: int) -> Tuple[int, int]:
-    """(units, chunk): each of the ``n_tiles`` (b, kv head, query tile)
-    triples gets ``units`` warps (a multiple of WARPS), each over ``chunk``
-    consecutive positions of the at most ``span`` valid ones.  About
-    BLOCKS_IN_FLIGHT blocks in all, since ragged lengths leave many of
-    them without work, and no block under WARPS * MIN_WARP_ROWS
-    positions."""
-    blocks = max(1, min(-(-BLOCKS_IN_FLIGHT // max(n_tiles, 1)),
-                        -(-span // (WARPS * MIN_WARP_ROWS))))
-    units = blocks * WARPS
-    return units, -(-span // units)
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, dtype: int, d: int, rows: int) -> int:
+    """Blocks of the tile kernel's instantiation an SM holds at once."""
+    fn = _build.library("decode_attn").decode_attention_occupancy
+    if fn.argtypes is None:
+        i, p = ctypes.c_int, ctypes.c_void_p
+        fn.argtypes = [i, i, i, p, p]
+        fn.restype = ctypes.c_int
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(index):
+        code = fn(dtype, d, rows, ctypes.byref(blocks), ctypes.byref(smem))
+    _build.check_status(code, NAME)
+    return blocks.value
+
+
+def split_blocks(span: int, sms: int, per_sm: int) -> int:
+    """Blocks of the split for a span of at most ``span`` valid positions
+    on a card of ``sms`` SMs that hold ``per_sm`` blocks each: 0 (one block
+    a (b, kv head), which writes the output itself: no combine) up to
+    ONE_BLOCK_SPAN, else a block for every slot of the card, over which
+    the kernel spreads the tiles the lengths hold (:func:`split_units`)."""
+    return 0 if span <= ONE_BLOCK_SPAN else min(per_sm * sms, MAX_BLOCKS)
+
+
+def launch_blocks(q: torch.Tensor, k: torch.Tensor, window: int = 0) -> int:
+    """:func:`split_blocks` of a call on q's card (CUDA tensors)."""
+    seq = k.shape[2]
+    span = min(seq, window) if window > 0 else seq
+    if span <= ONE_BLOCK_SPAN:
+        return 0
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    per_sm = _blocks_per_sm(index, _DTYPES[q.dtype], q.shape[3], min(q.shape[2], MAX_ROWS))
+    return split_blocks(span, _sms(index), per_sm)
+
+
+def split_units(seq_tiles: Sequence[int], hkv: int,
+                n_blocks: int) -> List[Tuple[int, int, int, int]]:
+    """The kernel's split, as (unit, pair, first tile, tiles): every
+    sequence's ``seq_tiles[b]`` tiles cut into chunks of ``w`` tiles, one
+    unit a chunk and kv head in (b, chunk, h) order, pair = b Hkv + h.
+    ``w`` is the fewest tiles, at least MIN_TILES and the even share,
+    whose units fit the ``n_blocks`` blocks, when the sequences allow it
+    (each adds at most one short chunk a head); unit u's partial goes to
+    slot u."""
+    tiles = sum(seq_tiles)
+    seqs = sum(n > 0 for n in seq_tiles)
+    per_head = n_blocks // hkv
+    w = max(-(-hkv * tiles // n_blocks), MIN_TILES)
+    if per_head > seqs:                   # bisect for the fewest that fit
+        hi_w = max(-(-tiles // (per_head - seqs)), w)
+        while w < hi_w:
+            mid = (w + hi_w) // 2
+            if sum(-(-n // mid) for n in seq_tiles) <= per_head:
+                hi_w = mid
+            else:
+                w = mid + 1
+    units = []
+    for b, n in enumerate(seq_tiles):
+        for j in range(-(-n // w)):
+            for h in range(hkv):
+                units.append((len(units), b * hkv + h, j * w, min(w, n - j * w)))
+    return units
+
+
+def scratch_floats(n_pairs: int, g: int, d: int, n_blocks: int) -> int:
+    """Floats of the split's scratch: (acc, m, l) of every unit's slot (at
+    most n_blocks + pairs of them) for the rows one launch holds, and each
+    pair's first slot and chunks; none with one block a pair."""
+    if n_blocks == 0:
+        return 0
+    return (n_blocks + n_pairs) * min(g, MAX_ROWS) * (d + 2) + 2 * n_pairs
 
 
 def _check(q, k, v, lengths) -> None:
@@ -85,7 +147,7 @@ def _check(q, k, v, lengths) -> None:
 
 
 def _check_kernel_layout(q, k, v, lengths) -> None:
-    """What the kernel reads: 16-byte rows of 8-element slices of D."""
+    """What the kernel reads: rows in 16-byte copies, D a multiple of 8."""
     d = q.shape[3]
     if d % 8 or d > MAX_D:
         raise ValueError(f"head dim must be a multiple of 8 up to {MAX_D}, got {d}")
@@ -99,7 +161,8 @@ def _check_kernel_layout(q, k, v, lengths) -> None:
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("q, k, v must start on a 16-byte boundary")
     b, hkv, g, _ = q.shape
-    if k.shape[2] > _INT32_MAX or b > 65535 or hkv * -(-g // query_tile(g)) > 65535:
+    if k.shape[2] > _INT32_MAX or b > 65535 or hkv > 65535 \
+            or b * hkv * min(g, MAX_ROWS) > _INT32_MAX:
         raise ValueError(f"shape out of the kernel's range: {tuple(k.shape)}, g {g}")
 
 
@@ -118,17 +181,15 @@ def decode_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel_layout(q, k, v, lengths)
     b, hkv, g, d = q.shape
     seq = k.shape[2]
-    gt = query_tile(g)
-    span = min(seq, window) if window > 0 else seq
-    units, chunk = split_plan(b * hkv * -(-g // gt), span)
+    n_blocks = launch_blocks(q, k, window)
     out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device)
-    part = torch.empty(b * hkv * g * units * (d + 2), dtype=torch.float32,
-                       device=q.device)
+    part = torch.empty(scratch_floats(b * hkv, g, d, n_blocks), dtype=torch.float32,
+                       device=q.device) if n_blocks else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
                  _DTYPES[q.dtype], *k.stride()[:3], *v.stride()[:3],
-                 out.data_ptr(), part.data_ptr(), b, hkv, g, gt, seq, d,
-                 window, units, chunk, float(scale), float(softcap), stream)
+                 out.data_ptr(), part.data_ptr() if n_blocks else None, b, hkv, g, seq, d,
+                 window, n_blocks, float(scale), float(softcap), stream)
     _build.check_status(code, NAME)
     _build.launches[NAME] += 1
     return out
