@@ -4,7 +4,7 @@ the multi-step exchange, wire integrity, the float64 simulate backend,
 the distributed SpGEMM and the AMG solver path, the solver service, the
 multi-process mesh, the MoE token dispatch, the hierarchical collectives,
 the gemma2-2b serving path, gemma2-2b's prefill and training, and
-serving the MoE LMs (qwen3-moe-235b-a22b, deepseek-v2-236b).
+serving and training the MoE LMs (qwen3-moe-235b-a22b, deepseek-v2-236b).
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -288,14 +288,14 @@ Phases, each fatal on failure:
 15. (run inside phase 9, while it waits for the 9e / 9h children; its
     CPU half in a thread from phase 8 on, its results kept on the card)
     training held on the card, phase 12's config (``grad_accum`` 1):
-    4 ``make_train_step`` steps of seeded bigram batches on the card and
-    the same 4 on the CPU from the same weights, for float32 and int8
+    3 ``make_train_step`` steps of seeded bigram batches on the card and
+    the same 3 on the CPU from the same weights, for float32 and int8
     moments: losses within rtol 1e-4, parameters within 2 lr x steps
     and 99% of them within 1e-6 of max |p|, int8 codes within +-1;
     ``grad_accum`` 2 against 1 on the same batches at the same
-    tolerance; in deterministic mode 4 steps of
+    tolerance; in deterministic mode 3 steps of
     ``repro_torch.launch.train.train`` straight against 2 steps, the
-    checkpoint, ``resume`` and 2 steps, bit-equal parameters, state and
+    checkpoint, ``resume`` and 1 step, bit-equal parameters, state and
     losses;
 16. ``repro_torch.launch.train.main`` at full width (``--arch gemma2-2b
     --full --steps 8 --batch 4 --seq 512``: 26 layers, bf16 weights,
@@ -305,8 +305,8 @@ Phases, each fatal on failure:
     tokens/s, the share of the bf16 peak (6 N T), peak memory and the
     profiler's busy share of one more step;
 17. (run inside phase 9 after phase 15) the port's training example,
-    ``repro_torch.examples.train_lm``, at its defaults (300 steps) to its
-    0.5 loss-drop assertion;
+    ``repro_torch.examples.train_lm``, at its defaults but 150 of its 300
+    steps, to its 0.5 loss-drop assertion;
 19. the MoE LMs held on the card, their reduced configs in float32
     with weights from the seed: (a) qwen3-moe's 8 decode steps through
     the kernel, then with the plain version swapped in, logits at atol
@@ -336,6 +336,29 @@ Phases, each fatal on failure:
     pod): device ms (CUDA events, median of 3), peak, the island's
     dropped copies, finite logits (gated), the island's max |diff| from
     the local path and whether the greedy ids agree (recorded);
+22. training the MoE LMs through the island, held on the card: the
+    reduced configs in float32 on Topology(2, 2) with the f32 wire and
+    capacity factor 4, in deterministic mode, for flat (float32 moments)
+    and nap (int8 moments): the island LM's gradients against the local
+    LM's on the same weights (drawn on the CPU) and bigram batch, every
+    leaf within 1e-5 of its max |grad| with no copy dropped; 3
+    ``make_train_step`` steps on the card against the same 3 on the CPU
+    (losses rtol 1e-4, parameters as phase 15 holds them); a bf16-wire
+    island raising under grad;
+23. training the MoE LMs at full width through the island on
+    Topology(4, 8), one after the other: qwen3-moe cut to 1 layer
+    (3.732 B parameters), deepseek-v2 to its dense first layer and one
+    MoE layer (5.359 B), bf16 weights from the seed, fp32 masters, the
+    configs' int8 moments, remat, grad_accum 1, each config's dispatch,
+    the f32 wire (qwen3-moe's config ships bf16, which has no gradient):
+    first a gradient check against the local oracle on the same weights
+    and a 4 x 512 bigram batch, at the capacity factor (doubled from 1.25)
+    at which the island drops nothing, each leaf's max |diff| over its
+    max |grad| gated at ``MOE_GRAD_GATE``; then 4 steps at capacity
+    factor 1.25: step ms (median of steps 2-4) split into forward +
+    backward and the update, tokens/s, the share of the bf16 peak, peak
+    memory, busy share, drops per stage and the counted inter-pod bytes
+    of a forward and of a backward, finite losses and grad norms gated;
 21. the whole script's seconds with every phase's, a JSON line of every
     kernel (with ``device_ms`` and, for the BSR kernels,
     ``library_bsr_ms``; the decode kernel a second time at qwen3-moe's
@@ -402,7 +425,7 @@ from repro_torch.kernels.decode_attn.kernel import (TILE,  # noqa: E402
                                                     split_units)
 from repro_torch.kernels.ell_spmv import (ell_spmm_packed,  # noqa: E402
                                           ell_spmm_packed_ref)
-from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.launch.serve import Clock, generate  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
@@ -4445,7 +4468,9 @@ def phase_step_check(seed):
 
 # gemma2-2b prefill and training (phases 13-17) ------------------------------------
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 (NVIDIA's data sheet)
-HELD = dict(batch=4, seq=64, steps=4, lr=1e-3)   # the held training steps
+# the held training steps (4 before phases 22-23 needed the time: 3 cut
+# ~52 s of CPU time that phase 9 waits for)
+HELD = dict(batch=4, seq=64, steps=3, lr=1e-3)
 
 
 def held_config():
@@ -4621,8 +4646,8 @@ def held_cpu_twin(seed, threads=None):
         del start
     finally:
         torch.set_num_threads(before)
-    print(f"  [15] the CPU half of phase 15 ({threads} threads): 4 steps float32 "
-          f"{out['float32']['seconds']:.1f} s, int8 {out['int8']['seconds']:.1f} s")
+    print(f"  [15] the CPU half of phase 15 ({threads} threads): {HELD['steps']} steps "
+          f"float32 {out['float32']['seconds']:.1f} s, int8 {out['int8']['seconds']:.1f} s")
     return out
 
 
@@ -4791,7 +4816,7 @@ def phase_train_held(seed, twin=None):
     print(f"  resume (deterministic mode, int8 moments): {HELD['steps']} steps straight "
           f"({t_straight:.1f} s, checkpoints at 2 and {HELD['steps']}) against 2 steps, "
           f"checkpoint ({ckpt_gb:.3f} "
-          f"GB), --resume, 2 steps ({t_resumed:.1f} s): {sum(same)} of {len(same)} "
+          f"GB), --resume, {HELD['steps'] - 2} steps ({t_resumed:.1f} s): {sum(same)} of {len(same)} "
           f"parameter and state tensors bit-equal, losses equal {resumed.losses == straight.losses[2:]}")
     if not ok:
         raise AssertionError("a resumed run is not bit-equal to the straight one")
@@ -4853,12 +4878,16 @@ def phase_train_full(seed, smi):
     free()
 
 
+EXAMPLE_STEPS = 150          # of the example's 300 (cut for the time limit: ~22 s)
+
+
 def phase_example_train(cleanup=free):
-    """[17] the port's training example at its defaults on the card (its
-    seconds are a wall; the script runs it inside phase 9's wait, beside
-    the 9e / 9h children, so ``cleanup`` is ``release`` there)."""
+    """[17] the port's training example on the card at its defaults but
+    ``EXAMPLE_STEPS`` steps (its seconds are a wall; the script runs it
+    inside phase 9's wait, beside the 9e / 9h children, so ``cleanup`` is
+    ``release`` there)."""
     t0 = time.perf_counter()
-    out = train_lm.main([])
+    out = train_lm.main(["--steps", str(EXAMPLE_STEPS)])
     print(f"[17] repro_torch.examples.train_lm: loss {out['first']:.3f} -> "
           f"{out['last']:.3f} (drop > 0.5 asserted; floor {out['floor']:.3f}), "
           f"{time.perf_counter() - t0:.1f} s")
@@ -5055,6 +5084,255 @@ def phase_moe_lm_full(n_layers, seed, smi):
     line's entry of the decode kernel at qwen3-moe's shapes."""
     entries = [moe_lm_full(arch, n_layers, seed, smi) for arch in MOE_LM_ARCHS]
     return [e for e in entries if e is not None]
+
+
+# training the MoE LMs through the island (phases 22-23) --------------------------
+MOE_TRAIN_HELD = dict(batch=4, seq=64, steps=3, lr=1e-3)
+# phase 23's depth: qwen3-moe one MoE layer, deepseek-v2 its dense first
+# layer and one MoE layer
+MOE_TRAIN_LAYERS = {"qwen3-moe-235b-a22b": 1, "deepseek-v2-236b": 2}
+MOE_TRAIN_FULL = dict(batch=4, seq=512, steps=4, lr=3e-4)
+# island against local gradients in bf16, of each leaf's max |grad|: each
+# path rounds a gradient element after bf16 GEMMs whose inputs were
+# rounded in up to three earlier bf16 steps (activation, gated product,
+# down projection) forward and as many backward; 8 roundings of half a
+# bf16 ulp (2^-9) each
+MOE_GRAD_GATE = 8 * 2.0 ** -9
+
+
+def leaf_grads(model, batch):
+    """The loss and each weight's gradient of it, by path (None where a
+    weight gets none)."""
+    leaves = list(tree_leaves_with_path(model.param_tree()))
+    loss = model.loss(batch)
+    grads = torch.autograd.grad(loss, [t for _, t in leaves], allow_unused=True)
+    return loss.detach(), {path: g for (path, _), g in zip(leaves, grads)}
+
+
+def grad_errors(got, want):
+    """Each leaf's max |got - want| over its max |want|, by path; raises
+    where a leaf of ``got`` has no gradient."""
+    missing = [p for p, g in got.items() if g is None]
+    if missing:
+        raise AssertionError(f"{len(missing)} leaves get no gradient on the island: "
+                             f"{missing[:4]}")
+    out = {}
+    for path, w in want.items():
+        out[path] = float((got[path].float() - w.float()).abs().max()
+                          / w.float().abs().max().clamp_min(1e-30))
+    return out
+
+
+def worst_leaf(errs):
+    path = max(errs, key=errs.get)
+    return f"{'.'.join(map(str, path))} {errs[path]:.3e}"
+
+
+def moe_train_held(arch, seed):
+    """One reduced MoE LM in float32 on ``Topology(*MOE_LM_TOPO)``, f32
+    wire, capacity factor 4: island against local grads on the card per
+    mode (no copy dropped), 3 train steps on the card against the same
+    on the CPU (flat with float32 moments, nap with int8), and a bf16-wire
+    island that raises under grad."""
+    h = MOE_TRAIN_HELD
+    base = get_reduced(arch).replace(wire_dtype="f32", capacity_factor=4.0)
+    ds = SyntheticLM(base.vocab, h["seq"], seed=seed)
+    batches = [ds.batch(i, h["batch"]) for i in range(h["steps"])]
+    start = build_model(base, device="cpu").init(seed).param_tree()
+    topo = Topology(*MOE_LM_TOPO)
+    moved = h["lr"] * h["steps"]
+    for mode, dtype in (("flat", "float32"), ("nap", "int8")):
+        cfg = base.replace(moe_dispatch=mode, opt_state_dtype=dtype)
+        batch = train.to_device(batches[0], DEV)
+        with deterministic(warn_only=True):
+            local = build_model(cfg).load(start)
+            island = build_model(cfg, mesh=topo).load(start)
+            island.moe_stats = []
+            want_loss, want = leaf_grads(local, batch)
+            got_loss, got = leaf_grads(island, batch)
+            errs = grad_errors(got, want)
+            drops = island_drops(island.moe_stats)
+            del local, want, got
+            opt = AdamWConfig(lr=h["lr"], warmup_steps=1, total_steps=h["steps"],
+                              state_dtype=dtype)
+            card = build_model(cfg, mesh=topo).load(start)
+            t0 = time.perf_counter()
+            card_losses, _, _ = run_steps(card, opt, batches)
+            t_card = time.perf_counter() - t0
+        host = build_model(cfg, device="cpu", mesh=topo).load(start)
+        t0 = time.perf_counter()
+        host_losses, _, _ = run_steps(host, opt, batches)
+        t_host = time.perf_counter() - t0
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, host_losses))
+        worst, share = held_close(f"{arch} {mode} card vs CPU", card.param_tree(),
+                                  host.param_tree(), moved)
+        print(f"  [22] {arch} {mode}: island vs local on the card: loss "
+              f"{float(got_loss):.6f} vs {float(want_loss):.6f}, {len(errs)} leaves, "
+              f"worst {worst_leaf(errs)} of its max |grad| (limit 1e-5); dropped "
+              f"{drops}; {h['steps']} steps ({dtype} moments) card vs CPU: losses "
+              f"{[round(x, 5) for x in card_losses]} max rel diff {rel:.3e} (rtol "
+              f"1e-4), parameters max |diff| {worst:.3e} (limit {2 * moved:.1e}), "
+              f"{100 * share:.4f}% beyond 1e-6 of max |p|; card {t_card:.1f} s, "
+              f"CPU {t_host:.1f} s")
+        if max(errs.values()) > 1e-5 or any(drops.values()):
+            raise AssertionError(f"{arch} {mode}: island grads disagree with the "
+                                 f"local LM's, or a copy dropped")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{arch} {mode}: card vs CPU losses differ by {rel:.3e}")
+        del island, card, host
+    narrow = build_model(base.replace(wire_dtype="bf16"), mesh=topo).load(start)
+    try:
+        narrow.loss(train.to_device(batches[0], DEV))
+    except ValueError as e:
+        print(f"  [22] {arch} bf16 wire under grad raises: {e}")
+    else:
+        raise AssertionError(f"{arch}: a bf16-wire island trained under grad")
+    del narrow, start
+    free()
+
+
+def phase_moe_train_held(seed):
+    """[22] training the MoE LMs through the island, held on the card."""
+    print(f"[22] MoE training held on the card: reduced configs, float32, "
+          f"Topology{MOE_LM_TOPO}, f32 wire, capacity factor 4, deterministic mode; "
+          f"{MOE_TRAIN_HELD['steps']} steps of {MOE_TRAIN_HELD['batch']} x "
+          f"{MOE_TRAIN_HELD['seq']} bigram tokens, lr {MOE_TRAIN_HELD['lr']}")
+    for arch in MOE_LM_ARCHS:
+        moe_train_held(arch, seed)
+
+
+def island_bytes(counted):
+    """(forward, backward) inter-pod bytes of the counted labels (the
+    backward's end in ``:grad``)."""
+    fwd = sum(v for k, v in counted.items() if k.count(":") == 1)
+    bwd = sum(v for k, v in counted.items() if k.endswith(":grad"))
+    return fwd, bwd
+
+
+def moe_train_full(arch, seed, smi):
+    """One MoE LM at full width, cut to ``MOE_TRAIN_LAYERS[arch]`` layers,
+    on the island ``Topology(*MOE_TOPO)`` with the config's dispatch, the
+    f32 wire and capacity factor 1.25: a gradient check against the local
+    oracle on the same weights, then ``MOE_TRAIN_FULL['steps']`` steps."""
+    t0 = time.perf_counter()
+    f = MOE_TRAIN_FULL
+    full = get_config(arch)
+    cfg = full.replace(n_layers=MOE_TRAIN_LAYERS[arch], grad_accum=1, wire_dtype="f32",
+                       capacity_factor=1.25)
+    model = build_model(cfg, mesh=Topology(*MOE_TOPO)).init(seed)
+    n_params, n_active = count_params(model), count_active_params(model)
+    ds = SyntheticLM(cfg.vocab, f["seq"], seed=seed)
+    batches = [train.to_device(ds.batch(i, f["batch"]), DEV) for i in range(f["steps"] + 1)]
+    print(f"[23] {arch} training at full width: {cfg.n_layers} layers "
+          f"({cfg.first_dense_layers} dense) of {full.n_layers}, {cfg.dtype} weights from "
+          f"the seed, {n_params} parameters ({n_active} active), island Topology"
+          f"{MOE_TOPO} {cfg.moe_dispatch}, f32 wire (the config's {full.wire_dtype}), "
+          f"remat {cfg.remat}; {f['batch']} x {f['seq']} bigram tokens")
+    # the gradient check, before any optimizer state: the capacity factor
+    # doubled from 1.25 until the island drops nothing
+    cf = cfg.capacity_factor
+    while True:
+        model.cfg = cfg.replace(capacity_factor=cf)
+        model.moe_stats = []
+        with torch.no_grad():
+            model.hidden(batches[0]["tokens"])
+        drops = island_drops(model.moe_stats)
+        if not any(drops.values()) or cf >= 64:
+            break
+        cf *= 2
+    model.moe_stats = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, got = leaf_grads(model, batches[0])
+    torch.cuda.synchronize()
+    t_island = time.perf_counter() - t1
+    check_drops = island_drops(model.moe_stats)
+    model.mesh, model.moe_stats = None, None
+    t1 = time.perf_counter()
+    _, want = leaf_grads(model, batches[0])
+    torch.cuda.synchronize()
+    t_local = time.perf_counter() - t1
+    errs = grad_errors(got, want)
+    del got, want
+    print(f"  gradient check at capacity factor {cf} (dropped {check_drops}): island "
+          f"vs local oracle, {len(errs)} leaves, worst {worst_leaf(errs)} of its max "
+          f"|grad|, median {statistics.median(errs.values()):.3e} (limit "
+          f"{MOE_GRAD_GATE:.3e}, bf16 rounding); island {t_island:.1f} s, local "
+          f"{t_local:.1f} s (walls, first calls) [{smi}]")
+    print("  each leaf's max |island - local| / max |local grad|: " + ", ".join(
+        f"{'.'.join(map(str, path))} {err:.2e}" for path, err in errs.items()))
+    if any(check_drops.values()) or max(errs.values()) > MOE_GRAD_GATE:
+        raise AssertionError(f"{arch}: island grads disagree with the local oracle's")
+    free()
+    # the training steps at the config's capacity factor
+    model.mesh, model.cfg = Topology(*MOE_TOPO), cfg
+    model.moe_stats = []
+    reset_inter_node_bytes()
+    with torch.no_grad():
+        model.hidden(batches[0]["tokens"])
+    fwd_bytes, _ = island_bytes(inter_node_bytes())
+    opt_cfg = AdamWConfig(lr=f["lr"], total_steps=f["steps"], warmup_steps=1,
+                          state_dtype=cfg.opt_state_dtype, master_fp32=cfg.opt_master_fp32)
+    opt_state = adamw_init(model.param_tree(), opt_cfg)
+    step_fn = make_train_step(model, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, fb, up, drops, bwd_bytes = [], [], [], [], {}, 0
+    for i in range(f["steps"]):
+        model.moe_stats = []
+        reset_inter_node_bytes()
+        clock = Clock(DEV)
+        clock.mark()
+        loss, grads = step_fn.loss_and_grad(batches[i])
+        clock.mark()
+        gnorm = step_fn.update(grads, opt_state)
+        clock.mark()
+        del grads
+        a, b = clock.intervals_ms()
+        fb.append(a)
+        up.append(b)
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+        bwd_bytes = island_bytes(inter_node_bytes())[1]
+        for k, v in island_drops(model.moe_stats).items():
+            drops[k] = drops.get(k, 0) + v
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"{arch}: a loss or grad norm is not finite")
+    steps = [x + y for x, y in zip(fb, up)]
+    step = statistics.median(steps[1:])
+    tokens = f["batch"] * f["seq"]
+    share = 6 * n_active * tokens / (step / 1e3 * BF16_FLOPS)
+    model.moe_stats = None
+    busy = profile_program(f"one {arch} train step",
+                           lambda: step_fn(opt_state, batches[-1]), step)
+    state_gb = sum(t.nbytes for _, t in tree_leaves_with_path(opt_state)
+                   if isinstance(t, torch.Tensor)) / 1e9
+    param_gb = sum(p.nbytes for p in model.parameters()) / 1e9
+    print(f"  {cfg.dtype} weights {param_gb:.3f} GB, fp32 masters and "
+          f"{cfg.opt_state_dtype} moments {state_gb:.3f} GB, capacity factor "
+          f"{cfg.capacity_factor}, grad_accum 1; losses {[round(x, 4) for x in losses]}, "
+          f"grad norms {[round(x, 3) for x in norms]} (finite) [{smi}]")
+    print(f"  step {step:.2f} ms (CUDA events, median of steps 2-{f['steps']}; min "
+          f"{min(steps[1:]):.2f}, max {max(steps[1:]):.2f}): forward + backward "
+          f"{statistics.median(fb[1:]):.2f} ms, AdamW update "
+          f"{statistics.median(up[1:]):.2f} ms; {tokens / (step / 1e3):.0f} tokens/s; "
+          f"6 N T / (step x 989 TFLOP/s) = {100 * share:.2f}% of the bf16 peak (N "
+          f"{n_active} active, T {tokens}: {6 * n_active * tokens / 1e12:.2f} TFLOP); "
+          f"peak memory {peak / 1e9:.3f} GB; busy {100 * busy / step:.1f}% of a step; "
+          f"dropped copies over {f['steps']} steps {drops}; counted inter-pod bytes: "
+          f"forward {fwd_bytes} (one pass; remat recomputes it in the backward), "
+          f"backward {bwd_bytes}; first step {steps[0]:.1f} ms; phase 23 {arch} "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    del model, opt_state, step_fn, batches
+    free()
+
+
+def phase_moe_train_full(seed, smi):
+    """[23] training the MoE LMs through the island at full width, one
+    after the other."""
+    for arch in MOE_LM_ARCHS:
+        moe_train_full(arch, seed, smi)
 
 
 class PhaseClock:
@@ -5270,6 +5548,12 @@ def main():
     clock.done("19")
     entries.extend(phase_moe_lm_full(args.moe_layers, args.seed, smi))
     clock.done("20")
+
+    # 22-23. training the MoE LMs through the island ------------------------------
+    phase_moe_train_held(args.seed)
+    clock.done("22")
+    phase_moe_train_full(args.seed, smi)
+    clock.done("23")
 
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it); the AMG solve's launches, forward

@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.models.transformer import LM
+from repro_torch.moe.dispatch import check_island_batch, island_pods
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      tree_leaves_with_path, tree_map)
 
@@ -33,19 +34,24 @@ def make_loss_with_accum(model: LM) -> Callable[[Batch], Tuple[torch.Tensor, Any
     summed into float32 buffers (as the reference's scan does; summing into
     bf16 would round at every microbatch), then the sums and the loss are
     scaled by 1 / A.  With one microbatch the grads keep the weights'
-    dtype.  ``grads`` is a tree shaped like ``model.param_tree()``."""
+    dtype.  ``grads`` is a tree shaped like ``model.param_tree()``.  On
+    the island each microbatch must split over the pods this process runs;
+    a batch that does not raises before any compute."""
     a = model.cfg.grad_accum
 
     def loss_and_grad(batch: Batch):
         params = model.param_tree()
         leaves = [p for _, p in tree_leaves_with_path(params)]
+        b = batch["tokens"].shape[0]
+        if a > 1 and b % a:
+            raise ValueError(f"a batch of {b} does not split into grad_accum "
+                             f"= {a} microbatches")
+        if model.mesh is not None and model.cfg.is_moe:
+            check_island_batch(b // max(a, 1), island_pods(model.mesh, model.ep))
         if a <= 1:
             loss = model.loss(batch)
             grads = iter(torch.autograd.grad(loss, leaves))
             return loss.detach(), tree_map(lambda _: next(grads), params)
-        if batch["tokens"].shape[0] % a:
-            raise ValueError(f"a batch of {batch['tokens'].shape[0]} does not "
-                             f"split into grad_accum = {a} microbatches")
         micro = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])
                  for k, v in batch.items()}
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)

@@ -12,6 +12,13 @@ once, where the reference writes it twice when ``--ckpt-every`` divides
 unless the mean of the last losses is below the mean of the first.  Runs
 on CUDA unless ``--device cpu``.
 
+As the reference's driver builds every model on its (one-chip) mesh,
+``train`` puts the MoE archs' blocks on the expert-parallel island of one
+chip, ``Topology(1, 1)`` with no pod axis, so their gradients cross the
+island's exchanges.  The island differentiates only on the f32 wire: a
+config with a narrow wire (qwen3-moe's full config ships ``bf16``)
+raises at its first MoE block, saying why.
+
 Checkpoints store the port's tree, one entry per layer
 (``0/layers/3/attn/wq``), where the reference stacks the layers.
 
@@ -33,6 +40,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.core.topology import Topology
 from repro_torch.data import SyntheticLM
 from repro_torch.device import DeviceLike
 from repro_torch.launch.serve import Clock
@@ -40,6 +48,7 @@ from repro_torch.launch.steps import TrainStep, make_train_step
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM
+from repro_torch.moe.dispatch import EPInfo
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.optim.adamw import tree_leaves_with_path
 from repro_torch.runtime import StragglerDetector
@@ -70,8 +79,10 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           log_every: int = 5) -> TrainRun:
     """Train ``cfg`` (as given: the caller sets ``grad_accum``) from the
     seed's weights, or from the last checkpoint in ``ckpt_dir`` when
-    ``resume``; the schedule spans ``steps``."""
-    model = build_model(cfg, device=device).init(seed)
+    ``resume``; the schedule spans ``steps``.  A MoE config's blocks run
+    on the one-chip island."""
+    island = dict(mesh=Topology(1, 1), ep=EPInfo("model", None)) if cfg.is_moe else {}
+    model = build_model(cfg, device=device, **island).init(seed)
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps,
                           warmup_steps=max(steps // 20, 1),
                           state_dtype=cfg.opt_state_dtype,
@@ -97,8 +108,10 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                    start_step=start_step,
                    losses=[], grad_norms=[], fwd_bwd_ms=[], update_ms=[],
                    floor=ds.bigram_entropy(), detector=StragglerDetector())
+    on_island = f", MoE blocks on the island {model.mesh} ({cfg.wire_dtype} wire)" \
+        if cfg.is_moe else ""
     print(f"training {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.dtype}, moments {cfg.opt_state_dtype}) on {model.device}; "
+          f"{cfg.dtype}, moments {cfg.opt_state_dtype}) on {model.device}{on_island}; "
           f"bigram-entropy loss floor ~ {run.floor:.3f}")
     for step in range(start_step, steps):
         tb = to_device(ds.batch(step, batch), model.device)

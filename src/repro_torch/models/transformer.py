@@ -200,7 +200,9 @@ class LM(nn.Module):
     a time.  ``mesh`` stays an attribute: setting it moves the same
     weights onto the island or off it.  Set ``moe_stats`` to a list to
     collect each island call's ``stats`` (mode, capacities, dropped
-    copies)."""
+    copies): the forward's calls, never a remat recompute's in the
+    backward.  Gradients flow through the island on the f32 wire; a
+    narrow wire raises under grad (``moe_apply_sharded``)."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
                  mesh: Any = None, ep: Optional[EPInfo] = None):
@@ -296,16 +298,27 @@ class LM(nn.Module):
         return self.head
 
     # ---- forward ------------------------------------------------------------
-    def _moe(self, p, h: torch.Tensor) -> torch.Tensor:
-        """A MoE block's experts: the island over ``mesh``, or the local
-        oracle."""
+    def _moe(self, p, h: torch.Tensor, record: bool = True) -> torch.Tensor:
+        """A MoE block's experts: the island over ``mesh`` (its stats into
+        ``moe_stats`` when ``record``), or the local oracle."""
         if self.mesh is None:
             return moe_apply_local(p, self.cfg, h, chunk=MOE_CHUNK)
-        stats = {} if self.moe_stats is not None else None
+        stats = {} if self.moe_stats is not None and record else None
         out = moe_apply_sharded(p, self.cfg, h, self.ep, self.mesh, stats=stats)
         if stats is not None:
             self.moe_stats.append(stats)
         return out
+
+    def _moe_once(self) -> MoEFn:
+        """``_moe`` for one checkpointed layer: its first call (the
+        forward) records; the recompute in the backward does not."""
+        calls = []
+
+        def moe(p, h):
+            calls.append(None)
+            return self._moe(p, h, record=len(calls) == 1)
+
+        return moe
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         x = F.embedding(tokens, self.embed)
@@ -329,7 +342,7 @@ class LM(nn.Module):
         x = self._embed(tokens)
         remat = cfg.remat and torch.is_grad_enabled()
         for lp, w in self._stack(tokens.shape[1]):
-            x = (checkpoint(block_apply, lp, cfg, x, window=w, moe=self._moe,
+            x = (checkpoint(block_apply, lp, cfg, x, window=w, moe=self._moe_once(),
                             use_reentrant=False)
                  if remat else block_apply(lp, cfg, x, window=w, moe=self._moe))
         return _norm(cfg, x, self.final_norm)

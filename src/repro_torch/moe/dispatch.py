@@ -34,6 +34,19 @@ exchange as ``uint8`` words (a bitcast, for every wire dtype): no
 collective may widen or refuse it.  ``wire_dtype="f32"`` casts
 nothing: the dispatch ships the model dtype and the combine float32.
 
+The island is differentiable on the f32 wire.  Each exchange is an
+``autograd.Function`` whose backward is the same exchange applied to the
+gradient: every tiled exchange here is a permutation that is its own
+inverse (``proc_all_to_all`` swaps axes 1 and 2, ``node_all_to_all`` the
+node axes, ``rank_all_to_all`` the two rank axes), so its adjoint is
+itself.  Backward messages carry their payload's label with ``:grad``
+(``"node:tokens:grad"``), so the forward's counted bytes stay apart.  The
+meta exchange ships ids and router weights in one int32 payload and
+returns the weights differentiable, their gradient going back through
+the same exchange.  Dropped copies get zero gradient.  A narrow wire
+raises under grad: the reference pins its narrow words by a bitcast,
+through which ``jax.grad`` is zero.
+
 Buffers are capacity-padded; FIFO slots come from cumulative sums and a
 copy past its capacity is dropped (standard MoE token dropping).  A
 scatter that drops is a gather here: each slot's source row is found by
@@ -64,7 +77,8 @@ from repro_torch.moe.wire import (check_wire_dtype, decode_torch,
 
 __all__ = [
     "EPInfo", "moe_apply_sharded", "dispatch_operator",
-    "resolve_dispatch_mode", "topology_of_mesh",
+    "resolve_dispatch_mode", "topology_of_mesh", "island_pods",
+    "check_island_batch",
 ]
 
 
@@ -240,6 +254,51 @@ def _unpack_meta(words: torch.Tensor, K: int) -> Tuple[torch.Tensor, torch.Tenso
     return m[..., :K].to(torch.int64), m[..., K:].contiguous().view(torch.float32)
 
 
+def _send_words(exchange, payload: torch.Tensor, label: str) -> torch.Tensor:
+    """One exchange of a payload ``[C, slots, rows, *f]`` as uint8 words,
+    viewed back as its dtype."""
+    dtype = payload.dtype
+    words = _as_words(payload)
+    shape = words.shape
+    out = exchange(words.reshape(shape[:3] + (-1,)), label).reshape(shape)
+    return out.view(dtype)
+
+
+class _Exchange(torch.autograd.Function):
+    """A payload through one exchange.  The exchange is a permutation that
+    is its own inverse, so the backward sends the gradient through the
+    same exchange, labelled ``label:grad``."""
+
+    @staticmethod
+    def forward(ctx, payload, exchange, label):
+        ctx.exchange, ctx.label = exchange, label
+        return _send_words(exchange, payload, label)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_send_words(ctx.exchange, grad.contiguous(), ctx.label + ":grad"),
+                None, None)
+
+
+class _MetaExchange(torch.autograd.Function):
+    """Expert ids and router weights through one exchange as one int32
+    payload; returns ``(ids, w)`` with ``w`` differentiable, whose
+    gradient goes back through the same exchange (``label:grad``)."""
+
+    @staticmethod
+    def forward(ctx, meta_e, meta_w, exchange, label):
+        ctx.exchange, ctx.label = exchange, label
+        words = _send_words(exchange, _pack_meta(meta_e, meta_w), label)
+        ids, w = _unpack_meta(words, meta_e.shape[-1])
+        ctx.mark_non_differentiable(ids)
+        return ids, w
+
+    @staticmethod
+    def backward(ctx, _, grad_w):
+        return (None, _send_words(ctx.exchange, grad_w.contiguous(),
+                                  ctx.label + ":grad"), None, None)
+
+
 @dataclasses.dataclass
 class _Island:
     """Geometry of one island run: ``C`` chips on this device (the
@@ -273,12 +332,15 @@ class _Island:
 
     def send(self, exchange, payload: torch.Tensor, label: str) -> torch.Tensor:
         """One exchange of a payload ``[C, slots, rows, *f]`` as uint8
-        words, viewed back as its dtype."""
-        dtype = payload.dtype
-        words = _as_words(payload)
-        shape = words.shape
-        out = exchange(words.reshape(shape[:3] + (-1,)), label).reshape(shape)
-        return out.view(dtype)
+        words, viewed back as its dtype; differentiable."""
+        return _Exchange.apply(payload, exchange, label)
+
+    def send_meta(self, exchange, meta_e: torch.Tensor,
+                  meta_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The ids and weights ``[C, slots, rows, K]`` through one exchange
+        (one payload, labelled ``"meta"``): ``(ids, w)``, ``w``
+        differentiable."""
+        return _MetaExchange.apply(meta_e, meta_w, exchange, "meta")
 
     def flat(self, words, label):
         return rank_all_to_all(words, self.mesh, topo=self.topo, label=label)
@@ -306,7 +368,12 @@ def moe_apply_sharded(p, cfg, x: torch.Tensor, ep: Optional[EPInfo] = None,
     ``stats``, when given, receives the resolved ``mode``, the
     capacities and the copies ``dropped`` per stage (counting them
     synchronizes with the device).  The island sums in float32 and casts
-    once, to ``out_dtype`` (the input's dtype by default)."""
+    once, to ``out_dtype`` (the input's dtype by default).
+
+    Gradients flow through the island on the f32 wire (across processes
+    too: the backward's exchanges use the same communicator).  On a
+    ``bf16`` or ``fp8_e4m3`` wire it raises when grad mode is on and ``x``
+    or an island weight requires grad."""
     ep = ep or EPInfo(inner_axis="model", pod_axis="pod")
     if mesh is None:
         raise ValueError("moe_apply_sharded needs mesh= (a Topology or a "
@@ -315,6 +382,14 @@ def moe_apply_sharded(p, cfg, x: torch.Tensor, ep: Optional[EPInfo] = None,
     pm = mesh if isinstance(mesh, ProcessMesh) and mesh.world > 1 else None
     if pm is not None and not ep.pod_axis:
         raise ValueError("across processes the island needs a pod axis")
+    wd = check_wire_dtype(getattr(cfg, "wire_dtype", "f32"))
+    if wd != "f32" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, p["router"], p["w_gate"], p["w_up"],
+                                      p["w_down"])):
+        raise ValueError(
+            f"the island has no gradient on the {wd} wire: the reference "
+            f"ships narrow wire words through a bitcast, where its gradient "
+            f"is zero; differentiate on wire_dtype='f32'")
     B, S, d = x.shape
     in_dtype = x.dtype
     y = _moe_island(cfg, topo, pm, x, p, stats)
@@ -322,6 +397,21 @@ def moe_apply_sharded(p, cfg, x: torch.Tensor, ep: Optional[EPInfo] = None,
     if cfg.n_shared_experts:
         out = out + _shared_ffn(p, x.reshape(-1, d)).reshape(B, S, d)
     return out
+
+
+def island_pods(mesh, ep: Optional[EPInfo] = None) -> int:
+    """The pods this process runs on the island over ``mesh`` (a
+    ``Topology``: all of them; a ``ProcessMesh``: its block): the batch it
+    is given splits over them."""
+    topo = topology_of_mesh(mesh, ep)
+    pm = mesh if isinstance(mesh, ProcessMesh) and mesh.world > 1 else None
+    return (pm.n_local_procs if pm is not None else topo.n_procs) // topo.ppn
+
+
+def check_island_batch(batch: int, n_pods_loc: int) -> None:
+    if batch % n_pods_loc:
+        raise ValueError(f"batch {batch} must split over the {n_pods_loc} pods "
+                         f"this process runs")
 
 
 def _local_experts(p, isl: _Island):
@@ -344,9 +434,7 @@ def _moe_island(cfg, topo: Topology, mesh: Optional[ProcessMesh],
         raise ValueError(f"n_experts={E} must divide over {n_chips} chips")
     B, S, d = x.shape
     n_pods_loc = C // n_in
-    if B % n_pods_loc:
-        raise ValueError(f"batch {B} must split over the {n_pods_loc} pods "
-                         f"this process runs")
+    check_island_batch(B, n_pods_loc)
     T = (B // n_pods_loc) * S                     # tokens of one pod block
     if T % n_in:
         raise ValueError(f"{T} tokens per pod must split over {n_in} gateways")
@@ -414,9 +502,8 @@ def _flat(isl: _Island, chunk, w, ids, experts, e_base, drops):
     meta_e[..., 0], meta_w[..., 0] = me0, mw0
     wd = isl.wd
     r_toks = isl.send(isl.flat, encode_torch(toks, wd), "tokens")
-    r_meta = isl.send(isl.flat, _pack_meta(meta_e, meta_w), "meta")
+    r_e, r_w = isl.send_meta(isl.flat, meta_e, meta_w)
     del toks, meta_e, meta_w
-    r_e, r_w = _unpack_meta(r_meta, K)
     cap_e = max(1, int(Tc * K * cf / isl.E_loc))
     y = _expert_compute(experts, decode_torch(r_toks, wd, chunk.dtype)
                         .reshape(C, -1, d), r_e.reshape(C, -1, K),
@@ -460,15 +547,18 @@ def _nap(isl: _Island, chunk, w, ids, experts, e_base, drops):
     # only the choices that live on pod o travel there (the E(n, m) dedup)
     me = torch.where(on_pod, ids[:, :, None], -1).reshape(C, Tc * n_out, K)
     mw = torch.where(on_pod, w[:, :, None], 0.0).reshape(C, Tc * n_out, K)
-    meta = _pack_meta(_gather_rows(me, src, fill=-1), _gather_rows(mw, src))
     # one aggregated pod exchange; the gateway encodes once and the wire
-    # words relay through the fan-out below
-    ft = isl.send(isl.pod, _as_words(encode_torch(toks, wd)), "tokens")
-    fmeta = isl.send(isl.pod, meta, "meta")
-    del toks, meta, me, mw
+    # payload relays through the fan-out below: the float rows on the f32
+    # wire (a gather of whole rows moves the bytes of their words, and its
+    # adjoint sums a copy's fan-out returns), the words of a narrow one
+    enc = encode_torch(toks, wd)
+    ft = isl.send(isl.pod, enc if wd == "f32" else _as_words(enc), "tokens")
+    fe, fw = isl.send_meta(isl.pod, _gather_rows(me, src, fill=-1),
+                           _gather_rows(mw, src))
+    del toks, enc, me, mw
     R0 = n_out * cap_pod
-    ft = ft.reshape(C, R0, -1)                                # wire words
-    fe, fw = _unpack_meta(fmeta.reshape(C, R0, 2 * K), K)
+    ft = ft.reshape(C, R0, -1)                                # wire payload
+    fe, fw = fe.reshape(C, R0, K), fw.reshape(C, R0, K)
     cap_loc = max(1, int(Tc * K * cf / n_in))
     loc_of = torch.where(fe >= 0, (fe // isl.E_loc) % n_in, -1)
     inner = torch.arange(n_in, device=dev)
@@ -481,14 +571,13 @@ def _nap(isl: _Island, chunk, w, ids, experts, e_base, drops):
     src = _slot_sources(pos.reshape(C, R0 * n_in), n_in * (cap_loc + 1)) \
         .view(C, n_in, cap_loc + 1)[..., :cap_loc]            # q = r*n_in + i
     row = torch.where(src < R0 * n_in, src // n_in, R0)
-    lt = _gather_rows(ft, row)                                # wire words
+    lt = _gather_rows(ft, row)                                # wire payload
     le = torch.where(on_loc, fe[:, :, None], -1).reshape(C, R0 * n_in, K)
     lw = torch.where(on_loc, fw[:, :, None], 0.0).reshape(C, R0 * n_in, K)
-    lmeta = _pack_meta(_gather_rows(le, src, fill=-1), _gather_rows(lw, src))
-    del ft, le, lw
     lt = isl.send(isl.inner, lt, "tokens")
-    lmeta = isl.send(isl.inner, lmeta, "meta")
-    r_e, r_w = _unpack_meta(lmeta, K)
+    r_e, r_w = isl.send_meta(isl.inner, _gather_rows(le, src, fill=-1),
+                             _gather_rows(lw, src))
+    del ft, le, lw
     tokens = _from_words(lt, wd, chunk.dtype).reshape(C, n_in * cap_loc, d)
     cap_e = max(1, int(Tc * K * cf / isl.E_loc))
     y = _expert_compute(experts, decode_torch(tokens, wd, chunk.dtype),
@@ -519,7 +608,10 @@ def _nap(isl: _Island, chunk, w, ids, experts, e_base, drops):
 
 
 def _from_words(words: torch.Tensor, wd: str, model_dtype: torch.dtype):
-    """uint8 wire words -> the wire dtype (the model dtype for f32)."""
+    """The relayed payload in the wire dtype (the model dtype for f32):
+    uint8 wire words viewed as it, float rows as they are."""
+    if words.dtype != torch.uint8:
+        return words
     return words.contiguous().view(torch_wire_dtype(wd) or model_dtype)
 
 

@@ -13,7 +13,11 @@ does.  Where the reference returns new trees, :func:`adamw_update`
 updates the parameters, the moments and the masters IN PLACE under
 ``torch.no_grad()`` (at full width the state is the bulk of the card's
 memory: no second copy of it is made) and returns the global gradient
-norm.  ``state["step"]`` is a host int.
+norm.  ``state["step"]`` is a host int.  A leaf of more than
+``UPDATE_SLICE`` elements is updated a slice of rows at a time, so the
+update's float32 temporaries (about six the size of what is updated at
+once) stay small beside the state; the int8 blocks run along the last
+axis, so every slice holds whole blocks and the arithmetic is the same.
 """
 from __future__ import annotations
 
@@ -236,6 +240,20 @@ def adamw_init(params: Pytree, cfg: AdamWConfig) -> Dict:
     return state
 
 
+# elements of a leaf updated at once (a slice of its leading axis)
+UPDATE_SLICE = 1 << 27
+
+
+def _update_slices(shape) -> list:
+    """Slices of a leaf's leading axis of at most ``UPDATE_SLICE``
+    elements; the whole leaf (``...``) when it is small or 1-D."""
+    n = math.prod(shape)
+    if len(shape) < 2 or n <= UPDATE_SLICE:
+        return [...]
+    rows = max(1, UPDATE_SLICE // (n // shape[0]))
+    return [slice(i, i + rows) for i in range(0, shape[0], rows)]
+
+
 @torch.no_grad()
 def adamw_update(grads: Pytree, params: Pytree, state: Dict,
                  cfg: AdamWConfig) -> torch.Tensor:
@@ -253,24 +271,29 @@ def adamw_update(grads: Pytree, params: Pytree, state: Dict,
     q8 = cfg.state_dtype == "int8"
     masters = state.get("master")
     for path, p in tree_leaves_with_path(params):
-        g = tree_at(grads, path).to(torch.float32, copy=True).mul_(scale)
-        m_st, v_st = tree_at(state["m"], path), tree_at(state["v"], path)
-        m = _q8_dequant(m_st) if q8 else m_st
-        v = _q8l_dequant(v_st) if q8 else v_st
-        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
-        del g
-        upd = torch.div(v, bc2).sqrt_().add_(cfg.eps)
-        upd = torch.div(m, bc1).div_(upd)
-        base = tree_at(masters, path) if masters is not None else (
-            p.data if p.dtype == torch.float32 else p.detach().float())
-        upd.add_(base, alpha=cfg.weight_decay)
-        base.add_(upd, alpha=-lr)
-        del upd
-        if base.data_ptr() != p.data_ptr():
-            p.data.copy_(base)
-        if q8:
-            _store(m_st, _q8_quant(m))
-            _store(v_st, _q8l_quant(v))
+        m_all, v_all = tree_at(state["m"], path), tree_at(state["v"], path)
+        g_all = tree_at(grads, path)
+        for sl in _update_slices(p.shape):
+            g = g_all[sl].to(torch.float32, copy=True).mul_(scale)
+            m_st = {k: t[sl] for k, t in m_all.items()} if q8 else m_all[sl]
+            v_st = {k: t[sl] for k, t in v_all.items()} if q8 else v_all[sl]
+            m = _q8_dequant(m_st) if q8 else m_st
+            v = _q8l_dequant(v_st) if q8 else v_st
+            m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+            v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+            del g
+            upd = torch.div(v, bc2).sqrt_().add_(cfg.eps)
+            upd = torch.div(m, bc1).div_(upd)
+            dst = p.data[sl]
+            base = tree_at(masters, path)[sl] if masters is not None else (
+                dst if p.dtype == torch.float32 else dst.float())
+            upd.add_(base, alpha=cfg.weight_decay)
+            base.add_(upd, alpha=-lr)
+            del upd
+            if base.data_ptr() != dst.data_ptr():
+                dst.copy_(base)
+            if q8:
+                _store(m_st, _q8_quant(m))
+                _store(v_st, _q8l_quant(v))
     state["step"] = step
     return gnorm

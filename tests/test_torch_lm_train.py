@@ -1,6 +1,8 @@
 """The port's ``LM.hidden``, ``loss`` and ``prefill`` against the JAX
 package's on the CPU, for gemma2-2b, llama3-405b and chameleon-34b
-reduced; weights from the reference's ``LM.init`` through
+reduced (``hidden``, ``loss`` and the grads also for the reduced MoE
+LMs, qwen3-moe-235b-a22b and deepseek-v2-236b, through their local
+dense-masked oracle); weights from the reference's ``LM.init`` through
 ``params_from_jax``, tokens from a seeded numpy generator.  Hidden rtol
 1e-4 / atol 1e-4, the loss rtol 1e-5, each grad leaf within 1e-4 of its
 max |grad|; ``remat`` on bit-equal to off; prefill's last logits and
@@ -23,6 +25,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.optim.adamw import tree_at, tree_leaves_with_path
 
 ARCHS = ["gemma2-2b", "llama3-405b", "chameleon-34b"]
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "deepseek-v2-236b"]
 
 
 def _grads_close(got, want, what):
@@ -58,11 +61,12 @@ def _torch_batch(batch):
 
 
 def _stacked(tree_j, path):
-    if path[0] == "layers":
-        return np.asarray(tree_at(tree_j["layers"], path[2:])[path[1]])
+    if path[0] in ("layers", "dense_layers"):
+        return np.asarray(tree_at(tree_j[path[0]], path[2:])[path[1]])
     return np.asarray(tree_at(tree_j, path))
 
 
+@pytest.mark.parametrize("pair", ARCHS + MOE_ARCHS, indirect=True)
 def test_hidden_loss_and_grads_match_reference(pair):
     arch, jm, tree, batch = pair
     pm = _port(arch, tree)

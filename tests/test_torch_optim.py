@@ -10,7 +10,9 @@ log, and 1 and 5 ``adamw_update`` calls within 1e-6
 of max |p| (float32 parameters, and the float32 masters of bfloat16 ones;
 a bfloat16 parameter within one bfloat16 ulp).  With int8 moments a code
 off by one moves its element by up to ~lr a step: every element within
-2 lr x steps, and at least 99% of them within 1e-6 of max |p|.  The reference's own
+2 lr x steps, and at least 99% of them within 1e-6 of max |p|.  An update
+of large leaves a slice of rows at a time is bit-equal to the whole-leaf
+update.  The reference's own
 quadratic, round-trip and schedule-shape checks
 (``tests/test_substrates.py``) run again on the port.
 """
@@ -296,3 +298,33 @@ def test_opt_state_from_jax_slices_layers(state_dtype):
         assert {p: (t.shape, t.dtype) for p, t in got.items()} == shapes
         for path, t in got.items():
             np.testing.assert_array_equal(t.numpy(), _layer(sj[key], path))
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sliced_update_bit_equal_to_whole(monkeypatch, state_dtype, dtype):
+    """3 updates with every leaf of more than 1000 elements in slices of
+    rows against the same updates whole: parameters, masters and moments
+    (int8 codes and their scales) bit-equal."""
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"a": (300, 64), "b": (64,), "c": (), "d": (7, 5, 32), "e": (3, 700)}
+    params = {k: torch.randn(s, generator=gen).to(dtype) for k, s in shapes.items()}
+    grads = [{k: torch.randn(s, generator=gen).to(dtype) for k, s in shapes.items()}
+             for _ in range(3)]
+    cfg = port.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10,
+                           state_dtype=state_dtype)
+    runs = []
+    for limit in (port.UPDATE_SLICE, 1000):
+        monkeypatch.setattr(port, "UPDATE_SLICE", limit)
+        p = {k: v.clone() for k, v in params.items()}
+        state = port.adamw_init(p, cfg)
+        for g in grads:
+            port.adamw_update(g, p, state, cfg)
+        runs.append((p, state))
+    assert len(port._update_slices(shapes["a"])) == 20
+    assert port._update_slices(shapes["e"]) == [slice(0, 1), slice(1, 2), slice(2, 3)]
+    (pa, sa), (pb, sb) = runs
+    for (path, a), (_, b) in zip(tree_leaves_with_path((pa, sa)),
+                                 tree_leaves_with_path((pb, sb))):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), path

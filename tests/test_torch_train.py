@@ -1,6 +1,7 @@
 """The port's train step and training driver against the JAX package's on
-the CPU.  Three ``make_train_step`` steps (grad_accum 1 and 2, float32 and
-int8 moments) start from the reference's state after two of its steps,
+the CPU.  Three ``make_train_step`` steps (gemma2-2b at grad_accum 1 and
+2, the reduced MoE LMs through their local oracle at 1; float32 and int8
+moments) start from the reference's state after two of its steps,
 converted by ``opt_state_from_jax``: losses rtol 1e-4, parameters within
 ``2 lr steps`` (AdamW moves an element by about +-lr wherever its gradient
 sits at round-off level) and at least 99% of them within 1e-6 of max |p|.
@@ -48,20 +49,23 @@ def _grads_close(got, want, what):
 
 
 def _stacked(tree_j, path):
-    if path[0] == "layers":
-        return np.asarray(tree_at(tree_j["layers"], path[2:])[path[1]])
+    if path[0] in ("layers", "dense_layers"):
+        return np.asarray(tree_at(tree_j[path[0]], path[2:])[path[1]])
     return np.asarray(tree_at(tree_j, path))
 
 
 # --------------------------- the train step -----------------------------------------
 
 TRAIN_STEPS, WARM_STEPS, LR = 3, 2, 3e-3
+STEP_CASES = [pytest.param("gemma2-2b", accum, dtype, id=f"{accum}-{dtype}")
+              for accum in (1, 2) for dtype in ("float32", "int8")] + \
+    [pytest.param(arch, 1, dtype, id=f"{arch}-1-{dtype}")
+     for arch in ("qwen3-moe-235b-a22b", "deepseek-v2-236b")
+     for dtype in ("float32", "int8")]
 
 
-@pytest.mark.parametrize("state_dtype", ["float32", "int8"])
-@pytest.mark.parametrize("accum", [1, 2])
-def test_train_steps_match_reference(accum, state_dtype):
-    arch = "gemma2-2b"
+@pytest.mark.parametrize("arch,accum,state_dtype", STEP_CASES)
+def test_train_steps_match_reference(arch, accum, state_dtype):
     over = dict(grad_accum=accum, opt_state_dtype=state_dtype)
     jm = jax_build(jax_reduced(arch).replace(**over))
     kw = dict(lr=LR, warmup_steps=1, total_steps=10, state_dtype=state_dtype)
