@@ -3,8 +3,9 @@
 the multi-step exchange, wire integrity, the float64 simulate backend,
 the distributed SpGEMM and the AMG solver path, the solver service, the
 multi-process mesh, the MoE token dispatch, the hierarchical collectives,
-the gemma2-2b serving path, gemma2-2b's prefill and training, and
-serving and training the MoE LMs (qwen3-moe-235b-a22b, deepseek-v2-236b).
+the gemma2-2b serving path, gemma2-2b's prefill and training,
+serving and training the MoE LMs (qwen3-moe-235b-a22b, deepseek-v2-236b),
+and serving whisper-small, zamba2-2.7b and rwkv6-3b.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -256,19 +257,23 @@ Phases, each fatal on failure:
    time of the kernel's launches, the bound over the k/v rows inside the
    masks and the partials' scratch beside the k/v bytes; then
    chameleon-34b's heads (Hkv 8, g 8, D 128, bf16) at phase 20's
-   decode_32k lengths, timed the same way; then the kernel's other
+   decode_32k lengths, timed the same way; one query row a kv head (g =
+   1): zamba2-2.7b's heads (Hkv 32, D 80) and whisper-small's (Hkv 12, D
+   64) at the same lengths, and whisper's cross-attention as served (B
+   4, all 1500 encoder rows), timed the same way; then the kernel's other
    instantiations (one and two M-tiles of 16 rows, a group of more than
    32 rows, both D buckets, both types) at small shapes, each split
    over blocks with the combine and in one block without it, untimed;
 11. the serving path at full width: gemma2-2b, all 26 layers, bf16,
    weights drawn from the seed on the card, through
-   ``repro_torch.launch.serve.generate``: batch 4, a 512-token prompt
+   ``repro_torch.launch.serve.generate``: batch 4, a 256-token prompt
+   (512 before a cut for the time limit; the first half of phase 14's)
    teacher-forced through ``decode_step``, then 32 greedy tokens,
    max_seq 1024.  Median step ms, the kernel's launches (must equal
    layers x steps), peak memory, the profiler's busy share of a step,
    the step's bound (every parameter byte and the cache rows read once),
    finite logits; then the kernel against its plain version on the
-   served bf16 cache (read in place, 544 of 1024 positions) of an even
+   served bf16 cache (read in place, 288 of 1024 positions) of an even
    layer (window 4096) and an odd one (window 1024), with a query drawn
    from the seed, at the same tolerance and timed;
 12. the whole decode step checked on the card: the same config with 2
@@ -280,12 +285,14 @@ Phases, each fatal on failure:
     k / v against the teacher-forced ``decode_step`` at atol 1e-3, and
     ``LM.hidden`` + the head against every teacher-forced step at rtol
     2e-2 / atol 2e-3;
-14. prefill at full width on phase 11's weights and prompts (26 layers,
-    bf16, 4 x 512): device ms (CUDA events, median of 5) beside phase
-    11's teacher-forced prompt, peak memory, busy share, the last logits'
-    max |diff| against the teacher-forced ones and whether the greedy ids
-    agree (recorded), finite logits (gated);
-15. (run inside phase 9, while it waits for the 9e / 9h children; its
+14. prefill at full width on phase 11's weights (26 layers, bf16, 4 x
+    512 tokens, whose first 256 phase 11 served): device ms (CUDA
+    events, median of 5) beside phase 11's teacher-forced prompt, peak
+    memory, busy share; the prefill of the first 256 tokens, its last
+    logits' max |diff| against the teacher-forced ones and whether the
+    greedy ids agree (recorded); finite logits (gated);
+15. (run inside phase 9, while it waits for the 9e / 9h children,
+    after phase 25's first serving runs, 25a; its
     CPU half in a thread from phase 8 on, its results kept on the card)
     training held on the card, phase 12's config (``grad_accum`` 1):
     3 ``make_train_step`` steps of seeded bigram batches on the card and
@@ -359,10 +366,37 @@ Phases, each fatal on failure:
     backward and the update, tokens/s, the share of the bf16 peak, peak
     memory, busy share, drops per stage and the counted inter-pod bytes
     of a forward and of a backward, finite losses and grad norms gated;
+24. the last three families held on the card: whisper-small,
+    zamba2-2.7b and rwkv6-3b, reduced configs in float32, weights from the
+    seed on the card and copied to the CPU: prefill logits of a seeded [4,
+    32] prompt (whisper over seeded frames) and 8 teacher-forced decode
+    steps (whisper's cross caches from ``cross_cache``) on the card
+    against the CPU within rtol 1e-4 / atol 1e-4, the card's decode
+    through the kernel (whisper two launches a layer and step, its
+    cross-attention among them; zamba2 one a shared-block application;
+    rwkv6 none), the CPU's through the plain version;
+25. the three at full width and depth, bf16 weights from the seed on the
+    card (whisper-small 294,683,904 parameters, zamba2-2.7b 2,340,162,720,
+    rwkv6-3b 2,900,298,240), one at a time: ``serve.generate`` with batch
+    4, a 32-token prompt teacher-forced and 32 greedy tokens, max_seq 128
+    (whisper's cross caches from frames [4, 1500, 768] drawn from the
+    seed), run twice (the first run, 25a, inside phase 9's wait for
+    phase 15's CPU half, untimed): the kernel's launches in both
+    (whisper 2 x 12 x 64, zamba2 9 x 64, rwkv6 none), finite logits and
+    the same greedy tokens both times (gated); median step ms against its bound (the weights a step
+    reads, the attention rows and the recurrent states read and written
+    once, at 3.35 TB/s), busy share, peak; the kernel on the served
+    caches (whisper's self and cross, zamba2's first application) against
+    its plain version; then ``prefill`` of 4 x 512 seeded tokens (zamba2;
+    rwkv6 through the stepwise recurrence its config ships) or 4 x 448
+    over 4 x 1500 frames (whisper): ms (median of 3) against its bound
+    (the products' FLOPs at the bf16 peak, or the weights' bytes), peak,
+    finite logits;
 21. the whole script's seconds with every phase's, a JSON line of every
     kernel (with ``device_ms`` and, for the BSR kernels,
-    ``library_bsr_ms``; the decode kernel a second time at qwen3-moe's
-    served shapes), then the result line.
+    ``library_bsr_ms``; the decode kernel again at qwen3-moe's served
+    shapes, at zamba2's heads and at whisper's cross-attention, each
+    with its own arch's serving launches), then the result line.
 
 Launch counts are reset right before each path is driven and read right
 after, and the peak of allocated device memory is reset and read around
@@ -4283,20 +4317,22 @@ def attn_case(label, q, k, v, lengths, window, softcap, scale, timed=True):
     return entry
 
 
-def decode_32k_case(arch, seed):
-    """The decode kernel at ``arch``'s heads, bf16 [B, S, Hkv, D] caches of
-    B 8, S 32768 drawn from the seed, at decode_32k's ragged lengths."""
+DECODE_32K_LENGTHS = (1, 17, 4096, 4097, 9000, 20000, 30000, 32768)   # 99,979 rows
+
+
+def heads_case(arch, seed, b, s, lengths, what):
+    """The decode kernel at ``arch``'s heads on bf16 [B, S, Hkv, D] caches
+    drawn from the seed, at ``lengths``; the kernels-line numbers."""
     cfg = get_config(arch)
-    b, s, hkv, d = 8, 32768, cfg.n_kv_heads, cfg.head_dim
+    hkv, d = cfg.n_kv_heads, cfg.head_dim
     g = cfg.n_heads // hkv
-    lengths = torch.tensor([1, 17, 4096, 4097, 9000, 20000, 30000, s],
-                           dtype=torch.int32, device=DEV)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=DEV)
     kv = [torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
           for gen in (torch.Generator(device=DEV).manual_seed(seed + i) for i in (1, 2))]
     q = torch.randn((b, hkv, g, d), device=DEV,
                     generator=torch.Generator(device=DEV).manual_seed(seed + 3)
                     ).to(torch.bfloat16)
-    entry = attn_case(f"{arch} heads: B {b}, S {s}, Hkv {hkv}, g {g}, D {d}, bf16 "
+    entry = attn_case(f"{arch} {what}: B {b}, S {s}, Hkv {hkv}, g {g}, D {d}, bf16 "
                       f"[B,S,Hkv,D]", q, kv[0].transpose(1, 2), kv[1].transpose(1, 2),
                       lengths, 0, cfg.attn_softcap, d ** -0.5)
     del kv, q
@@ -4304,8 +4340,23 @@ def decode_32k_case(arch, seed):
     return entry
 
 
+def decode_32k_case(arch, seed):
+    """The decode kernel at ``arch``'s heads, B 8, S 32768, at decode_32k's
+    ragged lengths."""
+    return heads_case(arch, seed, 8, 32768, DECODE_32K_LENGTHS, "heads")
+
+
+def kernel_entry(arch, entry, launches=0):
+    """A kernels-line entry of the decode kernel at ``arch``'s heads."""
+    return dict(name="decode_attention_grouped:" + arch, route="cuda", source=ATTN_SOURCE,
+                replaces=ATTN_REPLACES, launches=launches, **entry)
+
+
 def phase_decode_attn(rng, gen, seed=0):
-    """[10] the decode-attention kernel at gemma2-2b's decode_32k shapes."""
+    """[10] the decode-attention kernel at gemma2-2b's decode_32k shapes,
+    chameleon-34b's, zamba2's and whisper's heads, and the small
+    instantiations.  Returns the kernels-line entry and those at zamba2's
+    and whisper's heads (g = 1)."""
     cfg = get_config("gemma2-2b")
     b, s, hkv, d = 8, 32768, cfg.n_kv_heads, cfg.head_dim
     g = cfg.n_heads // hkv
@@ -4332,6 +4383,14 @@ def phase_decode_attn(rng, gen, seed=0):
     free()
     # chameleon-34b's heads: g = 8 at D = 128
     decode_32k_case("chameleon-34b", seed)
+    # one query row a kv head (g = 1): zamba2's heads (D 80) and whisper's
+    # (D 64) at decode_32k's lengths, and whisper's cross-attention as it is
+    # served: 4 sequences over all 1500 encoder rows
+    late = {"zamba2-2.7b": decode_32k_case("zamba2-2.7b", seed)}
+    decode_32k_case("whisper-small", seed)
+    enc = get_config("whisper-small").encoder_seq
+    late["whisper-small"] = heads_case("whisper-small", seed, 4, enc, (enc,) * 4,
+                                       "cross-attention")
     # the kernel's other instantiations (one and two M-tiles, rows past 32
     # in a second launch, D buckets 128 / 256 with D % 16 = 8, both
     # types), untimed at small shapes: S = 1000 in one block a pair (window
@@ -4350,14 +4409,20 @@ def phase_decode_attn(rng, gen, seed=0):
                       ks[:, :s_len].transpose(1, 2), vs[:, :s_len].transpose(1, 2),
                       torch.tensor(ls, dtype=torch.int32, device=DEV), w, 30.0,
                       dd ** -0.5, timed=False)
-    return dict(name="decode_attention_grouped", route="cuda", source=ATTN_SOURCE,
-                replaces=ATTN_REPLACES, launches=0, **main)
+    return (dict(name="decode_attention_grouped", route="cuda", source=ATTN_SOURCE,
+                 replaces=ATTN_REPLACES, launches=0, **main),
+            {arch: kernel_entry(arch, e) for arch, e in late.items()})
+
+
+SERVE_PROMPT = 256           # phase 11's teacher-forced prompt
+PREFILL_LEN = 512            # phase 14's prompt: 512 of prefill_32k's 32768 tokens
 
 
 def phase_serve(n_layers, seed):
     """[11] gemma2-2b serving at full width through serve.generate."""
     cfg = get_config("gemma2-2b").replace(n_layers=n_layers)
-    batch, prompt_len, gen_len, max_seq = 4, 512, 32, 1024
+    # the first SERVE_PROMPT of phase 14's 512 tokens (512 before a cut for the time limit)
+    batch, prompt_len, gen_len, max_seq = 4, SERVE_PROMPT, 32, 1024
     print(f"[11] serve: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, vocab "
           f"{cfg.vocab}, {cfg.dtype}; batch {batch}, prompt {prompt_len}, gen "
           f"{gen_len}, max_seq {max_seq}")
@@ -4368,8 +4433,9 @@ def phase_serve(n_layers, seed):
     param_bytes = sum(p.nbytes for p in model.parameters())
     print(f"  init from seed {seed} on the card {time.perf_counter() - t0:.2f} s; "
           f"{n_params} parameters, {param_bytes / 1e9:.3f} GB")
-    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, prompt_len))
-    res, counts = drive("generate", lambda: generate(model, prompts, gen_len, max_seq))
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, PREFILL_LEN))
+    res, counts = drive("generate", lambda: generate(model, prompts[:, :prompt_len],
+                                                     gen_len, max_seq))
     steps = prompt_len + gen_len
     n_launch = counts.get("decode_attention_grouped", 0)
     if n_launch != cfg.n_layers * steps:
@@ -4538,9 +4604,13 @@ def phase_prefill_full(served):
     peak = torch.cuda.max_memory_allocated()
     if not torch.isfinite(logits).all():
         raise AssertionError("full-width prefill: non-finite logits")
-    diff = float((logits - served["prompt_logits"]).abs().max())
-    same_ids = bool((logits.argmax(-1) == served["first_ids"]).all())
     del cache
+    # phase 11 teacher-forced the first SERVE_PROMPT tokens: the prefill of
+    # those against its logits
+    head, cache = model.prefill(toks[:, :SERVE_PROMPT])
+    diff = float((head - served["prompt_logits"]).abs().max())
+    same_ids = bool((head.argmax(-1) == served["first_ids"]).all())
+    del cache, head
     ms = time_ms(lambda: model.prefill(toks), reps=5, warmup=1)
     busy = profile_program("prefill", lambda: model.prefill(toks), ms)
     # matmul FLOPs of the layers (the embedding is a lookup), the head at
@@ -4550,13 +4620,13 @@ def phase_prefill_full(served):
     flops = 2 * n_layer * b * s + 2 * cfg.d_model * cfg.vocab * b \
         + 4 * b * s * s * cfg.n_heads * cfg.head_dim * cfg.n_layers
     print(f"[14] prefill at full width: {cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, "
-          f"{b} x {s} prompts (phase 11's): {ms:.4f} ms (CUDA events, median of 5) "
-          f"against the teacher-forced prompt's {served['prefill_ms']:.1f} ms "
-          f"({served['prefill_ms'] / ms:.1f}x); peak memory {peak / 1e9:.3f} GB; "
+          f"{b} x {s} prompts (phase 11's, extended): {ms:.4f} ms (CUDA events, median "
+          f"of 5), phase 11's teacher-forced {SERVE_PROMPT} tokens took "
+          f"{served['prefill_ms']:.1f} ms; peak memory {peak / 1e9:.3f} GB; "
           f"{flops / 1e12:.2f} TFLOP, {100 * flops / (ms / 1e3) / BF16_FLOPS:.1f}% of "
-          f"the bf16 peak; busy {100 * busy / ms:.1f}%; last logits vs the "
-          f"teacher-forced ones max_abs_err {diff:.3e} (bf16, recorded), greedy ids "
-          f"agree: {same_ids}; logits finite")
+          f"the bf16 peak; busy {100 * busy / ms:.1f}%; the prefill of the first "
+          f"{SERVE_PROMPT} tokens vs their teacher-forced last logits max_abs_err "
+          f"{diff:.3e} (bf16, recorded), greedy ids agree: {same_ids}; logits finite")
 
 
 def release():
@@ -5050,9 +5120,7 @@ def moe_lm_full(arch, n_layers, seed, smi):
                           cache["layers"]["k"][0].transpose(1, 2),
                           cache["layers"]["v"][0].transpose(1, 2), cache["length"], 0,
                           cfg.attn_softcap, cfg.head_dim ** -0.5)
-        entry = dict(name="decode_attention_grouped:" + arch, route="cuda",
-                     source=ATTN_SOURCE, replaces=ATTN_REPLACES, launches=n_launch,
-                     **entry)
+        entry = kernel_entry(arch, entry, n_launch)
     del res, cache
     if not cfg.mla_kv_lora:
         # the same heads at decode_32k's lengths
@@ -5335,6 +5403,297 @@ def phase_moe_train_full(seed, smi):
         moe_train_full(arch, seed, smi)
 
 
+# serving the last three families (phases 24-25) -------------------------------
+LATE_ARCHS = ("whisper-small", "zamba2-2.7b", "rwkv6-3b")
+LATE_HELD_STEPS = 8
+LATE_SERVE = dict(batch=4, prompt=32, gen=32, max_seq=128)
+# prefill shapes: whisper's decoder holds 448 tokens (its text context)
+# over 1500 frames; the others take phase 14's 4 x 512
+LATE_PREFILL = {"whisper-small": (4, 448), "zamba2-2.7b": (4, 512), "rwkv6-3b": (4, 512)}
+
+
+def late_frames(cfg, batch, seed, device):
+    """whisper's stubbed frontend output, frame embeddings [B,
+    encoder_seq, d] float32 drawn from the seed on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    return torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+                       device=device)
+
+
+def late_launches(cfg, steps):
+    """The decode kernel's launches over ``steps`` decode steps: whisper
+    two a layer (its self-attention and its cross-attention), zamba2 one
+    a shared-block application, rwkv6 none (it has no attention)."""
+    if cfg.is_encoder_decoder:
+        return 2 * cfg.n_layers * steps
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every * steps
+    return 0
+
+
+def prefill_args(toks, frames):
+    """``prefill``'s arguments: whisper's take the frames too."""
+    return (toks,) if frames is None else (toks, frames)
+
+
+def late_decode(model, toks, frames, n_steps, max_seq):
+    """``n_steps`` teacher-forced decode steps of ``toks`` (whisper's
+    cross caches filled from ``frames`` first): the logits, stacked."""
+    cache = model.init_cache(toks.shape[0], max_seq)
+    if frames is not None:
+        cache.update(model.cross_cache(frames))
+    out = []
+    for t in range(n_steps):
+        logits, cache = model.decode_step(cache, toks[:, t:t + 1])
+        out.append(logits)
+    return torch.stack(out)
+
+
+def late_held(arch, seed):
+    """One reduced config in float32 on the card and on the CPU with the
+    same weights: prefill logits and ``LATE_HELD_STEPS`` teacher-forced
+    decode steps within rtol 1e-4 / atol 1e-4, the card's decode through
+    the kernel (its launches counted), the CPU's through the plain
+    version."""
+    cfg = get_reduced(arch)
+    card = build_model(cfg).init(seed)
+    host = build_model(cfg, device="cpu").load(card.param_tree())
+    batch, s = 4, 32
+    toks = torch.from_numpy(np.random.default_rng(seed + 6).integers(0, cfg.vocab,
+                                                                     (batch, s)))
+    frames = late_frames(cfg, batch, seed, "cpu") if cfg.is_encoder_decoder else None
+    toks_d, frames_d = toks.to(DEV), None if frames is None else frames.to(DEV)
+    got, _ = card.prefill(*prefill_args(toks_d, frames_d))
+    want, _ = host.prefill(*prefill_args(toks, frames))
+    reset_launches()
+    steps = late_decode(card, toks_d, frames_d, LATE_HELD_STEPS, 16)
+    torch.cuda.synchronize()
+    n_launch = launches["decode_attention_grouped"]
+    ref = late_decode(host, toks, frames, LATE_HELD_STEPS, 16)
+    over = dict(prefill=within(got.cpu(), want, 1e-4, 1e-4),
+                decode=within(steps.cpu(), ref, 1e-4, 1e-4))
+    print(f"  {arch} ({cfg.n_layers} layers, d {cfg.d_model}, float32): card vs CPU, "
+          f"prefill logits of [{batch}, {s}] and {LATE_HELD_STEPS} teacher-forced decode "
+          f"steps: max excess over rtol 1e-4 / atol 1e-4 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in over.items())
+          + f" (<= 0 passes), max |logit| {float(ref.abs().max()):.3f}; kernel launches "
+          f"{n_launch} (= {late_launches(cfg, LATE_HELD_STEPS)})")
+    if max(over.values()) > 0 or n_launch != late_launches(cfg, LATE_HELD_STEPS) \
+            or not torch.isfinite(steps).all():
+        raise AssertionError(f"{arch}: the card disagrees with the CPU")
+    del card, host, steps
+    free()
+
+
+def phase_late_held(seed):
+    """[24] whisper-small, zamba2-2.7b and rwkv6-3b held on the card."""
+    print("[24] the last three families held on the card (reduced configs, float32)")
+    for arch in LATE_ARCHS:
+        late_held(arch, seed)
+
+
+def decode_read_bytes(model, cfg, batch, stored):
+    """Bytes one decode step must read at ``stored`` cached tokens a
+    sequence: the weights it uses (whisper's decoder and tied head, not
+    its encoder or the cross k / v projections, whose output is cached),
+    the attention rows (whisper: self and cross, every layer; zamba2: one
+    cache a shared-block application), and the recurrent states read and
+    written (float32)."""
+    weights = sum(p.nbytes for name, p in model.named_parameters()
+                  if not name.startswith("enc_")
+                  and not name.endswith(("xattn.wk", "xattn.wv")))
+    row = 2 * cfg.n_kv_heads * cfg.head_dim * 2 if cfg.family != "ssm" else 0
+    if cfg.is_encoder_decoder:
+        rows, state = cfg.n_layers * (stored + cfg.encoder_seq), 0
+    elif cfg.family == "hybrid":
+        d_in = cfg.ssm_expand * cfg.d_model
+        rows = cfg.n_layers // cfg.shared_attn_every * stored
+        state = cfg.n_layers * (d_in * cfg.ssm_state * 4 + (cfg.ssm_conv - 1) * d_in * 2)
+    else:
+        n = cfg.rwkv_head_size
+        rows, state = 0, cfg.n_layers * (cfg.d_model * n * 4 + 2 * cfg.d_model * 2)
+    return weights, rows * batch * row, 2 * state * batch
+
+
+def prefill_flops(model, cfg, b, s):
+    """The matmul FLOPs of a prefill of [b, s] tokens: 2 x the weights
+    each token's products use x the tokens (zamba2's shared block once an
+    application; whisper's encoder and cross-attention k / v over its b x
+    encoder_seq frames), the attention blocks as computed (4 b Sq Skv H dh
+    a layer: full blocks), the head at the last position.  Left out:
+    Mamba2's chunk products and rwkv6's recurrence (elementwise and small
+    products: ~2.3% of the rest at zamba2's widths, ~0.6% at rwkv6's)."""
+    size = lambda prefix, ends=("",): sum(  # noqa: E731
+        p.numel() for name, p in model.named_parameters()
+        if name.startswith(prefix) and name.endswith(ends))
+    hd = cfg.n_heads * cfg.head_dim
+    flops = 2 * b * cfg.d_model * cfg.vocab
+    if cfg.is_encoder_decoder:
+        t = cfg.encoder_seq
+        kv = size("dec_layers", ("xattn.wk", "xattn.wv"))
+        return (flops + 2 * b * t * (size("enc_layers") + kv)
+                + 2 * b * s * (size("dec_layers") - kv)
+                + 4 * b * hd * (cfg.encoder_layers * t * t + cfg.n_layers * (s * s + s * t)))
+    if cfg.family == "hybrid":
+        apps = cfg.n_layers // cfg.shared_attn_every
+        return (flops + 2 * b * s * (size("mamba_layers") + apps * size("shared"))
+                + 4 * b * s * s * hd * apps)
+    return flops + 2 * b * s * size("layers")
+
+
+def late_model(arch, seed):
+    """One of the three at full width and depth: the model (bf16 weights
+    from the seed on the card), its prompts and whisper's frames."""
+    cfg = get_config(arch)
+    sv = LATE_SERVE
+    model = build_model(cfg).init(seed)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (sv["batch"], sv["prompt"]))
+    frames = (late_frames(cfg, sv["batch"], seed, DEV) if cfg.is_encoder_decoder
+              else None)
+    return model, prompts, frames
+
+
+def late_generate(model, prompts, frames):
+    """``serve.generate`` of the phase's shape: the launch counts reset
+    just before it; (result, the decode kernel's launches)."""
+    reset_launches()
+    res = generate(model, prompts, LATE_SERVE["gen"], LATE_SERVE["max_seq"], frames=frames)
+    torch.cuda.synchronize()
+    return res, launches["decode_attention_grouped"]
+
+
+def late_first_runs(seed):
+    """[25a] the first of phase 25's two serving runs of each model (run
+    inside phase 9 while it waits for phase 15's CPU half: the card is
+    shared with the 9e / 9h children, so nothing is timed): the greedy
+    tokens, whether the logits are finite, the kernel's launches."""
+    out = {}
+    for arch in LATE_ARCHS:
+        t0 = time.perf_counter()
+        model, prompts, frames = late_model(arch, seed)
+        res, n_launch = late_generate(model, prompts, frames)
+        out[arch] = dict(tokens=res.tokens.cpu(), launches=n_launch,
+                         finite=bool(torch.isfinite(res.logits).all()))
+        print(f"  [25a] {arch}: first serving run (untimed, beside 9e / 9h's children) "
+              f"{time.perf_counter() - t0:.1f} s, kernel launches {n_launch}")
+        del model, res, frames
+        gc.collect()             # not free(): phase 9's plans stay cached
+        torch.cuda.empty_cache()
+    return out
+
+
+def late_full(arch, seed, smi, first):
+    """One of the three at full width and depth, bf16 weights from the
+    seed: the timed ``serve.generate`` (finite greedy tokens equal to
+    ``first``'s run, both runs' kernel launches as counted), the kernel on
+    the served caches, then a timed prefill.  Returns the decode kernel's
+    launches over the timed generate."""
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    sv = LATE_SERVE
+    batch, prompt_len, gen_len = sv["batch"], sv["prompt"], sv["gen"]
+    model, prompts, frames = late_model(arch, seed)
+    torch.cuda.synchronize()
+    print(f"[25] {arch} at full width: {cfg.family}, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}; init from seed {seed} on the "
+          f"card {time.perf_counter() - t0:.2f} s, {count_params(model)} parameters, "
+          f"{sum(p.nbytes for p in model.parameters()) / 1e9:.3f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    res, n_launch = late_generate(model, prompts, frames)
+    peak = torch.cuda.max_memory_allocated()
+    steps = prompt_len + gen_len
+    want = late_launches(cfg, steps)
+    if not n_launch == first["launches"] == want:
+        raise AssertionError(f"{arch}: decode_attention_grouped launched {n_launch} and "
+                             f"{first['launches']} times, not {want}")
+    same = bool(torch.equal(res.tokens.cpu(), first["tokens"]))
+    if not (torch.isfinite(res.logits).all() and first["finite"] and same):
+        raise AssertionError(f"{arch} serve: non-finite logits or greedy tokens that "
+                             f"differ between two runs")
+    step = statistics.median(res.step_ms)
+    weights, rows, state = decode_read_bytes(model, cfg, batch,
+                                             prompt_len + gen_len // 2 + 1)
+    step_bound = (weights + rows + state) / HBM_BYTES_PER_S * 1e3
+    cache, tok = res.cache, res.tokens[:, -1:]
+    busy = profile_program(f"{arch}: 4 greedy decode steps",
+                           lambda: [model.decode_step(cache, tok) for _ in range(4)],
+                           4 * step)
+    print(f"  kernel launches {n_launch} (= {want}; phase 9's first run {first['launches']}); prompt "
+          f"{res.prefill_ms:.1f} ms ({res.prefill_ms / prompt_len:.3f} ms/step"
+          + (", the encoder's cross caches included" if frames is not None else "")
+          + f"); greedy step median {step:.4f} ms (min {min(res.step_ms):.4f}, max "
+          f"{max(res.step_ms):.4f}), {batch * 1e3 / step:.1f} tok/s; step bound "
+          f"{step_bound:.4f} ms (weights read {weights / 1e9:.3f} GB + attention rows "
+          f"{rows / 1e6:.2f} MB + states read and written {state / 1e6:.2f} MB at 3.35 "
+          f"TB/s), {100 * step_bound / step:.2f}% of it; busy {100 * busy / (4 * step):.1f}% "
+          f"of 4 steps; peak memory {peak / 1e9:.3f} GB; logits finite, greedy ids equal "
+          f"to phase 9's first run: {same}; [batch 0] {res.tokens[0, :8].tolist()}... "
+          f"[{smi}]")
+    # the kernel against its plain version on the served caches, read in
+    # place at their lengths after the last step, a query from the seed
+    served = []
+    if cfg.is_encoder_decoder:
+        served = [("self-attention", cache["layers"], cache["length"]),
+                  ("cross-attention", {"k": cache["xk"], "v": cache["xv"]},
+                   torch.full_like(cache["length"], cfg.encoder_seq))]
+    elif cfg.family == "hybrid":
+        served = [("shared block, first application", cache["shared"], cache["length"])]
+    g = cfg.n_heads // cfg.n_kv_heads
+    for what, kv, lengths in served:
+        q = torch.randn((batch, cfg.n_kv_heads, g, cfg.head_dim), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(seed)
+                        ).to(kv["k"].dtype)
+        attn_case(f"served {what} cache, layer 0, g {g}", q, kv["k"][0].transpose(1, 2),
+                  kv["v"][0].transpose(1, 2), lengths, 0, cfg.attn_softcap,
+                  cfg.head_dim ** -0.5, timed=False)
+    del res, cache
+    free()
+    # the prefill: rwkv6 runs the stepwise recurrence its config ships
+    # (rwkv_chunk 0), zamba2 the chunked SSD, whisper its encoder first
+    shape = LATE_PREFILL[arch]
+    toks = torch.from_numpy(np.random.default_rng(seed + 4).integers(
+        0, cfg.vocab, shape)).to(DEV)
+    args = prefill_args(toks, None if frames is None else
+                        late_frames(cfg, shape[0], seed + 1, DEV))
+    out = {}
+
+    def run():
+        out.clear()                  # the last call's cache freed first
+        out["logits"] = model.prefill(*args)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(run, reps=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    logits = out.pop("logits")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch} prefill: non-finite logits")
+    tokens = shape[0] * shape[1]
+    flops = prefill_flops(model, cfg, *shape)
+    weights = sum(p.nbytes for p in model.parameters())       # a prefill reads them all
+    bound, by = max((weights / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (flops / BF16_FLOPS * 1e3, "operations"))
+    print(f"  prefill {list(shape)}"
+          + (f" over {shape[0]} x {cfg.encoder_seq} frames" if frames is not None else "")
+          + (f" (rwkv_chunk {cfg.rwkv_chunk}: the stepwise recurrence)"
+             if cfg.family == "ssm" else "")
+          + f": {ms:.4f} ms (CUDA events, median of 3 calls, the first included), "
+          f"{tokens / (ms / 1e3):.0f} tokens/s; bound {bound:.4f} ms ({by}: "
+          f"{flops / 1e12:.3f} TFLOP at 989 TFLOP/s bf16, weights {weights / 1e9:.3f} GB "
+          f"at 3.35 TB/s), {100 * bound / ms:.2f}% of it; peak memory {peak / 1e9:.3f} "
+          f"GB; logits finite; phase 25 {arch} {time.perf_counter() - t0:.1f} s [{smi}]")
+    del model, toks, args, logits
+    free()
+    return n_launch
+
+
+def phase_late_full(seed, smi, first):
+    """[25] whisper-small, zamba2-2.7b and rwkv6-3b at full width and
+    depth, one after the other (``first``: ``late_first_runs``'s
+    results): the decode kernel's launches by arch."""
+    return {arch: late_full(arch, seed, smi, first[arch]) for arch in LATE_ARCHS}
+
+
 class PhaseClock:
     """Seconds of each phase of ``main``, printed as each ends (a phase
     run inside another's wait counts in that one's)."""
@@ -5495,15 +5854,18 @@ def main():
     del oracles, nap_ref, nap_det
     free()
     clock.done("8")
-    # phases 15 (its CPU half done by then) and 17 run while phase 9 waits
-    # for the children: they time nothing on the card
+    # phase 25's first serving runs, then phases 15 (its CPU half done by
+    # then) and 17 run while phase 9 waits for the children: they time
+    # nothing on the card
+    late_first = {}
     amg = phase_amg(a_amg, topo, gen, args.seed, args.n == 2024, keep,
                     levels_file=str(Path(mesh_tmp.name) / "levels.npz"),
                     children=children,
-                    host_work=lambda: (phase_train_held(args.seed, cpu_twin()),
+                    host_work=lambda: (late_first.update(late_first_runs(args.seed)),
+                                       phase_train_held(args.seed, cpu_twin()),
                                        phase_example_train(release)))
     free()
-    clock.done("9 (with 15 and 17 in its wait)")
+    clock.done("9 (with 25a, 15 and 17 in its wait)")
     phase_spgemm_small(a_b, topo, args.seed)
     clock.done("9b")
     phase_examples()
@@ -5524,8 +5886,10 @@ def main():
     clock.done("9g")
 
     # 10-12. gemma2-2b serving ---------------------------------------------------
-    entries.append(phase_decode_attn(rng, gen, args.seed))
-    by_name["decode_attention_grouped"] = entries[-1]
+    attn_main, attn_late = phase_decode_attn(rng, gen, args.seed)
+    entries.append(attn_main)
+    entries.extend(attn_late.values())
+    by_name["decode_attention_grouped"] = attn_main
     clock.done("10")
     by_name["decode_attention_grouped"]["launches"], served = phase_serve(
         args.lm_layers, args.seed)
@@ -5554,6 +5918,17 @@ def main():
     clock.done("22")
     phase_moe_train_full(args.seed, smi)
     clock.done("23")
+
+    # 24-25. serving whisper-small, zamba2-2.7b and rwkv6-3b ---------------------
+    phase_late_held(args.seed)
+    clock.done("24")
+    late = phase_late_full(args.seed, smi, late_first)
+    clock.done("25")
+    # the decode kernel's entry counts the gemma2-2b path and these; each
+    # g = 1 entry its own arch's serving
+    by_name["decode_attention_grouped"]["launches"] += sum(late.values())
+    for arch, e in attn_late.items():
+        e["launches"] = late[arch]
 
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it); the AMG solve's launches, forward

@@ -1,12 +1,11 @@
 """Architecture registry of the port: ``get_config(name)``, ``get_reduced``.
 
-The port carries the dense GQA configs and the two MoE ones,
-qwen3-moe-235b-a22b and deepseek-v2-236b (MLA attention, shared experts,
-a dense first layer): the families its ``LM`` runs.  Every other
-architecture of the JAX package resolves by name and raises
-``NotImplementedError`` naming the ROADMAP item that ports its family;
-``all_arch_ids`` lists them all, and ``shapes`` holds the input-shape
-grid.
+The port carries every architecture of the JAX package: the dense GQA
+configs, the two MoE ones (qwen3-moe-235b-a22b; deepseek-v2-236b with
+MLA attention, shared experts and a dense first layer), whisper-small
+(encoder-decoder), zamba2-2.7b (Mamba2 + a shared attention block) and
+rwkv6-3b (RWKV6).  ``all_arch_ids`` lists them, and ``shapes`` holds the
+input-shape grid.
 """
 from __future__ import annotations
 
@@ -25,21 +24,10 @@ ALIASES: Dict[str, str] = {
     "rwkv6-3b": "rwkv6_3b",
 }
 
-PORTED = ("gemma2_2b", "gemma2_9b", "gemma2_27b", "llama3_405b",
-          "chameleon_34b", "qwen3_moe_235b_a22b", "deepseek_v2_236b")
-
-WAITING: Dict[str, str] = {
-    "whisper_small": "the encoder-decoder family (ROADMAP Queue 1 item 7e)",
-    "zamba2_2p7b": "the hybrid SSM family (ROADMAP Queue 1 item 7f)",
-    "rwkv6_3b": "the RWKV SSM family (ROADMAP Queue 1 item 7g)",
-}
-
 
 def _module(name: str):
     mod = ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
-    if mod in WAITING:
-        raise NotImplementedError(f"{name}: not ported yet; it needs {WAITING[mod]}")
-    if mod not in PORTED:
+    if mod not in ALIASES.values():
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

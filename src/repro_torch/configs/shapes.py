@@ -39,7 +39,6 @@ def cell_runnable(arch: str, shape: str) -> Tuple[bool, Optional[str]]:
 
 
 def all_cells() -> List[Tuple[str, str]]:
-    """Every (arch, shape) of the grid, over the port's registry's ids
-    (the waiting families included: a cell names its arch)."""
+    """Every (arch, shape) of the grid, over the port's registry's ids."""
     from repro_torch.configs import all_arch_ids
     return [(a, s) for a in all_arch_ids() for s in SHAPES]

@@ -2,13 +2,17 @@
 
 The port's counterpart of ``repro/launch/serve.py``: a model from a config
 with weights drawn from ``--seed``, the prompts teacher-forced through
-``LM.decode_step`` (the cache's shape is fixed up front), then greedy
-decoding.  Runs on CUDA unless ``--device cpu``.
+``decode_step`` (the cache's shape is fixed up front), then greedy
+decoding.  Every family serves: the LMs (dense, MoE, rwkv6), zamba2 and
+whisper, whose encoder takes frame embeddings ``[B, encoder_seq, d]``
+drawn from ``--seed`` (the stubbed conv frontend's output) and fills the
+cross-attention caches before the prompt.  Runs on CUDA unless
+``--device cpu``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --no-reduced --batch 4 --prompt-len 512 --gen 32 --max-seq 1024
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
       --reduced --device cpu
 """
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import build_model
-from repro_torch.models.transformer import LM
+from repro_torch.models.params import TreeModel
 
 
 @dataclasses.dataclass
@@ -33,7 +37,8 @@ class Generation:
     logits: torch.Tensor        # [B, 1, V] float32 of the last step
     prompt_logits: torch.Tensor  # [B, 1, V] float32 after the prompt
     cache: Dict
-    prefill_ms: float           # the teacher-forced prompt, all steps
+    prefill_ms: float           # the teacher-forced prompt, all steps (whisper:
+                                # the encoder's cross caches first)
     step_ms: List[float]        # each greedy decode step
 
 
@@ -60,16 +65,24 @@ class Clock:
         return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
-def generate(model: LM, prompts, gen: int, max_seq: int) -> Generation:
+def generate(model: TreeModel, prompts, gen: int, max_seq: int,
+             frames=None) -> Generation:
     """Teacher-force ``prompts`` [B, S] through ``decode_step``, then decode
-    ``gen`` tokens greedily (the first from the prompt's last logits)."""
+    ``gen`` tokens greedily (the first from the prompt's last logits).
+    ``frames`` [B, encoder_seq, d] (whisper only) fill the cross-attention
+    caches from ``model.cross_cache`` first; without them they stay zero,
+    as the reference's server leaves them."""
     prompts = torch.as_tensor(prompts, device=model.device)
     b, s = prompts.shape
     if s < 1 or s + gen > max_seq:
         raise ValueError(f"prompt {s} + gen {gen} must be within 1..max_seq {max_seq}")
+    if frames is not None and not hasattr(model, "cross_cache"):
+        raise ValueError(f"{model.cfg.name} has no encoder to take frames")
     clock = Clock(model.device)
     cache = model.init_cache(b, max_seq)
     clock.mark()
+    if frames is not None:
+        cache.update(model.cross_cache(torch.as_tensor(frames, device=model.device)))
     logits = None
     for t in range(s):
         logits, cache = model.decode_step(cache, prompts[:, t:t + 1])
@@ -104,7 +117,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Generation:
     model = build_model(cfg, device=args.device).init(args.seed)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
-    res = generate(model, prompts, args.gen, args.max_seq)
+    frames = (rng.standard_normal((args.batch, cfg.encoder_seq, cfg.d_model))
+              .astype(np.float32) if cfg.is_encoder_decoder else None)
+    res = generate(model, prompts, args.gen, args.max_seq, frames=frames)
     step = statistics.median(res.step_ms) if res.step_ms else float("nan")
     print(f"{cfg.name} on {model.device}: prompt {args.prompt_len} toks x "
           f"{args.batch} seqs {res.prefill_ms / 1e3:.2f}s; decode {args.gen} "

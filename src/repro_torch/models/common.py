@@ -72,6 +72,16 @@ def l2_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)).to(x.dtype)
 
 
+def layer_call(remat: bool):
+    """How a model calls its layers: ``call(fn, *args)``, through
+    ``torch.utils.checkpoint`` (the backward recomputes the layer instead
+    of keeping its activations) when ``remat`` and grads are on, else
+    directly (the reference wraps its scan body in ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)
+    return lambda fn, *a: fn(*a)
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Parameters of the JAX package's trees, for the port: the ``LM.init``
-tree for the port's ``LM`` (dense, MoE and MLA blocks), its AdamW state
-for ``optim.adamw``, and the ``moe_init`` tree for its MoE layer.
+"""Parameters of the JAX package's trees, for the port: the ``init``
+trees of its models for the port's (``LM``: dense, MoE, MLA and rwkv6
+blocks; ``ZambaModel``; ``WhisperModel``), its AdamW state for
+``optim.adamw``, and the ``moe_init`` tree for its MoE layer.
 
 The reference stacks the layers on a leading axis (``layers/attn/wq`` is
 ``[L, d, H * dh]``); the port keeps one tree per layer.  Arrays arrive as
@@ -34,19 +35,30 @@ def _first_leaf(t):
     return t
 
 
+# the stacked layer groups of the reference's models: LM's (deepseek's
+# dense first layer apart), ZambaModel's and WhisperModel's
+LAYER_GROUPS = ("dense_layers", "layers", "mamba_layers", "enc_layers", "dec_layers")
+# the groups that are one tree, not stacked: zamba's shared block and the
+# top-level tensors
+PLAIN_GROUPS = ("embed", "final_norm", "head", "shared", "enc_norm")
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """``{"embed", "final_norm", ["head"], ["dense_layers"], "layers":
-    stacked}`` -> the same with ``dense_layers`` and ``layers`` as lists of
-    one tree per layer, for ``LM.load``.  A layer's ``moe`` sub-tree goes
-    through ``moe_params_from_jax``; MLA's attention tree is a dict like
-    GQA's.  A leaf may itself be a dict of arrays (the int8 moment codes
-    and their scales): each array is sliced by layer."""
-    unknown = set(tree) - {"embed", "final_norm", "head", "dense_layers", "layers"}
+    """A reference model's parameter tree (``{"embed", "final_norm",
+    ["head"], ["dense_layers"], "layers"}``; zamba's ``{"embed",
+    "mamba_layers", "shared", "final_norm"}``; whisper's ``{"embed",
+    "enc_layers", "enc_norm", "dec_layers", "final_norm"}``) -> the same
+    with each stacked group as a list of one tree per layer, for the port
+    model's ``load``; ``shared`` stays one tree.  A layer's ``moe``
+    sub-tree goes through ``moe_params_from_jax``; MLA's attention tree is
+    a dict like GQA's.  A leaf may itself be a dict of arrays (the int8
+    moment codes and their scales): each array is sliced by layer.  Every
+    leaf keeps its dtype."""
+    unknown = set(tree) - set(LAYER_GROUPS) - set(PLAIN_GROUPS)
     if unknown:
-        raise NotImplementedError(f"parameter groups the port has no model for: "
-                                  f"{sorted(unknown)}")
-    out = {k: _map(_tensor, v) for k, v in tree.items() if not k.endswith("layers")}
-    for group in ("dense_layers", "layers"):
+        raise ValueError(f"parameter groups of no model: {sorted(unknown)}")
+    out = {k: _map(_tensor, v) for k, v in tree.items() if k not in LAYER_GROUPS}
+    for group in LAYER_GROUPS:
         if group in tree:
             out[group] = [_layer(tree[group], i)
                           for i in range(len(_first_leaf(tree[group])))]

@@ -1,38 +1,47 @@
-"""Model registry of the port: config -> model object, and exact counts."""
+"""Model registry of the port: config -> model object (family dispatch),
+and exact counts."""
 from __future__ import annotations
 
 from typing import Any
 
 from repro_torch.device import DeviceLike
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import TreeModel
 from repro_torch.models.transformer import LM
+from repro_torch.models.whisper import WhisperModel
+from repro_torch.models.zamba import ZambaModel
 from repro_torch.optim.adamw import tree_leaves_with_path
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None, *, mesh: Any = None,
-                ep: Any = None) -> LM:
-    """The LM on CUDA (``device="cpu"`` to stay on the host), without
-    weights until ``.init(seed)`` or ``.load(tree)``: the dense family
-    and the MoE family (qwen3-moe; deepseek-v2 with MLA, shared experts
-    and a dense first layer).  ``mesh=None`` runs the MoE blocks through
-    the local oracle; a ``Topology`` or ``ProcessMesh`` through the
-    expert-parallel island (``ep``: its axes, by default pod over model).
-    Whisper, zamba and rwkv configs raise ``NotImplementedError`` naming
-    the ROADMAP item that ports them."""
+                ep: Any = None) -> TreeModel:
+    """The model of ``cfg``'s family on CUDA (``device="cpu"`` to stay on
+    the host), without weights until ``.init(seed)`` or ``.load(tree)``,
+    as the reference's ``build_model`` dispatches: the encoder-decoder
+    family -> ``WhisperModel``, the hybrid -> ``ZambaModel``, else ``LM``
+    (the dense and MoE families and rwkv6).  ``mesh=None`` runs the MoE
+    blocks through the local oracle; a ``Topology`` or ``ProcessMesh``
+    through the expert-parallel island (``ep``: its axes, by default pod
+    over model).  The reference's mesh on the other families only feeds
+    its sharding constraints, so they take none."""
+    if cfg.is_encoder_decoder or cfg.family == "hybrid":
+        if mesh is not None or ep is not None:
+            raise ValueError(f"{cfg.name}: mesh= and ep= are for the MoE family")
+        return (WhisperModel if cfg.is_encoder_decoder else ZambaModel)(cfg, device)
     return LM(cfg, device=device, mesh=mesh, ep=ep)
 
 
-def param_shapes(model: LM) -> Any:
+def param_shapes(model: TreeModel) -> Any:
     """The parameter tree as meta tensors: shapes and dtypes, no
     allocation (the model needs no weights)."""
     return model.init_tree(None)
 
 
-def count_params(model: LM) -> int:
+def count_params(model: TreeModel) -> int:
     return sum(t.numel() for _, t in tree_leaves_with_path(param_shapes(model)))
 
 
-def count_active_params(model: LM) -> int:
+def count_active_params(model: TreeModel) -> int:
     """Active params/token: MoE counts top_k (+shared) experts, not all."""
     cfg = model.cfg
     total = count_params(model)

@@ -1,6 +1,7 @@
-"""Decoder-only LM: the dense GQA family and the MoE family (qwen3-moe's
+"""Decoder-only LM: the dense GQA family, the MoE family (qwen3-moe's
 GQA + MoE blocks; deepseek-v2's MLA attention, shared experts and dense
-first layer): training, prefill and decoding.
+first layer) and the SSM family (rwkv6's attention-free blocks, which
+the reference also assembles here): training, prefill and decoding.
 
 Mirrors ``repro/models/transformer.py``: the same parameter tree (layers
 as a list instead of a leading stacked axis; deepseek's leading dense
@@ -19,28 +20,30 @@ wraps its scan body in ``jax.checkpoint``.
                                         filled to S)
     init_cache(batch, max_seq)       -> {"layers": {"k", "v"} or {"c_kv",
                                         "k_rope"}, ["dense_layers"],
-                                        "length", "pos"}
+                                        "length", "pos"}; the SSM family's
+                                        {"state": {"S", "last_x",
+                                        "last_x_c"}, "length", "pos"}
     decode_step(cache, tokens [B,1]) -> (logits [B, 1, V] float32, cache)
 
 MoE blocks run ``moe_apply_local`` (the dense-masked oracle, in chunks of
 ``MOE_CHUNK`` tokens) without a mesh, and the expert-parallel island
 ``moe_apply_sharded`` with ``mesh=`` a ``Topology`` or a
-``ProcessMesh``, as the reference's ``LM(mesh=, ep=)``.  The SSM, hybrid
-and encoder-decoder families wait for their slices (ROADMAP Queue 1
-items 7e-7g).
+``ProcessMesh``, as the reference's ``LM(mesh=, ep=)``.  The hybrid and
+encoder-decoder families are ``models.zamba`` and ``models.whisper``.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv
 from repro_torch.models.common import (chunked_xent, dense_init, dtype_of,
                                        embed_init, head_logits, init_device,
                                        rms_norm)
@@ -48,24 +51,13 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn_apply, ffn_init
 from repro_torch.models.moe import (EPInfo, moe_apply_local,
                                     moe_apply_sharded, moe_init)
+from repro_torch.models.params import TreeModel
 
 # tokens of the dense-masked MoE oracle computed at once: every expert on
 # every token, [chunk, E, moe_dff] and [chunk, E, d] intermediates
 MOE_CHUNK = 256
 
 MoEFn = Callable[[Any, torch.Tensor], torch.Tensor]
-
-
-def unported_reason(cfg: ModelConfig) -> Optional[str]:
-    """Why the port cannot build ``cfg`` yet, or None for the dense and
-    MoE families."""
-    if cfg.is_encoder_decoder:
-        return "the encoder-decoder family (ROADMAP Queue 1 item 7e)"
-    if cfg.family == "hybrid":
-        return "the hybrid SSM family (ROADMAP Queue 1 item 7f)"
-    if cfg.family == "ssm":
-        return "the RWKV SSM family (ROADMAP Queue 1 item 7g)"
-    return None
 
 
 # ---------------------------------------------------------------------------
@@ -159,38 +151,31 @@ def _layer_windows(cfg: ModelConfig, n_layers: int, max_seq: int) -> List[int]:
     return [max_seq] * n_layers
 
 
-class ParamTree(nn.Module):
-    """A nested dict of tensors as a module: leaves are ``nn.Parameter``s,
-    dicts are sub-trees, read as ``p["wq"]`` or ``p.attn``; ``tree()``
-    gives the dict back (of the parameters themselves).  A layer is one:
-    ``norm*`` tensors and the ``attn`` and ``ffn`` or ``moe`` sub-trees
-    keyed as in the reference (``p.attn["wq"]``, ``p.moe["shared"]["w_up"]``)."""
+# ---------------------------------------------------------------------------
+# the SSM family's layer (rwkv6)
+# ---------------------------------------------------------------------------
 
-    def __init__(self, tree: Dict[str, Any]):
-        super().__init__()
-        for name, t in tree.items():
-            if isinstance(t, dict):
-                self.add_module(name, ParamTree(t))
-            else:
-                self.register_parameter(name, nn.Parameter(t))
+def _rwkv_layer_init(gen: Optional[torch.Generator], cfg: ModelConfig, dtype) -> Dict:
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=init_device(gen))  # noqa: E731
+    return {"block": rwkv.rwkv6_init(gen, cfg, dtype), "norm1": ones(), "norm2": ones()}
 
-    def __getitem__(self, name: str):
-        return getattr(self, name)
 
-    def __contains__(self, name: str) -> bool:
-        return name in self._parameters or name in self._modules
+def _rwkv_layer(lp, cfg: ModelConfig, x: torch.Tensor, state: Dict
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    return rwkv.rwkv6_block_apply(lp.block, cfg, x, state, lp.norm1, lp.norm2)
 
-    def tree(self) -> Dict[str, Any]:
-        out: Dict[str, Any] = dict(self._parameters)
-        out.update((name, m.tree()) for name, m in self._modules.items())
-        return out
+
+def _rwkv_apply(lp, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """One rwkv6 layer over the full sequence from a zero state (training)."""
+    state = rwkv.rwkv6_init_state(cfg, x.shape[0], x.dtype, x.device)
+    return _rwkv_layer(lp, cfg, x, state)[0]
 
 
 # ---------------------------------------------------------------------------
 # LM model object
 # ---------------------------------------------------------------------------
 
-class LM(nn.Module):
+class LM(TreeModel):
     """Decoder-only LM on one device (CUDA unless ``device="cpu"``).
 
     ``mesh`` (a ``Topology`` ``(n_pods, n_inner)`` or a ``ProcessMesh``)
@@ -202,16 +187,15 @@ class LM(nn.Module):
     collect each island call's ``stats`` (mode, capacities, dropped
     copies): the forward's calls, never a remat recompute's in the
     backward.  Gradients flow through the island on the f32 wire; a
-    narrow wire raises under grad (``moe_apply_sharded``)."""
+    narrow wire raises under grad (``moe_apply_sharded``).
+
+    The SSM family (``cfg.family == "ssm"``: rwkv6) has one ``layers``
+    entry a block, ``{"block": rwkv6 weights, "norm1", "norm2"}``; its
+    cache is each layer's recurrent state."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
                  mesh: Any = None, ep: Optional[EPInfo] = None):
-        super().__init__()
-        reason = unported_reason(cfg)
-        if reason:
-            raise NotImplementedError(f"{cfg.name}: not ported yet; it needs {reason}")
-        self.cfg = cfg
-        self.device = resolve_device(device)
+        super().__init__(cfg, device)
         self.mesh = mesh
         self.ep = ep or (EPInfo(inner_axis="model", pod_axis="pod")
                          if mesh is not None and cfg.is_moe else None)
@@ -223,6 +207,10 @@ class LM(nn.Module):
     def n_dense(self) -> int:
         """Leading dense layers of a MoE config (deepseek's first layer)."""
         return self.cfg.first_dense_layers if self.cfg.is_moe else 0
+
+    @property
+    def rwkv(self) -> bool:
+        return self.cfg.family == "ssm"
 
     # ---- params -------------------------------------------------------------
     def init_tree(self, gen: Optional[torch.Generator]) -> Dict[str, Any]:
@@ -238,58 +226,15 @@ class LM(nn.Module):
         }
         if not cfg.tie_embeddings:
             tree["head"] = dense_init(gen, cfg.d_model, cfg.vocab, dtype)
+        if self.rwkv:
+            tree["layers"] = [_rwkv_layer_init(gen, cfg, dtype)
+                              for _ in range(cfg.n_layers)]
+            return tree
         if self.n_dense:
             tree["dense_layers"] = [block_init(gen, cfg, dtype, d_ff=cfg.d_ff)
                                     for _ in range(self.n_dense)]
         tree["layers"] = [block_init(gen, cfg, dtype, moe=cfg.is_moe, d_ff=cfg.d_ff)
                           for _ in range(cfg.n_layers - self.n_dense)]
-        return tree
-
-    def init(self, seed: Union[int, torch.Generator] = 0) -> "LM":
-        """Random weights drawn on the model's device; a Generator or a
-        seed for one."""
-        gen = seed if isinstance(seed, torch.Generator) else \
-            torch.Generator(device=self.device).manual_seed(seed)
-        return self._set(self.init_tree(gen), copy=False)
-
-    def load(self, tree: Dict[str, Any]) -> "LM":
-        """Take a parameter tree ({"embed", "final_norm", ["head"],
-        ["dense_layers"], "layers": [block trees]}), copied to the model's
-        device and dtype (the MoE router stays float32, as drawn; training
-        updates the weights in place; the caller's tree stays as it was)."""
-        return self._set(tree, copy=True)
-
-    def _set(self, tree: Dict[str, Any], copy: bool) -> "LM":
-        dtype = dtype_of(self.cfg)
-
-        def move(t, name=""):
-            if isinstance(t, dict):
-                return {k: move(v, k) for k, v in t.items()}
-            return t.to(device=self.device, copy=copy,
-                        dtype=torch.float32 if name == "router" else dtype)
-
-        for group, n in (("dense_layers", self.n_dense),
-                         ("layers", self.cfg.n_layers - self.n_dense)):
-            got = len(tree.get(group, []))
-            if got != n:
-                raise ValueError(f"{got} {group} for a config of {n}")
-        for name in ("embed", "final_norm", "head"):
-            if name in tree:
-                self.register_parameter(name, nn.Parameter(move(tree[name])))
-        self.dense_layers = nn.ModuleList(ParamTree(move(lp))
-                                          for lp in tree.get("dense_layers", []))
-        self.layers = nn.ModuleList(ParamTree(move(lp)) for lp in tree["layers"])
-        return self
-
-    def param_tree(self) -> Dict[str, Any]:
-        """The weights (``nn.Parameter``s, trainable) as the reference's
-        tree with the layers as a list: what ``optim.adamw`` and the
-        checkpoints walk."""
-        tree: Dict[str, Any] = {name: getattr(self, name) for name in
-                                ("embed", "final_norm", "head") if hasattr(self, name)}
-        if self.n_dense:
-            tree["dense_layers"] = [lp.tree() for lp in self.dense_layers]
-        tree["layers"] = [lp.tree() for lp in self.layers]
         return tree
 
     def head_matrix(self) -> torch.Tensor:
@@ -341,6 +286,11 @@ class LM(nn.Module):
         cfg = self.cfg
         x = self._embed(tokens)
         remat = cfg.remat and torch.is_grad_enabled()
+        if self.rwkv:
+            for lp in self.layers:
+                x = (checkpoint(_rwkv_apply, lp, cfg, x, use_reentrant=False)
+                     if remat else _rwkv_apply(lp, cfg, x))
+            return _norm(cfg, x, self.final_norm)
         for lp, w in self._stack(tokens.shape[1]):
             x = (checkpoint(block_apply, lp, cfg, x, window=w, moe=self._moe_once(),
                             use_reentrant=False)
@@ -366,20 +316,31 @@ class LM(nn.Module):
         float32, the cache filled to S).  The cache is the reference's,
         ``k`` and ``v`` of ``[L, B, S, Hkv, dh]`` (MLA: ``c_kv`` and
         ``k_rope``), deepseek's dense layers under ``dense_layers``, and
-        ``length`` = S, plus the host's ``pos`` = S."""
+        ``length`` = S, plus the host's ``pos`` = S.  The SSM family's is
+        every layer's final state under ``state``, so decoding continues
+        from it."""
         cfg = self.cfg
         b, s = tokens.shape
         x = self._embed(tokens)
         caches = []
-        for lp, w in self._stack(s):
-            x, c = block_prefill(lp, cfg, x, window=w, moe=self._moe)
-            caches.append(c)
+        if self.rwkv:
+            state0 = rwkv.rwkv6_init_state(cfg, b, x.dtype, x.device)
+            for lp in self.layers:
+                x, c = _rwkv_layer(lp, cfg, x, state0)
+                caches.append(c)
+        else:
+            for lp, w in self._stack(s):
+                x, c = block_prefill(lp, cfg, x, window=w, moe=self._moe)
+                caches.append(c)
         x = _norm(cfg, x, self.final_norm)
         logits = head_logits(x[:, -1], self.head_matrix(), cfg.final_softcap)
         stacked = lambda cs: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}  # noqa: E731
-        cache = {"layers": stacked(caches[self.n_dense:]),
-                 "length": torch.full((b,), s, dtype=torch.int32, device=x.device),
+        cache = {"length": torch.full((b,), s, dtype=torch.int32, device=x.device),
                  "pos": s}
+        if self.rwkv:
+            cache["state"] = stacked(caches)
+            return logits, cache
+        cache["layers"] = stacked(caches[self.n_dense:])
         if self.n_dense:
             cache["dense_layers"] = stacked(caches[:self.n_dense])
         return logits, cache
@@ -389,18 +350,26 @@ class LM(nn.Module):
         """Zero caches stacked over layers, ``[L, B, S, Hkv, D]`` each (MLA:
         ``c_kv [L, B, S, r_kv]`` and ``k_rope [L, B, S, rope]``; the dense
         layers' under ``dense_layers``), the per-sequence ``length`` on the
-        device and its host copy ``pos``."""
+        device and its host copy ``pos``.  The SSM family's is the zero
+        state of every layer under ``state`` (``S [L, B, H, N, N]`` float32,
+        ``last_x`` and ``last_x_c`` ``[L, B, d]``): O(1) in ``max_seq``."""
         cfg = self.cfg
-        mk = attn.mla_init_cache if cfg.mla_kv_lora else attn.gqa_init_cache
-        one = mk(cfg, batch, max_seq, dtype_of(cfg), self.device)
+        if self.rwkv:
+            one = rwkv.rwkv6_init_state(cfg, batch, dtype_of(cfg), self.device)
+        else:
+            mk = attn.mla_init_cache if cfg.mla_kv_lora else attn.gqa_init_cache
+            one = mk(cfg, batch, max_seq, dtype_of(cfg), self.device)
 
         def stacked(n):
             return {k: torch.zeros((n,) + v.shape, dtype=v.dtype, device=v.device)
                     for k, v in one.items()}
 
-        cache = {"layers": stacked(cfg.n_layers - self.n_dense),
-                 "length": torch.zeros((batch,), dtype=torch.int32, device=self.device),
+        cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=self.device),
                  "pos": 0}
+        if self.rwkv:
+            cache["state"] = stacked(cfg.n_layers)
+            return cache
+        cache["layers"] = stacked(cfg.n_layers - self.n_dense)
         if self.n_dense:
             cache["dense_layers"] = stacked(self.n_dense)
         return cache
@@ -411,15 +380,23 @@ class LM(nn.Module):
         """tokens [B, 1] -> (logits [B, 1, V] float32, cache).
 
         The cache is updated in place (see ``attention.gqa_decode`` and
-        ``mla_decode``) and returned; ``length`` and ``pos`` advance by one.
+        ``mla_decode``; the SSM family's states by copy) and returned;
+        ``length`` and ``pos`` advance by one.
         """
         cfg = self.cfg
         length, pos = cache["length"], cache["pos"]
         x = self._embed(tokens)
-        max_seq = next(iter(cache["layers"].values())).shape[2]
-        for (lp, w), c in zip(self._stack(max_seq), self._layer_caches(cache)):
-            x, _ = block_decode(lp, cfg, x, c, length, pos=pos, window=w,
-                                moe=self._moe)
+        if self.rwkv:
+            states = cache["state"]
+            for i, lp in enumerate(self.layers):
+                x, st = _rwkv_layer(lp, cfg, x, {k: v[i] for k, v in states.items()})
+                for k, v in st.items():
+                    states[k][i] = v
+        else:
+            max_seq = next(iter(cache["layers"].values())).shape[2]
+            for (lp, w), c in zip(self._stack(max_seq), self._layer_caches(cache)):
+                x, _ = block_decode(lp, cfg, x, c, length, pos=pos, window=w,
+                                    moe=self._moe)
         cache["length"] = length + 1
         cache["pos"] = pos + 1
         x = _norm(cfg, x, self.final_norm)

@@ -310,3 +310,35 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
         train_lm.main(["--steps", "1"])
     run = train.train(cfg, steps=1, batch=2, seq=8, device="cpu")
     assert run.model.device.type == "cpu" and np.isfinite(run.losses).all()
+
+
+def test_late_families_import_loads_neither_jax_nor_reference():
+    """rwkv6, the Mamba2 block, zamba2, whisper and the tree models load
+    neither JAX nor the JAX package."""
+    code = ("import sys, repro_torch.models.rwkv, repro_torch.models.ssm\n"
+            "import repro_torch.models.zamba, repro_torch.models.whisper\n"
+            "import repro_torch.models.params, repro_torch.configs.whisper_small\n"
+            "import repro_torch.configs.zamba2_2p7b, repro_torch.configs.rwkv6_3b\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\nprint('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "clean" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "zamba2-2.7b", "rwkv6-3b"])
+def test_late_families_raise_without_cuda(arch, monkeypatch):
+    """Their models and their serving run on CUDA unless asked for the CPU."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced(arch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", arch])
+    assert build_model(cfg, device="cpu").device == torch.device("cpu")

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import all_arch_ids as jax_arch_ids
 from repro.configs import get_config as jax_config
 from repro.configs import get_reduced as jax_reduced
 from repro.models import build_model as jax_build
@@ -30,8 +31,8 @@ from repro_torch.models.convert import params_from_jax
 
 MOE_ARCHS = ["qwen3-moe-235b-a22b", "deepseek-v2-236b"]
 ARCHS = ["gemma2-2b", "llama3-405b", "chameleon-34b"] + MOE_ARCHS
-PORTED = ARCHS + ["gemma2-9b", "gemma2-27b"]
-WAITING = ["whisper-small", "zamba2-2.7b", "rwkv6-3b"]
+# the families ported last (the encoder-decoder, the hybrid and rwkv6)
+LATE = ["whisper-small", "zamba2-2.7b", "rwkv6-3b"]
 B, PROMPT, GEN, MAX_SEQ = 2, 8, 32, 48
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -121,23 +122,19 @@ def test_serve_main_on_cpu(capsys):
                     "8", "--gen", "4", "--max-seq", "8"])
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", jax_arch_ids())
 def test_configs_match_reference(arch):
     for mine, ref in ((get_config(arch), jax_config(arch)),
                       (get_reduced(arch), jax_reduced(arch))):
         assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS + WAITING)
-def test_unported_families_raise(arch):
-    """The waiting families raise naming their ROADMAP item; the MoE
-    family, refused until its slice, builds from the reference's config."""
+@pytest.mark.parametrize("arch", MOE_ARCHS + LATE)
+def test_reference_configs_build(arch):
+    """The MoE family and the three families ported last resolve by name
+    and build from the reference's config, each as its family's model."""
     cfg = ModelConfig(**dataclasses.asdict(jax_reduced(arch)))
-    if arch in MOE_ARCHS:
-        assert get_config(arch).name == arch
-        assert build_model(cfg, device="cpu").cfg == cfg
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        build_model(cfg, device="cpu")
+    assert get_config(arch).name == arch
+    model = build_model(cfg, device="cpu")
+    assert model.cfg == cfg
+    assert type(model).__name__ == type(jax_build(jax_reduced(arch))).__name__
