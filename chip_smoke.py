@@ -392,6 +392,23 @@ Phases, each fatal on failure:
     over 4 x 1500 frames (whisper): ms (median of 3) against its bound
     (the products' FLOPs at the bf16 peak, or the weights' bytes), peak,
     finite logits;
+26. (run inside phase 9's wait, after phase 17) training the three held
+    on the card: reduced configs in float32, weights drawn on the CPU, 3
+    ``make_train_step`` steps of the driver's batches (whisper over
+    ``data.step_frames``) on the card against the same on the CPU, float32
+    and int8 moments (losses rtol 1e-4, parameters as phase 15 holds
+    them); zamba2 also at its full config's ``ssm_chunk`` 128 over [2,
+    256] tokens, where the unmasked exponent's gradient is NaN: grads
+    finite, card against CPU within 1e-4 of each leaf's max |grad|;
+27. training the three at full width, one at a time (whisper-small 4 x
+    448 over 4 x 1500 frames and zamba2-2.7b 4 x 512 at full depth,
+    rwkv6-3b 4 x 512 cut to 4 of 32 layers, its stepwise recurrence),
+    bf16 weights from the seed, fp32 masters, the configs' float32
+    moments, remat, grad_accum 1, 4 steps: step ms (median of steps 2-4)
+    split into forward + backward and the update, tokens/s, 6 N T's share
+    of the bf16 peak beside the products' FLOPs x 3, peak memory and busy
+    share (rwkv6's from a 4 x 64 step), finite losses and grad norms
+    gated;
 21. the whole script's seconds with every phase's, a JSON line of every
     kernel (with ``device_ms`` and, for the BSR kernels,
     ``library_bsr_ms``; the decode kernel again at qwen3-moe's served
@@ -853,17 +870,23 @@ def padded_bsr_case(label, a, bm, bn, v, want, gen):
     return entry
 
 
-def profile_program(label, fn, wall_ms):
+def profile_program(label, fn, wall_ms, host_ops=True):
     """One traced call: device kernel time by operator, and the device's
-    busy share of the call's CUDA-event wall time."""
+    busy share of the call's CUDA-event wall time.  ``host_ops=False``
+    traces the card's activity alone (a call of ~10^5 kernels takes
+    minutes to process with the host's operators), and traces both again
+    if that records no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and not e.key.startswith("Activity Buffer")]
+    if not kernels and not host_ops:
+        return profile_program(label, fn, wall_ms)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     print(f"  profile {label}: kernels busy {busy:.4f} ms of a {wall_ms:.4f} ms "
@@ -5663,7 +5686,10 @@ def late_full(arch, seed, smi, first):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = time_ms(run, reps=3, warmup=0)
+    # rwkv6's stepwise prefill (3-4.5 s a call) is timed once: the cut that
+    # made room for phase 27
+    reps = 1 if cfg.family == "ssm" else 3
+    ms = time_ms(run, reps=reps, warmup=0)
     peak = torch.cuda.max_memory_allocated()
     logits = out.pop("logits")
     if not torch.isfinite(logits).all():
@@ -5677,7 +5703,7 @@ def late_full(arch, seed, smi, first):
           + (f" over {shape[0]} x {cfg.encoder_seq} frames" if frames is not None else "")
           + (f" (rwkv_chunk {cfg.rwkv_chunk}: the stepwise recurrence)"
              if cfg.family == "ssm" else "")
-          + f": {ms:.4f} ms (CUDA events, median of 3 calls, the first included), "
+          + f": {ms:.4f} ms (CUDA events, median of {reps} call(s), the first included), "
           f"{tokens / (ms / 1e3):.0f} tokens/s; bound {bound:.4f} ms ({by}: "
           f"{flops / 1e12:.3f} TFLOP at 989 TFLOP/s bf16, weights {weights / 1e9:.3f} GB "
           f"at 3.35 TB/s), {100 * bound / ms:.2f}% of it; peak memory {peak / 1e9:.3f} "
@@ -5692,6 +5718,173 @@ def phase_late_full(seed, smi, first):
     depth, one after the other (``first``: ``late_first_runs``'s
     results): the decode kernel's launches by arch."""
     return {arch: late_full(arch, seed, smi, first[arch]) for arch in LATE_ARCHS}
+
+
+# training the last three families (phases 26-27) -----------------------------
+FAMILY_HELD = dict(batch=4, seq=32, steps=3, lr=1e-3)
+FAMILY_SSD = (2, 256, 128)   # zamba2's held batch, tokens and its full config's chunk
+# phase 27: (batch, tokens, layers); rwkv6 cut to 4 of its 32 layers (its
+# stepwise recurrence a token at a time), the others at full depth
+FAMILY_FULL = {"whisper-small": (4, 448, 12), "zamba2-2.7b": (4, 512, 54),
+               "rwkv6-3b": (4, 512, 4)}
+FAMILY_STEPS = 4
+# rwkv6's busy share is read from a step of 4 x 64 tokens: the profiler
+# took ~2 min to process a 4 x 512 step's ~100 k kernels (the time limit)
+FAMILY_PROFILE_SEQ = {"rwkv6-3b": 64}
+
+
+def family_batches(cfg, seed, batch, seq, steps):
+    """Host batches of the driver's pipeline: bigram tokens and, for
+    whisper, ``data.step_frames`` of each step."""
+    ds = SyntheticLM(cfg.vocab, seq, seed=seed)
+    return [train.step_batch(cfg, ds, i, batch) for i in range(steps)]
+
+
+def family_held(arch, seed):
+    """One reduced config in float32, weights drawn on the CPU: 3
+    ``make_train_step`` steps on the card against the same on the CPU for
+    float32 and int8 moments (losses rtol 1e-4, parameters as phase 15
+    holds them); zamba2 also at its full config's chunk, grads finite and
+    card against CPU."""
+    h = FAMILY_HELD
+    cfg = get_reduced(arch).replace(grad_accum=1)
+    batches = family_batches(cfg, seed, h["batch"], h["seq"], h["steps"])
+    start = build_model(cfg, device="cpu").init(seed).param_tree()
+    moved = h["lr"] * h["steps"]
+    for dtype in ("float32", "int8"):
+        c = cfg.replace(opt_state_dtype=dtype)
+        opt = AdamWConfig(lr=h["lr"], warmup_steps=1, total_steps=h["steps"],
+                          state_dtype=dtype)
+        card = build_model(c).load(start)
+        host = build_model(c, device="cpu").load(start)
+        card_losses, _, _ = run_steps(card, opt, batches)
+        host_losses, _, _ = run_steps(host, opt, batches)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, host_losses))
+        worst, share = held_close(f"{arch} {dtype} card vs CPU", card.param_tree(),
+                                  host.param_tree(), moved)
+        print(f"  [26] {arch} ({cfg.n_layers} layers, d {cfg.d_model}), {dtype} moments: "
+              f"losses {[round(x, 5) for x in card_losses]} max rel diff {rel:.3e} (rtol "
+              f"1e-4); parameters max |diff| {worst:.3e} (limit {2 * moved:.1e}), "
+              f"{100 * share:.4f}% beyond 1e-6 of max |p|")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{arch} ({dtype}): card vs CPU losses differ by {rel:.3e}")
+        del card, host
+    if cfg.family == "hybrid":
+        b, s, chunk = FAMILY_SSD
+        c = cfg.replace(ssm_chunk=chunk)
+        batch = SyntheticLM(c.vocab, s, seed=seed).batch(0, b)
+        _, got = leaf_grads(build_model(c).load(start), train.to_device(batch, DEV))
+        _, want = leaf_grads(build_model(c, device="cpu").load(start),
+                             train.to_device(batch, "cpu"))
+        finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+        errs = grad_errors({k: g.cpu() for k, g in got.items()}, want)
+        print(f"  [26] {arch} at ssm_chunk {chunk}, [{b}, {s}] tokens (the unmasked "
+              f"exponent's gradient is NaN here): grads finite {finite}; card vs CPU "
+              f"{len(errs)} leaves, worst {worst_leaf(errs)} of its max |grad| (limit 1e-4)")
+        if not (finite and max(errs.values()) <= 1e-4):
+            raise AssertionError(f"{arch} at chunk {chunk}: grads not finite or card "
+                                 f"and CPU disagree")
+    del start
+    release()
+
+
+def phase_family_train_held(seed):
+    """[26] training whisper-small, zamba2-2.7b and rwkv6-3b held on the
+    card (run inside phase 9's wait: it times nothing)."""
+    t0 = time.perf_counter()
+    h = FAMILY_HELD
+    print(f"[26] training the last three families held on the card: reduced configs, "
+          f"float32, {h['steps']} steps of {h['batch']} x {h['seq']} bigram tokens "
+          f"(whisper over the driver's frames), lr {h['lr']}")
+    for arch in LATE_ARCHS:
+        family_held(arch, seed)
+    print(f"  phase 26 {time.perf_counter() - t0:.1f} s")
+
+
+def train_flops(model, cfg, b, s):
+    """The products' FLOPs of a training step: 3 x a forward's (one
+    forward, a backward of two; the remat recompute left out), the
+    forward counted as ``prefill_flops`` counts a prefill's but with the
+    head over every position."""
+    head = 2 * b * cfg.d_model * cfg.vocab
+    return 3 * (prefill_flops(model, cfg, b, s) - head + s * head)
+
+
+def family_full(arch, seed, smi):
+    """One of the three at full width (rwkv6 cut to 4 layers), bf16
+    weights from the seed, fp32 masters, the config's moments, remat,
+    grad_accum 1: ``FAMILY_STEPS`` steps of the driver's batches."""
+    t0 = time.perf_counter()
+    b, s, layers = FAMILY_FULL[arch]
+    full = get_config(arch)
+    cfg = full.replace(grad_accum=1, n_layers=layers)
+    model = build_model(cfg).init(seed)
+    n_params = count_params(model)
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=FAMILY_STEPS, warmup_steps=1,
+                          state_dtype=cfg.opt_state_dtype, master_fp32=cfg.opt_master_fp32)
+    opt_state = adamw_init(model.param_tree(), opt_cfg)
+    step_fn = make_train_step(model, opt_cfg)
+    batches = [train.to_device(x, DEV) for x in family_batches(cfg, seed, b, s, FAMILY_STEPS + 1)]
+    print(f"[27] {arch} training at full width: {cfg.n_layers} of {full.n_layers} layers, "
+          f"{cfg.dtype} weights from the seed, {n_params} parameters, remat {cfg.remat}; "
+          f"{b} x {s} bigram tokens" + (f" over {b} x {cfg.encoder_seq} frames"
+                                        if cfg.is_encoder_decoder else ""))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, fb, up = [], [], [], []
+    for i in range(FAMILY_STEPS):
+        clock = Clock(DEV)
+        clock.mark()
+        loss, grads = step_fn.loss_and_grad(batches[i])
+        clock.mark()
+        gnorm = step_fn.update(grads, opt_state)
+        clock.mark()
+        del grads
+        x, y = clock.intervals_ms()
+        fb.append(x)
+        up.append(y)
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"{arch}: a loss or grad norm is not finite: {losses}, {norms}")
+    steps = [x + y for x, y in zip(fb, up)]
+    step = statistics.median(steps[1:])
+    tokens = b * s
+    share = 6 * n_params * tokens / (step / 1e3 * BF16_FLOPS)
+    flops = train_flops(model, cfg, b, s)
+    ps = FAMILY_PROFILE_SEQ.get(arch, s)
+    prof_batch = {k: v[:, :ps] if k != "frames" else v for k, v in batches[-1].items()}
+    prof_ms = step if ps == s else time_ms(lambda: step_fn(opt_state, prof_batch), reps=1,
+                                           warmup=0)
+    busy = profile_program(f"one {arch} train step of {b} x {ps} tokens",
+                           lambda: step_fn(opt_state, prof_batch), prof_ms, host_ops=False)
+    state_gb = sum(t.nbytes for _, t in tree_leaves_with_path(opt_state)
+                   if isinstance(t, torch.Tensor)) / 1e9
+    param_gb = sum(p.nbytes for p in model.parameters()) / 1e9
+    print(f"  {cfg.dtype} weights {param_gb:.3f} GB, fp32 masters and "
+          f"{cfg.opt_state_dtype} moments {state_gb:.3f} GB; losses "
+          f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in norms]} "
+          f"(finite)")
+    print(f"  step {step:.2f} ms (CUDA events, median of steps 2-{FAMILY_STEPS}; min "
+          f"{min(steps[1:]):.2f}, max {max(steps[1:]):.2f}): forward + backward "
+          f"{statistics.median(fb[1:]):.2f} ms, AdamW update {statistics.median(up[1:]):.2f} "
+          f"ms; {tokens / (step / 1e3):.0f} tokens/s; 6 N T / (step x 989 TFLOP/s) = "
+          f"{100 * share:.2f}% of the bf16 peak (N {n_params}, T {tokens}); the products' "
+          f"FLOPs x 3 {flops / 1e12:.3f} TFLOP: {100 * flops / (step / 1e3 * BF16_FLOPS):.2f}% "
+          f"of it; peak memory {peak / 1e9:.3f} GB; busy {100 * busy / prof_ms:.1f}% of a step"
+          + (f" of {b} x {ps} tokens ({prof_ms:.2f} ms)" if ps != s else "")
+          + f"; first step {steps[0]:.1f} ms; phase 27 {arch} {time.perf_counter() - t0:.1f} s "
+          f"[{smi}]")
+    del model, opt_state, step_fn, batches
+    free()
+
+
+def phase_family_train_full(seed, smi):
+    """[27] training whisper-small, zamba2-2.7b and rwkv6-3b at full
+    width, one model at a time."""
+    for arch in LATE_ARCHS:
+        family_full(arch, seed, smi)
 
 
 class PhaseClock:
@@ -5863,9 +6056,10 @@ def main():
                     children=children,
                     host_work=lambda: (late_first.update(late_first_runs(args.seed)),
                                        phase_train_held(args.seed, cpu_twin()),
-                                       phase_example_train(release)))
+                                       phase_example_train(release),
+                                       phase_family_train_held(args.seed)))
     free()
-    clock.done("9 (with 25a, 15 and 17 in its wait)")
+    clock.done("9 (with 25a, 15, 17 and 26 in its wait)")
     phase_spgemm_small(a_b, topo, args.seed)
     clock.done("9b")
     phase_examples()
@@ -5929,6 +6123,10 @@ def main():
     by_name["decode_attention_grouped"]["launches"] += sum(late.values())
     for arch, e in attn_late.items():
         e["launches"] = late[arch]
+
+    # 26-27. training them (26 ran inside phase 9's wait) --------------------------
+    phase_family_train_full(args.seed, smi)
+    clock.done("27")
 
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it); the AMG solve's launches, forward

@@ -3,7 +3,9 @@ AdamW update (``repro/launch/steps.py``'s ``adamw_config_for``,
 ``make_loss_with_accum`` and ``make_train_step``).
 
 The reference's step is a pure jitted function of ``(params, opt_state,
-batch)``.  Here the step works on the model's own weights: the gradients
+batch)``.  Here the step works on the model's own weights (any model
+``build_model`` returns: ``LM``, ``ZambaModel``, ``WhisperModel``, whose
+batch carries ``frames``): the gradients
 come from ``torch.autograd.grad`` (nothing accumulates in ``.grad``), and
 the update writes the weights and the optimizer state in place.  The
 sharding and cell helpers of the reference's module serve its dry run
@@ -15,7 +17,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.models.transformer import LM
+from repro_torch.models.params import TreeModel
 from repro_torch.moe.dispatch import check_island_batch, island_pods
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      tree_leaves_with_path, tree_map)
@@ -28,15 +30,17 @@ def adamw_config_for(cfg) -> AdamWConfig:
                        master_fp32=cfg.opt_master_fp32)
 
 
-def make_loss_with_accum(model: LM) -> Callable[[Batch], Tuple[torch.Tensor, Any]]:
+def make_loss_with_accum(model: TreeModel) -> Callable[[Batch], Tuple[torch.Tensor, Any]]:
     """``loss_and_grad(batch) -> (loss, grads)`` over the global batch,
     with ``cfg.grad_accum`` microbatches: each microbatch's grads are
     summed into float32 buffers (as the reference's scan does; summing into
     bf16 would round at every microbatch), then the sums and the loss are
     scaled by 1 / A.  With one microbatch the grads keep the weights'
-    dtype.  ``grads`` is a tree shaped like ``model.param_tree()``.  On
-    the island each microbatch must split over the pods this process runs;
-    a batch that does not raises before any compute."""
+    dtype.  ``grads`` is a tree shaped like ``model.param_tree()``.  Every
+    key of the batch splits along its first axis (whisper's ``frames``
+    with its tokens).  On the island each microbatch must split over the
+    pods this process runs; a batch that does not raises before any
+    compute."""
     a = model.cfg.grad_accum
 
     def loss_and_grad(batch: Batch):
@@ -75,7 +79,7 @@ class TrainStep:
     halves, ``loss_and_grad(batch)`` and ``update(grads, opt_state)``, are
     there for a caller that times them apart."""
 
-    def __init__(self, model: LM, opt_cfg: AdamWConfig):
+    def __init__(self, model: TreeModel, opt_cfg: AdamWConfig):
         self.model = model
         self.opt_cfg = opt_cfg
         self.loss_and_grad = make_loss_with_accum(model)
@@ -90,5 +94,5 @@ class TrainStep:
         return loss, self.update(grads, opt_state)
 
 
-def make_train_step(model: LM, opt_cfg: AdamWConfig) -> TrainStep:
+def make_train_step(model: TreeModel, opt_cfg: AdamWConfig) -> TrainStep:
     return TrainStep(model, opt_cfg)

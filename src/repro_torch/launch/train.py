@@ -1,7 +1,9 @@
 """Training driver: data pipeline -> train step -> checkpoints.
 
 The port's counterpart of ``repro/launch/train.py``: a model from a config
-with weights drawn from ``--seed``, the synthetic bigram batches, AdamW
+(any family: ``LM``, ``ZambaModel``, ``WhisperModel``) with weights drawn
+from ``--seed``, the synthetic bigram batches (an encoder-decoder's with
+the reference driver's frames of each step, ``data.step_frames``), AdamW
 (the config's moment dtype and fp32 masters), ``grad_accum`` forced to 1
 as the reference does, a warmup of ``max(steps // 20, 1)``, rolling
 checkpoints of ``(params, opt_state)`` with ``extra={"step"}`` and
@@ -25,6 +27,8 @@ Checkpoints store the port's tree, one entry per layer
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
       --device cpu --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
+      --device cpu --steps 20 --batch 4 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
       --full --steps 8 --batch 4 --seq 512
 """
@@ -41,13 +45,13 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.topology import Topology
-from repro_torch.data import SyntheticLM
+from repro_torch.data import SyntheticLM, step_frames
 from repro_torch.device import DeviceLike
 from repro_torch.launch.serve import Clock
 from repro_torch.launch.steps import TrainStep, make_train_step
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import LM
+from repro_torch.models.params import TreeModel
 from repro_torch.moe.dispatch import EPInfo
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.optim.adamw import tree_leaves_with_path
@@ -56,7 +60,7 @@ from repro_torch.runtime import StragglerDetector
 
 @dataclasses.dataclass
 class TrainRun:
-    model: LM
+    model: TreeModel
     opt_state: Dict
     step_fn: TrainStep          # the run's step, for further steps
     start_step: int
@@ -69,8 +73,23 @@ class TrainRun:
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(v).to(device=device, dtype=torch.int64)
+    """The batch on ``device``: integer arrays (tokens, labels) as int64,
+    floating ones (whisper's frames) as float32."""
+    return {k: torch.from_numpy(v).to(device=device, dtype=torch.int64
+                                      if np.issubdtype(v.dtype, np.integer)
+                                      else torch.float32)
             for k, v in batch.items()}
+
+
+def step_batch(cfg: ModelConfig, ds: SyntheticLM, step: int,
+               batch: int) -> Dict[str, np.ndarray]:
+    """Step ``step``'s host batch: ``ds``'s bigram tokens and labels, and
+    for an encoder-decoder config the frames the reference driver draws
+    for the step (``data.step_frames``)."""
+    out = ds.batch(step, batch)
+    if cfg.is_encoder_decoder:
+        out["frames"] = step_frames(step, batch, cfg.encoder_seq, cfg.d_model)
+    return out
 
 
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
@@ -114,7 +133,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           f"{cfg.dtype}, moments {cfg.opt_state_dtype}) on {model.device}{on_island}; "
           f"bigram-entropy loss floor ~ {run.floor:.3f}")
     for step in range(start_step, steps):
-        tb = to_device(ds.batch(step, batch), model.device)
+        tb = to_device(step_batch(cfg, ds, step, batch), model.device)
         t0 = time.time()
         clock = Clock(model.device)
         clock.mark()

@@ -72,7 +72,15 @@ class TreeModel(nn.Module, abc.ABC):
     """A model on one device (CUDA unless ``device="cpu"``) whose weights
     are the reference's parameter tree: each top-level tensor a parameter
     of the model, each dict a ``ParamTree`` and each list of layer trees
-    an ``nn.ModuleList`` of them, under the tree's own keys."""
+    an ``nn.ModuleList`` of them, under the tree's own keys.
+
+    What the train step asks of a model (``launch.steps``): ``cfg``,
+    ``param_tree()``, ``loss(batch)`` and ``mesh`` / ``ep``, which are
+    None here (no expert-parallel island); ``LM`` sets them for its MoE
+    blocks."""
+
+    mesh: Any = None
+    ep: Any = None
 
     def __init__(self, cfg, device: DeviceLike = None):
         super().__init__()

@@ -112,10 +112,13 @@ def rwkv6_time_mix_chunked(p, cfg, x: torch.Tensor, state: Dict[str, torch.Tenso
                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Chunked (GLA-style) time mixing: within a chunk of L steps the
     recurrence is a decay-masked (L x L) product, and only the chunk-to-
-    chunk state is carried (S / L steps).  Every decay ratio that survives
-    the mask is exp(lw_a - lw_b) with a >= b, at most 1; the others are
-    selected away (``torch.where``).  Equal to ``rwkv6_time_mix`` up to
-    float round-off."""
+    chunk state is carried (S / L steps).  Every decay ratio is exp of the
+    sum of the log decays it spans (at most 0), never of a difference of
+    two running sums: under a steep decay those reach hundreds, exp of
+    their difference overflows above the diagonal (an inf whose gradient
+    is NaN even where ``torch.where`` drops it) and the gradient of the
+    difference cancels to a few percent of its size.  Equal to
+    ``rwkv6_time_mix`` up to float round-off, its gradient too."""
     b, s, d = x.shape
     n = cfg.rwkv_head_size
     h = d // n
@@ -132,10 +135,14 @@ def rwkv6_time_mix_chunked(p, cfg, x: torch.Tensor, state: Dict[str, torch.Tenso
     lprev = torch.cat([torch.zeros_like(lcum[:, :, :1]), lcum[:, :, :-1]], dim=2)
     uh = p["u"].reshape(h, n)
 
-    # intra-chunk: a[t, j] = sum_n r_t exp(lprev_t - lcum_j) k_j   (j < t)
-    ratio = torch.exp(lprev[:, :, :, None] - lcum[:, :, None])   # [B,nc,L,L,H,N]
-    a = torch.einsum("bcthn,bcjhn,bctjhn->bchtj", rh, kh, ratio)
+    # intra-chunk: a[t, j] = sum_n r_t exp(span_tj) k_j   (j < t), with
+    # span_tj = sum_{j < i < t} lw_i: lw_i kept where i > j, summed over
+    # i <= t - 1; 0 (a ratio of 1, dropped below) where j >= t
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device), diagonal=-1)
+    span = torch.cumsum(torch.where(tri[:, :, None, None], lw[:, :, :, None], 0.0), dim=2)
+    span = torch.cat([torch.zeros_like(span[:, :, :1]), span[:, :, :-1]], dim=2)
+    ratio = torch.exp(span)                             # [B,nc,L,L,H,N]
+    a = torch.einsum("bcthn,bcjhn,bctjhn->bchtj", rh, kh, ratio)
     a = torch.where(tri, a, 0.0)
     y = torch.einsum("bchtj,bcjhn->bcthn", a, vh)
     # diagonal bonus term: r_t . (u o k_t) v_t
@@ -143,7 +150,10 @@ def rwkv6_time_mix_chunked(p, cfg, x: torch.Tensor, state: Dict[str, torch.Tenso
     y = y + diag[..., None] * vh
 
     # inter-chunk: y_t += (r_t o exp(lprev_t)) S_prev, chunk by chunk
-    k_tail = kh * torch.exp(lcum[:, :, -1:] - lcum)     # decay k_j to chunk end
+    # decay k_j to the chunk's end: exp(sum_{i > j} lw_i)
+    after = torch.flip(torch.cumsum(torch.flip(lw, [2]), dim=2), [2])
+    after = torch.cat([after[:, :, 1:], torch.zeros_like(after[:, :, :1])], dim=2)
+    k_tail = kh * torch.exp(after)
     r_dec = rh * torch.exp(lprev)
     dec_all = torch.exp(lcum[:, :, -1])                 # [B, nc, H, N]
     s_run, y_inter = state["S"], []

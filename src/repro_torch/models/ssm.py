@@ -93,11 +93,15 @@ def mamba2_apply(p, cfg, x: torch.Tensor) -> torch.Tensor:
     lcum = torch.cumsum(la, dim=2)                            # [B, nc, L, H]
 
     # ---- intra-chunk: decay-masked (L x L) product ------------------------
-    # M[i, j] = (C_i . B_j) * exp(lcum_i - lcum_j) * dt_j   for j <= i; above
-    # the diagonal exp overflows to inf, which torch.where selects away
+    # M[i, j] = (C_i . B_j) * exp(lcum_i - lcum_j) * dt_j   for j <= i.  Above
+    # the diagonal the exponent is positive and exp would overflow to inf:
+    # torch.where drops it from the values, but the gradient of the
+    # product through it is 0 x inf = NaN, so the exponent is set to 0
+    # there before exp (the values are the same)
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)              # [B, nc, L, L]
-    ratio = torch.exp(lcum[:, :, :, None] - lcum[:, :, None])   # [B,nc,L,L,H]
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    seg = torch.where(tri[:, :, None], lcum[:, :, :, None] - lcum[:, :, None], 0.0)
+    ratio = torch.exp(seg)                                    # [B,nc,L,L,H]
     m = torch.where(tri[:, :, None], cb[..., None] * ratio, 0.0)
     m = m * dtc[:, :, None, :, :]                             # dt_j on the source
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", m.to(uh.dtype), uh)

@@ -281,6 +281,7 @@ def test_training_modules_import_loads_neither_jax_nor_reference():
     """The training slice: data, optimizer, steps, the driver and its
     example load neither JAX nor the JAX package."""
     code = ("import sys, repro_torch.data, repro_torch.data.pipeline\n"
+            "import repro_torch.data.frames\n"
             "import repro_torch.optim, repro_torch.optim.adamw\n"
             "import repro_torch.launch.steps, repro_torch.launch.train\n"
             "import repro_torch.examples.train_lm, repro_torch.models.registry\n"
@@ -331,9 +332,10 @@ def test_late_families_import_loads_neither_jax_nor_reference():
 
 @pytest.mark.parametrize("arch", ["whisper-small", "zamba2-2.7b", "rwkv6-3b"])
 def test_late_families_raise_without_cuda(arch, monkeypatch):
-    """Their models and their serving run on CUDA unless asked for the CPU."""
+    """Their models, their serving and their training run on CUDA unless
+    asked for the CPU."""
     from repro_torch.configs import get_reduced
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import build_model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_reduced(arch)
@@ -341,4 +343,6 @@ def test_late_families_raise_without_cuda(arch, monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", arch])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", arch, "--steps", "1"])
     assert build_model(cfg, device="cpu").device == torch.device("cpu")

@@ -1,6 +1,7 @@
 """The port's train step and training driver against the JAX package's on
 the CPU.  Three ``make_train_step`` steps (gemma2-2b at grad_accum 1 and
-2, the reduced MoE LMs through their local oracle at 1; float32 and int8
+2, the reduced MoE LMs through their local oracle at 1, whisper-small
+over the driver's frames, zamba2-2.7b and rwkv6-3b at 1; float32 and int8
 moments) start from the reference's state after two of its steps,
 converted by ``opt_state_from_jax``: losses rtol 1e-4, parameters within
 ``2 lr steps`` (AdamW moves an element by about +-lr wherever its gradient
@@ -34,7 +35,8 @@ from repro_torch.launch import train
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import (build_model, count_active_params, count_params,
                                 param_shapes)
-from repro_torch.models.convert import opt_state_from_jax, params_from_jax
+from repro_torch.models.convert import (LAYER_GROUPS, opt_state_from_jax,
+                                        params_from_jax)
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.adamw import tree_at, tree_leaves_with_path
 
@@ -49,7 +51,7 @@ def _grads_close(got, want, what):
 
 
 def _stacked(tree_j, path):
-    if path[0] in ("layers", "dense_layers"):
+    if path[0] in LAYER_GROUPS:
         return np.asarray(tree_at(tree_j[path[0]], path[2:])[path[1]])
     return np.asarray(tree_at(tree_j, path))
 
@@ -60,30 +62,34 @@ TRAIN_STEPS, WARM_STEPS, LR = 3, 2, 3e-3
 STEP_CASES = [pytest.param("gemma2-2b", accum, dtype, id=f"{accum}-{dtype}")
               for accum in (1, 2) for dtype in ("float32", "int8")] + \
     [pytest.param(arch, 1, dtype, id=f"{arch}-1-{dtype}")
-     for arch in ("qwen3-moe-235b-a22b", "deepseek-v2-236b")
+     for arch in ("qwen3-moe-235b-a22b", "deepseek-v2-236b", "whisper-small",
+                  "zamba2-2.7b", "rwkv6-3b")
      for dtype in ("float32", "int8")]
+# the last three families take 32 tokens (zamba2's chunked SSD needs a
+# sequence its chunk, 16, divides)
+STEP_SEQ = {"whisper-small": 32, "zamba2-2.7b": 32, "rwkv6-3b": 32}
 
 
 @pytest.mark.parametrize("arch,accum,state_dtype", STEP_CASES)
 def test_train_steps_match_reference(arch, accum, state_dtype):
     over = dict(grad_accum=accum, opt_state_dtype=state_dtype)
+    cfg = get_reduced(arch).replace(**over)
     jm = jax_build(jax_reduced(arch).replace(**over))
     kw = dict(lr=LR, warmup_steps=1, total_steps=10, state_dtype=state_dtype)
     jcfg = JaxAdamWConfig(**kw)
     step = jax.jit(jax_train_step(jm, jcfg))
     params = jm.init(jax.random.key(5))
     state = jax_adamw_init(params, jcfg)
-    ds = JaxSyntheticLM(jm.cfg.vocab, 40, seed=2)
+    ds = JaxSyntheticLM(jm.cfg.vocab, STEP_SEQ.get(arch, 40), seed=2)
     for s in range(WARM_STEPS):      # a state with moments in it
         _, params, state = step(params, state, {k: jnp.asarray(v) for k, v in
-                                                ds.batch(s, 4).items()})
+                                                train.step_batch(cfg, ds, s, 4).items()})
     params, state = jax.device_get(params), jax.device_get(state)
-    pm = build_model(get_reduced(arch).replace(**over), device="cpu").load(
-        params_from_jax(params))
+    pm = build_model(cfg, device="cpu").load(params_from_jax(params))
     opt_state = opt_state_from_jax(state)
     pstep = make_train_step(pm, AdamWConfig(**kw))
     for s in range(WARM_STEPS, WARM_STEPS + TRAIN_STEPS):
-        batch = ds.batch(s, 4)
+        batch = train.step_batch(cfg, ds, s, 4)
         want, params, state = step(params, state, {k: jnp.asarray(v)
                                                    for k, v in batch.items()})
         loss, gnorm = pstep(opt_state, train.to_device(batch, "cpu"))
