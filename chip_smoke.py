@@ -409,6 +409,21 @@ Phases, each fatal on failure:
     of the bf16 peak beside the products' FLOPs x 3, peak memory and busy
     share (rwkv6's from a 4 x 64 step), finite losses and grad norms
     gated;
+28. the operator counter and the dry run's roofline
+    (``repro_torch.core.op_analysis``, ``launch.dryrun``): (a) in a
+    child process started with phase 8 (host work, ``--count-child``),
+    meta counts of gemma2-2b's train_4k, prefill_32k and decode_32k on
+    16x16, qwen3-moe's decode_32k on 2x16x16 through the island (its
+    pod-crossing bytes > 0) and zamba2-2.7b's long_500k, each cell's
+    roofline row; (b) gemma2-2b's greedy step (phase 11's batch and
+    cache), its 4 x 512 prefill (phase 14) and its training step (phase
+    16) counted once on the card inside those phases and once on meta in
+    the child: dot FLOPs, bytes and the kernels' declared work equal
+    (gated), then the one-card roofline time against the median those
+    phases measured, as a share (no gate); (c) in phase 4, one NAP
+    forward counted on the card: its exchanges' node-crossing bytes per
+    axis equal ``inter_node_bytes()`` over the same apply and its ELL
+    calls the launches (gated);
 21. the whole script's seconds with every phase's, a JSON line of every
     kernel (with ``device_ms`` and, for the BSR kernels,
     ``library_bsr_ms``; the decode kernel again at qwen3-moe's served
@@ -425,6 +440,7 @@ SpMV, BSR and AMG / service phases, ``--lm-layers`` the depth of phase
 kernel change.
 """
 import argparse
+import atexit
 import dataclasses
 import gc
 import hashlib
@@ -524,6 +540,10 @@ from repro_torch.mesh.scaling import measure_phase_walls  # noqa: E402
 from repro_torch.serve import (FaultPlan, SolverService, batched_cg,  # noqa: E402
                                dead_node, torn_checkpoint)
 from repro_torch.sparse import BSR, CSR, rotated_anisotropic_2d  # noqa: E402
+from repro_torch.core.op_analysis import count_ops  # noqa: E402
+from repro_torch.core.roofline import HEADER, build_roofline, model_flops_for  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.models.registry import param_shapes  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor
 # cores (all kernels run f32 FMAs on the CUDA cores).
@@ -1022,8 +1042,41 @@ def phase_nap(op, a, oracles):
         z1_det = op.T @ u1
     finally:
         torch.use_deterministic_algorithms(False)
+    nap_count(op, v1, oracles["w1"])
     return fwd, tr, dict(w1=w1, w8=w8, z1=z1_det, ms=ms,
                          nccl=nccl_one_process(op, v1, w1))
+
+
+def nap_count(op, v1, want):
+    """[28c] one NAP forward counted on the card: its exchanges'
+    node-crossing bytes per axis are what ``inter_node_bytes()`` counts
+    over the same apply, and its ELL calls the kernel's launches."""
+    reset_inter_node_bytes()
+    reset_launches()
+    with count_ops() as cost:
+        w = op @ v1
+    torch.cuda.synchronize()
+    check_oracle("counted forward nv=1", w, want)
+    counted = {k: float(v) for k, v in inter_node_bytes().items() if ":" not in k}
+    ell = cost.kernels.get("ell_spmm_packed", {}).get("calls", 0)
+    if cost.dci_by_axis != counted or cost.dci_bytes != sum(counted.values()) \
+            or cost.dci_bytes <= 0:
+        raise AssertionError(f"NAP forward: counted crossing bytes {cost.dci_by_axis} "
+                             f"(total {cost.dci_bytes}) against the communicator's "
+                             f"{counted}")
+    if ell != launches.get("ell_spmm_packed", 0) or ell < 1:
+        raise AssertionError(f"NAP forward: {ell} counted ELL calls, "
+                             f"{launches.get('ell_spmm_packed', 0)} launches")
+    COUNTED["nap"] = cost
+    print(f"[28c] NAP forward nv=1 counted on the card: exchanges "
+          f"{ {k: int(v) for k, v in cost.collective_bytes.items()} } bytes in "
+          f"{ {k: int(v) for k, v in cost.collective_counts.items()} } calls, "
+          f"groups {sorted(set(sum(cost.group_sizes.values(), [])))}; node-crossing "
+          f"{ {k: int(v) for k, v in cost.dci_by_axis.items()} } = inter_node_bytes() "
+          f"{ {k: int(v) for k, v in counted.items()} }; ELL calls {int(ell)} = launches; "
+          f"declared ELL work {cost.kernels['ell_spmm_packed']['bytes'] / 1e6:.1f} MB; "
+          f"{cost.operators} operators, {cost.hbm_bytes / 1e9:.3f} GB at operator "
+          f"boundaries")
 
 
 def phase_bsr(op_b, a_b, oracles):
@@ -4438,6 +4491,8 @@ def phase_decode_attn(rng, gen, seed=0):
 
 
 SERVE_PROMPT = 256           # phase 11's teacher-forced prompt
+SERVE_BATCH, SERVE_GEN, SERVE_MAX_SEQ = 4, 32, 1024
+SERVE_POS = SERVE_PROMPT + SERVE_GEN    # the served cache's position after generate
 PREFILL_LEN = 512            # phase 14's prompt: 512 of prefill_32k's 32768 tokens
 
 
@@ -4445,7 +4500,7 @@ def phase_serve(n_layers, seed):
     """[11] gemma2-2b serving at full width through serve.generate."""
     cfg = get_config("gemma2-2b").replace(n_layers=n_layers)
     # the first SERVE_PROMPT of phase 14's 512 tokens (512 before a cut for the time limit)
-    batch, prompt_len, gen_len, max_seq = 4, SERVE_PROMPT, 32, 1024
+    batch, prompt_len, gen_len, max_seq = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_MAX_SEQ
     print(f"[11] serve: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, vocab "
           f"{cfg.vocab}, {cfg.dtype}; batch {batch}, prompt {prompt_len}, gen "
           f"{gen_len}, max_seq {max_seq}")
@@ -4481,10 +4536,18 @@ def phase_serve(n_layers, seed):
           f"{step_bound:.4f} ms (params {param_bytes / 1e9:.3f} GB + cache rows "
           f"{cache_bytes / 1e6:.1f} MB at 3.35 TB/s); logits finite; greedy ids "
           f"[batch 0] {res.tokens[0, :8].tolist()}...")
+    cache, tok = res.cache, res.tokens[:, -1:]
+    # [28b] one more greedy step counted on the card (the meta twin of
+    # phase 28 takes the same cache position)
+    if cache["pos"] != SERVE_POS:
+        raise AssertionError(f"served cache at {cache['pos']}, not {SERVE_POS}")
+    with count_ops() as counted:
+        model.decode_step(cache, tok)
+    torch.cuda.synchronize()
+    COUNTED["decode"] = (counted, step)
     # the kernel against its plain version at the serve path's own shapes:
     # the served cache read in place, its lengths after the last step,
     # the windows of an even and an odd layer, a query drawn from the seed
-    cache, tok = res.cache, res.tokens[:, -1:]
     g = cfg.n_heads // cfg.n_kv_heads
     q = torch.randn((batch, cfg.n_kv_heads, g, cfg.head_dim), device=DEV,
                     generator=torch.Generator(device=DEV).manual_seed(seed)
@@ -4635,6 +4698,10 @@ def phase_prefill_full(served):
     same_ids = bool((head.argmax(-1) == served["first_ids"]).all())
     del cache, head
     ms = time_ms(lambda: model.prefill(toks), reps=5, warmup=1)
+    with count_ops() as counted:        # [28b] one prefill counted on the card
+        model.prefill(toks)
+    torch.cuda.synchronize()
+    COUNTED["prefill"] = (counted, ms)
     busy = profile_program("prefill", lambda: model.prefill(toks), ms)
     # matmul FLOPs of the layers (the embedding is a lookup), the head at
     # the last position, and the attention blocks as computed (full
@@ -4918,9 +4985,12 @@ def phase_train_held(seed, twin=None):
     print(f"  phase 15 {time.perf_counter() - t0:.1f} s")
 
 
+TRAIN_FULL = (4, 512, 8)     # phase 16's batch, tokens and steps
+
+
 def phase_train_full(seed, smi):
     """[16] ``repro_torch.launch.train.main`` at gemma2-2b's full width."""
-    b, s, n_steps = 4, 512, 8
+    b, s, n_steps = TRAIN_FULL
     args = ["--arch", "gemma2-2b", "--full", "--steps", str(n_steps), "--batch", str(b),
             "--seq", str(s), "--seed", str(seed)]
     print(f"[16] training at full width: python -m repro_torch.launch.train "
@@ -4949,6 +5019,10 @@ def phase_train_full(seed, smi):
                    if isinstance(t, torch.Tensor)) / 1e9
     param_gb = sum(p.nbytes for p in run.model.parameters()) / 1e9
     batch = train.to_device(SyntheticLM(cfg.vocab, s, seed=seed).batch(n_steps, b), DEV)
+    with count_ops() as counted:        # [28b] one step counted on the card
+        run.step_fn(run.opt_state, batch)
+    torch.cuda.synchronize()
+    COUNTED["train"] = (counted, step)
     busy = profile_program("one full-width train step",
                            lambda: run.step_fn(run.opt_state, batch), step)
     masters = "fp32 masters and " if "master" in run.opt_state else ""
@@ -5887,6 +5961,150 @@ def phase_family_train_full(seed, smi):
         family_full(arch, seed, smi)
 
 
+# ---------------------------------------------------------------------------
+# 28. the operator counter and the dry run's roofline
+# ---------------------------------------------------------------------------
+
+# the dry-run cells phase 28 counts on meta: (arch, shape, mesh)
+COUNT_CELLS = (("gemma2-2b", "train_4k", "16x16"), ("gemma2-2b", "prefill_32k", "16x16"),
+               ("gemma2-2b", "decode_32k", "16x16"),
+               ("qwen3-moe-235b-a22b", "decode_32k", "2x16x16"),
+               ("zamba2-2.7b", "long_500k", "16x16"))
+COUNTED = {}    # the card's counts: phase 4's NAP forward; phases 11, 14, 16 with their ms
+
+
+def meta_twins(lm_layers, seed):
+    """Phases 11, 14 and 16's programs on meta: gemma2-2b's greedy step on
+    phase 11's cache at its position, its 4 x 512 prefill, and phase 16's
+    training step on the driver's config, optimizer and batch.  Returns
+    ``{kind: (OpCost, active parameters, tokens)}``."""
+    cfg = get_config("gemma2-2b")
+    m = build_model(cfg.replace(n_layers=lm_layers), "meta")
+    m.load(param_shapes(m))
+    cache = m.init_cache(SERVE_BATCH, SERVE_MAX_SEQ)
+    cache.update(pos=SERVE_POS, length=torch.full((SERVE_BATCH,), SERVE_POS,
+                                                  dtype=torch.int32, device="meta"))
+    out = {}
+    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int64, device="meta")
+    prompts = torch.zeros((SERVE_BATCH, PREFILL_LEN), dtype=torch.int64, device="meta")
+    with count_ops() as out["decode"]:
+        m.decode_step(cache, tok)
+    with count_ops() as out["prefill"]:
+        m.prefill(prompts)
+    n_serve = count_active_params(m)
+    b, s, n_steps = TRAIN_FULL
+    tcfg = cfg.replace(grad_accum=1)             # as train.main sets it
+    tm = build_model(tcfg, "meta")
+    tm.load(param_shapes(tm))
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=n_steps, warmup_steps=max(n_steps // 20, 1),
+                          state_dtype=tcfg.opt_state_dtype, master_fp32=tcfg.opt_master_fp32)
+    state = adamw_init(tm.param_tree(), opt_cfg)
+    batch = train.to_device(SyntheticLM(tcfg.vocab, s, seed=seed).batch(n_steps, b), "meta")
+    with count_ops() as out["train"]:
+        make_train_step(tm, opt_cfg)(state, batch)
+    return {"decode": (out["decode"], n_serve, SERVE_BATCH),
+            "prefill": (out["prefill"], n_serve, SERVE_BATCH * PREFILL_LEN),
+            "train": (out["train"], count_active_params(tm), b * s)}
+
+
+def count_child(spec_file):
+    """[28a] the child of phase 28 (host work on meta, no card): the
+    dry-run cells of ``COUNT_CELLS`` and the meta twins of phases 11, 14
+    and 16, written as JSON."""
+    spec = json.loads(Path(spec_file).read_text())
+    # host work beside the timed phases and the 9e / 9h children: one
+    # thread, the lowest priority, so it takes only idle time
+    os.nice(19)
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    cells = {dryrun.cell_key(arch, shape, mesh): dryrun.run_cell(arch, shape, mesh)
+             for arch, shape, mesh in COUNT_CELLS}
+    twins = {k: dict(cost=c.as_dict(), n_active=n, tokens=tok)
+             for k, (c, n, tok) in meta_twins(spec["lm_layers"], spec["seed"]).items()}
+    Path(spec["out"]).write_text(json.dumps(dict(cells=cells, twins=twins,
+                                                 seconds=time.perf_counter() - t0)))
+
+
+def start_count_child(tmp, lm_layers, seed):
+    """Start phase 28's child (this script with ``--count-child``); it
+    counts on meta while this process works.  Returns ``finish()``, which
+    waits for it and returns its JSON.  The child is killed if this
+    process exits first."""
+    tmp = Path(tmp)
+    spec = tmp / "count_spec.json"
+    out, log = tmp / "count_out.json", tmp / "count_log.txt"
+    spec.write_text(json.dumps(dict(lm_layers=lm_layers, seed=seed, out=str(out))))
+    logf = open(log, "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--count-child", str(spec)], stdout=logf,
+                            stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    t0 = time.perf_counter()
+    print("[28a] the meta-count child started in the background")
+
+    def finish():
+        t1 = time.perf_counter()
+        code = proc.wait(timeout=900)
+        logf.close()
+        if code != 0:
+            raise AssertionError(f"phase 28's child exited {code}:\n"
+                                 f"{log.read_text()[-4000:]}")
+        res = json.loads(out.read_text())
+        print(f"  phase 28's child: {res['seconds']:.1f} s of counting, ended "
+              f"{time.perf_counter() - t0:.1f} s after its start; waited "
+              f"{time.perf_counter() - t1:.1f} s for it")
+        return res
+
+    return finish
+
+
+def phase_counts(finish, smi):
+    """[28] the meta counts' roofline rows, the card's counts against their
+    meta twins, the one-card roofline against the measured medians."""
+    res = finish()
+    print("[28a] dry-run cells counted on meta (roofline: NVIDIA H100 SXM constants, "
+          "989 TFLOP/s bf16, 3.35 TB/s; per chip = global / chips)")
+    print("  " + HEADER.replace("\n", "\n  "))
+    for key, rec in res["cells"].items():
+        if not rec["ok"] or rec.get("skipped"):
+            raise AssertionError(f"dry-run cell {key}: {rec.get('error', rec.get('reason'))}")
+        ops = rec["ops"]
+        print(f"  {rec['roofline']['row']} counted in {rec['t_count_s']} s: "
+              f"{ops['operators']} operators, dot {ops['dot_flops']:.4e} FLOP, "
+              f"{ops['hbm_bytes']:.4e} B, exchanges {ops['collective_bytes']}, "
+              f"node-crossing {ops['dci_bytes']:.4e} B; kernels "
+              + ", ".join(f"{k} x{int(v['calls'])} {v['bytes'] / 1e9:.3f} GB"
+                          for k, v in ops["kernels"].items())
+              + f"; analytic {rec['memory']['analytic']['total']:.3f} GB/chip")
+    moe = res["cells"]["qwen3-moe-235b-a22b|decode_32k|2x16x16"]
+    if not moe["ops"]["dci_bytes"] > 0:
+        raise AssertionError("qwen3-moe decode_32k on 2x16x16: no pod-crossing bytes")
+    print(f"[28b] card against meta, gemma2-2b [{smi}]")
+    for kind in ("decode", "prefill", "train"):
+        card, ms = COUNTED[kind]
+        twin = res["twins"][kind]
+        meta = twin["cost"]
+        for f in ("dot_flops", "hbm_bytes"):
+            if getattr(card, f) != meta[f]:
+                raise AssertionError(f"{kind}: {f} on the card {getattr(card, f)} "
+                                     f"!= on meta {meta[f]}")
+        if card.kernels != meta["kernels"]:
+            raise AssertionError(f"{kind}: kernels' declared work on the card "
+                                 f"{card.kernels} != on meta {meta['kernels']}")
+        mf = model_flops_for(kind, twin["n_active"], twin["tokens"])
+        roof = build_roofline("gemma2-2b", kind, "1", 1, card, mf)
+        t_ms = roof.step_time * 1e3
+        print(f"  {kind}: card = meta: dot {card.dot_flops:.6e} FLOP, {card.hbm_bytes:.6e} B "
+              f"at operator boundaries, kernels {card.kernels}; operators card "
+              f"{card.operators} / meta {meta['operators']}; one-card roofline "
+              f"{t_ms:.4f} ms ({roof.dominant}; compute {roof.t_compute * 1e3:.4f}, memory "
+              f"{roof.t_memory * 1e3:.4f}) against the measured median {ms:.4f} ms: "
+              f"{100 * t_ms / ms:.1f}% [{smi}]")
+    nap = COUNTED["nap"]
+    print(f"[28c] phase 4's NAP forward: node-crossing {nap.dci_bytes:.0f} B = "
+          f"inter_node_bytes() (checked in phase 4)")
+
+
 class PhaseClock:
     """Seconds of each phase of ``main``, printed as each ends (a phase
     run inside another's wait counts in that one's)."""
@@ -5921,7 +6139,12 @@ def main():
                     help="run one process of phase 9f (set by its launcher)")
     ap.add_argument("--coll-child", metavar="SPEC",
                     help="run one process of phase 9g (set by its launcher)")
+    ap.add_argument("--count-child", metavar="SPEC",
+                    help="run phase 28's meta counts (set by its launcher)")
     args = ap.parse_args()
+    if args.count_child:
+        count_child(args.count_child)
+        return
     if args.mesh_child:
         mesh_child(args.mesh_child)
         return
@@ -6042,6 +6265,8 @@ def main():
     a_amg = a if args.amg_n == args.n else rotated_anisotropic_2d(args.amg_n)
     children = start_mesh_children(mesh_tmp.name, a, a_amg, args.seed, keep)
     cpu_twin = start_cpu_twin(args.seed)
+    count_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_count_")
+    counts = start_count_child(count_tmp.name, args.lm_layers, args.seed)
     phase_simulate(a, topo, part, oracles, a_b, nap_det, nap_ref["w1"],
                    nap_ref["z1"])
     del oracles, nap_ref, nap_det
@@ -6127,6 +6352,12 @@ def main():
     # 26-27. training them (26 ran inside phase 9's wait) --------------------------
     phase_family_train_full(args.seed, smi)
     clock.done("27")
+
+    # 28. the operator counter (28a in a child since phase 8, 28b's card
+    # counts inside phases 11, 14 and 16, 28c inside phase 4) -------------
+    phase_counts(counts, smi)
+    count_tmp.cleanup()
+    clock.done("28")
 
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it); the AMG solve's launches, forward

@@ -13,7 +13,9 @@ bit.  Every operand is rank-batched:
 
 Operands are contiguous, and blocks and x start on 16-byte boundaries.
 CPU tensors take the plain version (:mod:`.ref`); CUDA tensors take the
-kernel or raise.
+kernel or raise; ``meta`` tensors an empty result of the output's shape.
+While :mod:`repro_torch.core.op_analysis` counts, a call reports its
+declared work (:func:`declared_work`).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core import op_analysis
 from repro_torch.kernels import _build
 from repro_torch.kernels.bsr_spmv.ref import (fused_bsr_spmm_packed_ref,
                                               fused_bsr_spmm_ref)
@@ -85,24 +88,44 @@ def _launch(name: str, cols: torch.Tensor, blocks: torch.Tensor,
     return out
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def declared_work(cols, blocks, xs):
+    """``(flops, bytes read, bytes written)`` of a call: a block product
+    for every slot (padding included: the structure, not the values,
+    sizes it), cols, blocks and x read once, the output written once."""
+    p, n_brows, ktot, bm, bn = blocks.shape
+    nv = xs[0].shape[-1]
+    read = _nbytes(cols) + _nbytes(blocks) + sum(_nbytes(x) for x in xs)
+    return 2.0 * p * n_brows * ktot * bm * bn * nv, read, p * n_brows * bm * nv * 4
+
+
+def _run(name, plain, cols, blocks, xs) -> torch.Tensor:
+    with op_analysis.kernel(name, lambda: declared_work(cols, blocks, xs)):
+        if cols.device.type == "cpu":
+            return plain()
+        if cols.device.type == "meta":
+            return torch.empty(blocks.shape[:2] + (blocks.shape[3], xs[0].shape[-1]),
+                               dtype=torch.float32, device="meta")
+        if cols.device.type != "cuda":
+            raise ValueError(f"unsupported device {cols.device}")
+        return _launch(name, cols, blocks, xs)
+
+
 def fused_bsr_spmm_packed(cols: torch.Tensor, blocks: torch.Tensor,
                           xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """w = A @ cat(xs) without materialising the concatenation."""
     xs = tuple(xs)
     _check(cols, blocks, xs)
-    if cols.device.type == "cpu":
-        return fused_bsr_spmm_packed_ref(cols, blocks, xs)
-    if cols.device.type != "cuda":
-        raise ValueError(f"unsupported device {cols.device}")
-    return _launch("fused_bsr_spmm_packed", cols, blocks, xs)
+    return _run("fused_bsr_spmm_packed",
+                lambda: fused_bsr_spmm_packed_ref(cols, blocks, xs), cols, blocks, xs)
 
 
 def fused_bsr_spmm(cols: torch.Tensor, blocks: torch.Tensor,
                    x: torch.Tensor) -> torch.Tensor:
     """w = A @ x over one concatenated x (the one-segment instance)."""
     _check(cols, blocks, (x,))
-    if cols.device.type == "cpu":
-        return fused_bsr_spmm_ref(cols, blocks, x)
-    if cols.device.type != "cuda":
-        raise ValueError(f"unsupported device {cols.device}")
-    return _launch("fused_bsr_spmm", cols, blocks, (x,))
+    return _run("fused_bsr_spmm", lambda: fused_bsr_spmm_ref(cols, blocks, x),
+                cols, blocks, (x,))

@@ -11,7 +11,9 @@ Pallas kernel ``repro/kernels/bsr_spmv/kernel.py::bsr_spmm_padded``:
 
 Operands are contiguous, and blocks and x start on 16-byte boundaries.
 CPU tensors take the plain version (:mod:`.ref`); CUDA tensors take the
-kernel or raise.
+kernel or raise; ``meta`` tensors an empty result of the output's shape.
+While :mod:`repro_torch.core.op_analysis` counts, a call reports its
+declared work (:func:`declared_work`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import op_analysis
 from repro_torch.kernels import _build
 from repro_torch.kernels.bsr_spmv.ref import bsr_spmm_padded_ref
 
@@ -61,12 +64,30 @@ def _check(cols: torch.Tensor, blocks: torch.Tensor, x: torch.Tensor) -> None:
                          f"nv {x.shape[2]}")
 
 
+def declared_work(cols, blocks, x):
+    """``(flops, bytes read, bytes written)`` of a call: a block product
+    for every slot (padding included), cols, blocks and x read once, the
+    output written once."""
+    n_brows, kmax, bm, bn = blocks.shape
+    nv = x.shape[2]
+    read = sum(t.numel() * t.element_size() for t in (cols, blocks, x))
+    return 2.0 * n_brows * kmax * bm * bn * nv, read, n_brows * bm * nv * 4
+
+
 def bsr_spmm_padded(cols: torch.Tensor, blocks: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """w = A @ x for the padded-uniform BSR layout of one matrix."""
     _check(cols, blocks, x)
+    with op_analysis.kernel(NAME, lambda: declared_work(cols, blocks, x)):
+        return _dispatch(cols, blocks, x)
+
+
+def _dispatch(cols, blocks, x) -> torch.Tensor:
     if cols.device.type == "cpu":
         return bsr_spmm_padded_ref(cols, blocks, x)
+    if cols.device.type == "meta":
+        return torch.empty((blocks.shape[0], blocks.shape[2], x.shape[2]),
+                           dtype=torch.float32, device="meta")
     if cols.device.type != "cuda":
         raise ValueError(f"unsupported device {cols.device}")
     n_brows, kmax, bm, bn = blocks.shape

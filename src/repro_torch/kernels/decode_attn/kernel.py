@@ -16,7 +16,10 @@ the TPU kernel's contract.  ``softcap > 0`` caps the scores as
 ``softcap * tanh(s / softcap)``.
 
 CPU tensors take the plain version (:mod:`.ref`); CUDA tensors take the
-kernel or raise.
+kernel or raise; ``meta`` tensors an empty result of the output's shape.
+While :mod:`repro_torch.core.op_analysis` counts, a call reports its
+declared work (:func:`declared_work`): the k/v rows inside the masks,
+read once.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import op_analysis
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn.ref import decode_attention_ref
 
@@ -166,16 +170,55 @@ def _check_kernel_layout(q, k, v, lengths) -> None:
         raise ValueError(f"shape out of the kernel's range: {tuple(k.shape)}, g {g}")
 
 
+def masked_rows(k: torch.Tensor, lengths: torch.Tensor, window: int = 0,
+                span=None) -> int:
+    """k/v rows inside the masks, summed over the batch: ``span`` (the
+    host's count of every sequence's valid positions, decode steps being
+    aligned) when given, else the lengths read from their device; on
+    ``meta`` with no span, every row of the cache."""
+    b, seq = k.shape[0], k.shape[2]
+    if span is not None:
+        per = min(int(span), seq)
+        return b * (min(per, window) if window > 0 else per)
+    if lengths.device.type == "meta":
+        return b * (min(seq, window) if window > 0 else seq)
+    n = lengths.to(torch.int64).clamp(0, seq)
+    if window > 0:
+        n = n.clamp(max=window)
+    return int(n.sum())
+
+
+def declared_work(q, k, lengths, window: int = 0, span=None):
+    """``(flops, bytes read, bytes written)`` of a call: QK^T and PV over
+    the rows inside the masks, q, those k/v rows and the lengths read
+    once, the float32 output written once (``chip_smoke.py``'s bound)."""
+    b, hkv, g, d = q.shape
+    rows = masked_rows(k, lengths, window, span)
+    read = (q.numel() * q.element_size() + 2 * rows * hkv * d * k.element_size()
+            + lengths.numel() * lengths.element_size())
+    return 4.0 * rows * hkv * g * d, read, b * hkv * g * d * 4
+
+
 def decode_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              lengths: torch.Tensor, *, scale: float,
-                             softcap: float = 0.0, window: int = 0) -> torch.Tensor:
-    """One new token per sequence over its cache; see the module docstring."""
+                             softcap: float = 0.0, window: int = 0,
+                             span=None) -> torch.Tensor:
+    """One new token per sequence over its cache; see the module docstring.
+    ``span``: the host's count of valid positions, when every sequence
+    holds the same (it only sizes the declared work)."""
     _check(q, k, v, lengths)
     if window < 0:
         raise ValueError(f"window must be >= 0 (0 = none), got {window}")
+    with op_analysis.kernel(NAME, lambda: declared_work(q, k, lengths, window, span)):
+        return _dispatch(q, k, v, lengths, scale, softcap, window)
+
+
+def _dispatch(q, k, v, lengths, scale, softcap, window) -> torch.Tensor:
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths, scale=scale,
                                     softcap=softcap, window=window)
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=torch.float32, device="meta")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_kernel_layout(q, k, v, lengths)

@@ -8,13 +8,15 @@ NEG_BIG = -1e30
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor, *, scale: float,
-                         softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+                         softcap: float = 0.0, window: int = 0,
+                         span=None) -> torch.Tensor:
     """q [B, Hkv, g, D]; k, v [B, Hkv, S, D] (any strides); lengths [B]
     -> float32 [B, Hkv, g, D].
 
     Positions ``>= lengths[b]`` are masked and, with ``window > 0``, so
     are positions ``< lengths[b] - window``.  An empty range gives zeros,
-    as the kernel does (``acc / max(l, 1e-30)``).
+    as the kernel does (``acc / max(l, 1e-30)``).  ``span`` is the
+    kernel wrapper's (it only sizes its declared work) and is ignored.
     """
     s = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) * scale
     if softcap > 0.0:

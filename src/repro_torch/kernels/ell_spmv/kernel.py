@@ -11,7 +11,9 @@ rank-batched: one launch covers all ranks of the plan.
     returns [P, n_rows, nv] float32
 
 CPU tensors take the plain version (:mod:`.ref`); CUDA tensors take the
-kernel or raise.
+kernel or raise; ``meta`` tensors an empty result of the output's shape.
+While :mod:`repro_torch.core.op_analysis` counts, a call reports its
+declared work (:func:`declared_work`).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core import op_analysis
 from repro_torch.kernels import _build
 from repro_torch.kernels.ell_spmv.ref import ell_spmm_packed_ref
 
@@ -59,12 +62,34 @@ def _check(cols: torch.Tensor, vals: torch.Tensor, xs) -> None:
         raise ValueError(f"shape out of the kernel's range: {tuple(cols.shape)}, nv {nv}")
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def declared_work(cols, vals, xs):
+    """``(flops, bytes read, bytes written)`` of a call: a product for
+    every slot (padding included: the structure, not the values, sizes
+    it), cols, vals and x read once, the output written once."""
+    p, n_rows, kmax = cols.shape
+    nv = xs[0].shape[-1]
+    read = _nbytes(cols) + _nbytes(vals) + sum(_nbytes(x) for x in xs)
+    return 2.0 * p * n_rows * kmax * nv, read, p * n_rows * nv * 4
+
+
 def ell_spmm_packed(cols: torch.Tensor, vals: torch.Tensor,
                     xs: Sequence[torch.Tensor]) -> torch.Tensor:
     xs = tuple(xs)
     _check(cols, vals, xs)
+    with op_analysis.kernel(NAME, lambda: declared_work(cols, vals, xs)):
+        return _dispatch(cols, vals, xs)
+
+
+def _dispatch(cols, vals, xs) -> torch.Tensor:
     if cols.device.type == "cpu":
         return ell_spmm_packed_ref(cols, vals, xs)
+    if cols.device.type == "meta":
+        return torch.empty(cols.shape[:2] + (xs[0].shape[-1],), dtype=torch.float32,
+                           device="meta")
     if cols.device.type != "cuda":
         raise ValueError(f"unsupported device {cols.device}")
     fn = _fn()

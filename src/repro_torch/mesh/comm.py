@@ -31,7 +31,10 @@ the caller names its payload, per ``"axis:label"``; with a mesh also
 ``stats["inter_node_bytes_<axis>"]``.  The ``node`` all-to-all always
 counts; the ``("node", "proc")`` one counts when it knows the topology
 (``topo=`` or a mesh).  Each process counts the messages its own ranks
-send.
+send.  While a counter of :mod:`repro_torch.core.op_analysis` is active,
+every exchange also reports its kind, its operand's bytes, its group
+and, at the same call as :data:`INTER_NODE_BYTES`, the bytes that cross
+a node (:func:`_exchanged`).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.core import op_analysis
 from repro_torch.core.topology import Topology
 from repro_torch.mesh.buffers import ProcessMesh, _dist
 
@@ -70,6 +74,19 @@ def _count_inter(axis: str, nbytes: int, mesh: Optional[ProcessMesh],
         mesh.stats[f"inter_node_bytes_{axis}"] += nbytes
 
 
+def _exchanged(kind: str, buf: torch.Tensor, group: int, axis: Optional[str] = None,
+               crossing: int = 0, mesh: Optional[ProcessMesh] = None,
+               label: Optional[str] = None) -> None:
+    """One exchange of ``buf``: its node-crossing bytes into
+    :data:`INTER_NODE_BYTES` under ``axis`` (when it has one), and the
+    exchange into an active op counter."""
+    if axis is not None:
+        _count_inter(axis, crossing, mesh, label)
+    if op_analysis.active():
+        op_analysis.note_collective(kind, buf.numel() * buf.element_size(), group,
+                                    crossing, axis)
+
+
 def _nbytes(t: torch.Tensor, dims) -> int:
     n = t.element_size()
     for d in dims:
@@ -83,6 +100,7 @@ def proc_all_to_all(buf: torch.Tensor, ppn: int) -> torch.Tensor:
     ``[ppn, ppn]`` block).  Nodes are whole within a process, so this is
     a permutation in every layout."""
     s = buf.shape
+    _exchanged("all-to-all", buf, ppn)
     return buf.reshape((-1, ppn, ppn) + s[2:]).transpose(1, 2).reshape(s)
 
 
@@ -102,7 +120,8 @@ def node_all_to_all(buf: torch.Tensor, topo: Topology,
     source process, in node order) are permuted into place."""
     s = buf.shape
     nn, ppn = topo.n_nodes, topo.ppn
-    _count_inter("node", _nbytes(buf, (s[0], nn - 1) + tuple(s[2:])), mesh, label)
+    _exchanged("all-to-all", buf, nn, "node",
+               _nbytes(buf, (s[0], nn - 1) + tuple(s[2:])), mesh, label)
     if mesh is None:
         tail = tuple(range(3, len(s) + 1))
         return buf.reshape((nn, ppn, nn) + s[2:]).permute((2, 1, 0) + tail).reshape(s)
@@ -131,9 +150,11 @@ def rank_all_to_all(buf: torch.Tensor, mesh: Optional[ProcessMesh] = None,
     topo = topo if topo is not None else getattr(mesh, "topo", None)
     if topo is not None:
         s = buf.shape
-        _count_inter("nodexproc", _nbytes(
+        _exchanged("all-to-all", buf, s[lead + 1], "nodexproc", _nbytes(
             buf, tuple(s[:lead]) + (s[lead], s[lead + 1] - topo.ppn)
             + tuple(s[lead + 2:])), mesh, label)
+    else:
+        _exchanged("all-to-all", buf, buf.shape[lead + 1])
     if mesh is None:
         return buf.transpose(lead, lead + 1).contiguous()
     s, w, pl = buf.shape, mesh.world, mesh.n_local_procs
@@ -165,7 +186,8 @@ def node_permute(buf: torch.Tensor, topo: Topology,
     s = buf.shape
     nn, ppn = topo.n_nodes, topo.ppn
     if nn > 1:
-        _count_inter("node", _nbytes(buf, tuple(s)), mesh, label)
+        _exchanged("collective-permute", buf, 0, "node", _nbytes(buf, tuple(s)),
+                   mesh, label)
     if mesh is None:
         return buf.reshape((nn, ppn) + s[1:]).roll(shift, dims=0).reshape(s)
     nl, w = mesh.n_local_nodes, mesh.world
@@ -196,6 +218,7 @@ def live_all_to_all(values: torch.Tensor, send_counts: Sequence[int],
     the rows every process sent here, grouped by source process
     (``recv_counts[q]`` from q).  The counts are structure: every process
     derives both from the same plan."""
+    _exchanged("all-to-all", values, mesh.world)
     return _all_to_all(values, mesh, "nodexproc", list(send_counts),
                        list(recv_counts))
 

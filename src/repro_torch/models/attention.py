@@ -51,13 +51,16 @@ def _project_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 
 def gqa_attend(p, cfg, x: torch.Tensor, *, window: Optional[int] = None,
-               causal: bool = True
+               causal: bool = True, cs_qkv=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence attention and the k, v it attended over:
-    x [B, S, d] -> (out [B, S, d], k and v [B, S, Hkv, dh])."""
+    x [B, S, d] -> (out [B, S, d], k and v [B, S, Hkv, dh]).  ``cs_qkv``
+    (a model's activation specs) sees q, k, v before the attention."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
+    if cs_qkv is not None:
+        q, k, v = cs_qkv(q, k, v)
     out = blocked_attention(q, k, v, causal=causal, window=window,
                             softcap=cfg.attn_softcap, block_q=cfg.attn_block_q,
                             block_kv=cfg.attn_block_kv)
@@ -65,9 +68,9 @@ def gqa_attend(p, cfg, x: torch.Tensor, *, window: Optional[int] = None,
 
 
 def gqa_apply(p, cfg, x: torch.Tensor, *, window: Optional[int] = None,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, cs_qkv=None) -> torch.Tensor:
     """Full-sequence attention (training / prefill): x [B, S, d] -> [B, S, d]."""
-    return gqa_attend(p, cfg, x, window=window, causal=causal)[0]
+    return gqa_attend(p, cfg, x, window=window, causal=causal, cs_qkv=cs_qkv)[0]
 
 
 def gqa_init_cache(cfg, batch: int, max_seq: int, dtype, device) -> Dict[str, torch.Tensor]:
@@ -102,7 +105,7 @@ def gqa_decode(p, cfg, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     out = decode_attention_grouped(
         q.reshape(b, hkv, g, dh), cache["k"].transpose(1, 2),
         cache["v"].transpose(1, 2), length + 1, scale=1.0 / math.sqrt(dh),
-        softcap=cfg.attn_softcap, window=window or 0)
+        softcap=cfg.attn_softcap, window=window or 0, span=pos + 1)
     return out.to(x.dtype).reshape(b, 1, -1) @ p["wo"], cache
 
 
@@ -154,7 +157,7 @@ def _mla_expand(p, cfg, c_kv: torch.Tensor):
     return kv[..., :nope], kv[..., nope:]
 
 
-def mla_attend(p, cfg, x: torch.Tensor
+def mla_attend(p, cfg, x: torch.Tensor, cs_qkv=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence causal MLA and the latent it cached: x [B, S, d] ->
     (out [B, S, d], c_kv [B, S, r_kv], k_rope [B, S, rope]).  Through
@@ -167,14 +170,16 @@ def mla_attend(p, cfg, x: torch.Tensor
     k_nope, v = _mla_expand(p, cfg, c_kv)
     q = torch.cat([q_nope, q_rope], -1)[:, :, :, None, :]    # [B, S, H, 1, Dk]
     k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, rope)], -1)
+    if cs_qkv is not None:
+        q, k, v = cs_qkv(q, k, v)
     out = blocked_attention(q, k, v, causal=True, softcap=0.0,
                             block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
     return out.reshape(b, s, h * dv) @ p["wo"], c_kv, k_rope
 
 
-def mla_apply(p, cfg, x: torch.Tensor) -> torch.Tensor:
+def mla_apply(p, cfg, x: torch.Tensor, cs_qkv=None) -> torch.Tensor:
     """Full-sequence MLA (training / prefill): x [B, S, d] -> [B, S, d]."""
-    return mla_attend(p, cfg, x)[0]
+    return mla_attend(p, cfg, x, cs_qkv)[0]
 
 
 def mla_init_cache(cfg, batch: int, max_seq: int, dtype, device) -> Dict[str, torch.Tensor]:

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import op_analysis
 from repro_torch.kernels.decode_attn.ref import decode_attention_ref
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -94,8 +95,10 @@ def rope_frequencies(dim: int, theta: float) -> np.ndarray:
 def _rope_freqs(dim: int, theta: float, device: torch.device) -> torch.Tensor:
     """Frequencies in float64 on the host, then float32 on the device, as
     the reference computes them (float32 from the start drifts at long
-    positions)."""
-    return torch.from_numpy(rope_frequencies(dim, theta).astype(np.float32)).to(device)
+    positions).  Made once a device and cached, so an operator count
+    leaves the copy out: every run then counts the same."""
+    with op_analysis.suspended():
+        return torch.from_numpy(rope_frequencies(dim, theta).astype(np.float32)).to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -236,9 +239,11 @@ def head_logits(x: torch.Tensor, head: torch.Tensor, softcap: float = 0.0) -> to
 # chunked cross-entropy (never materialises [B, S, V] at once)
 # ---------------------------------------------------------------------------
 
-def _xent_chunk(xi, head, li, softcap):
+def _xent_chunk(xi, head, li, softcap, cs_logits=None):
     """(sum of the chunk's token NLLs, its count of labels >= 0), float32."""
     logits = (xi @ head).float()
+    if cs_logits is not None:
+        logits = cs_logits(logits)
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
     lse = torch.logsumexp(logits, dim=-1)
@@ -251,7 +256,8 @@ def _xent_chunk(xi, head, li, softcap):
 
 
 def chunked_xent(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                 *, chunk: int = 2048, softcap: float = 0.0) -> torch.Tensor:
+                 *, chunk: int = 2048, softcap: float = 0.0,
+                 cs_logits=None) -> torch.Tensor:
     """x: [B, S, D]; head: [D, V]; labels: [B, S] (-1 ignored) -> mean
     token NLL (0-d float32).
 
@@ -260,7 +266,8 @@ def chunked_xent(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     keeping every chunk's).  A chunk longer than S is cut to S: the
     reference pads S up to the chunk, and the padded tokens (label -1)
     add exactly zero to both sums, so only the padding's memory and
-    FLOPs differ.
+    FLOPs differ.  ``cs_logits`` (a model's activation specs) sees each
+    chunk's float32 logits.
     """
     b, s, d = x.shape
     chunk = min(chunk, s)
@@ -273,7 +280,7 @@ def chunked_xent(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     acc = torch.zeros(2, dtype=torch.float32, device=x.device)
     for i in range(n):
         args = (x[:, i * chunk:(i + 1) * chunk], head,
-                labels[:, i * chunk:(i + 1) * chunk], softcap)
+                labels[:, i * chunk:(i + 1) * chunk], softcap, cs_logits)
         acc = acc + (checkpoint(_xent_chunk, *args, use_reentrant=False)
                      if use_ckpt else _xent_chunk(*args))
     return acc[0] / torch.clamp(acc[1], min=1.0)

@@ -14,7 +14,7 @@ from repro_torch.optim.adamw import tree_leaves_with_path
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None, *, mesh: Any = None,
-                ep: Any = None) -> TreeModel:
+                ep: Any = None, shard_mesh: Any = None) -> TreeModel:
     """The model of ``cfg``'s family on CUDA (``device="cpu"`` to stay on
     the host), without weights until ``.init(seed)`` or ``.load(tree)``,
     as the reference's ``build_model`` dispatches: the encoder-decoder
@@ -22,13 +22,19 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None, *, mesh: Any = None
     (the dense and MoE families and rwkv6).  ``mesh=None`` runs the MoE
     blocks through the local oracle; a ``Topology`` or ``ProcessMesh``
     through the expert-parallel island (``ep``: its axes, by default pod
-    over model).  The reference's mesh on the other families only feeds
-    its sharding constraints, so they take none."""
+    over model).  ``shard_mesh`` (every family; a production mesh by
+    shape, :func:`repro_torch.launch.mesh.make_production_mesh`) is the
+    reference's sharding mesh: it names the activation specs the model
+    reports while a counter is active, and changes no computation.
+    ``device="meta"`` builds a model of meta tensors (no memory) for the
+    dry run's counts."""
     if cfg.is_encoder_decoder or cfg.family == "hybrid":
         if mesh is not None or ep is not None:
-            raise ValueError(f"{cfg.name}: mesh= and ep= are for the MoE family")
-        return (WhisperModel if cfg.is_encoder_decoder else ZambaModel)(cfg, device)
-    return LM(cfg, device=device, mesh=mesh, ep=ep)
+            raise ValueError(f"{cfg.name}: mesh= and ep= are for the MoE family "
+                             f"(its island); the sharding mesh is shard_mesh=")
+        return (WhisperModel if cfg.is_encoder_decoder else ZambaModel)(
+            cfg, device, shard_mesh=shard_mesh)
+    return LM(cfg, device=device, mesh=mesh, ep=ep, shard_mesh=shard_mesh)
 
 
 def param_shapes(model: TreeModel) -> Any:

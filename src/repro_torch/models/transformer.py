@@ -44,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv
+from repro_torch.models.actsharding import ActShard
 from repro_torch.models.common import (chunked_xent, dense_init, dtype_of,
                                        embed_init, head_logits, init_device,
                                        rms_norm)
@@ -103,17 +104,17 @@ def _ffn_half(p, cfg, x, moe: Optional[MoEFn]):
 
 
 def block_prefill(p, cfg: ModelConfig, x: torch.Tensor, *,
-                  window: Optional[int] = None, moe: Optional[MoEFn] = None
-                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                  window: Optional[int] = None, moe: Optional[MoEFn] = None,
+                  cs_qkv=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One layer over the full sequence, and its cache: ``{"k", "v"}`` of
     ``[B, S, Hkv, dh]``, or MLA's ``{"c_kv", "k_rope"}`` (the reference's
-    ``LM._prefill_block``)."""
+    ``LM._prefill_block``).  ``cs_qkv``: the model's activation specs."""
     hn = _norm(cfg, x, p.norm1)
     if cfg.mla_kv_lora:
-        h, c_kv, k_rope = attn.mla_attend(p.attn, cfg, hn)
+        h, c_kv, k_rope = attn.mla_attend(p.attn, cfg, hn, cs_qkv)
         cache = {"c_kv": c_kv, "k_rope": k_rope}
     else:
-        h, k, v = attn.gqa_attend(p.attn, cfg, hn, window=window)
+        h, k, v = attn.gqa_attend(p.attn, cfg, hn, window=window, cs_qkv=cs_qkv)
         cache = {"k": k, "v": v}
     if cfg.post_norms:
         h = _norm(cfg, h, p.norm1_post)
@@ -122,9 +123,9 @@ def block_prefill(p, cfg: ModelConfig, x: torch.Tensor, *,
 
 def block_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
                 window: Optional[int] = None,
-                moe: Optional[MoEFn] = None) -> torch.Tensor:
+                moe: Optional[MoEFn] = None, cs_qkv=None) -> torch.Tensor:
     """One layer over the full sequence (training)."""
-    return block_prefill(p, cfg, x, window=window, moe=moe)[0]
+    return block_prefill(p, cfg, x, window=window, moe=moe, cs_qkv=cs_qkv)[0]
 
 
 def block_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
@@ -175,7 +176,7 @@ def _rwkv_apply(lp, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # LM model object
 # ---------------------------------------------------------------------------
 
-class LM(TreeModel):
+class LM(TreeModel, ActShard):
     """Decoder-only LM on one device (CUDA unless ``device="cpu"``).
 
     ``mesh`` (a ``Topology`` ``(n_pods, n_inner)`` or a ``ProcessMesh``)
@@ -191,11 +192,17 @@ class LM(TreeModel):
 
     The SSM family (``cfg.family == "ssm"``: rwkv6) has one ``layers``
     entry a block, ``{"block": rwkv6 weights, "norm1", "norm2"}``; its
-    cache is each layer's recurrent state."""
+    cache is each layer's recurrent state.
+
+    ``shard_mesh`` (a production mesh by shape, or None) only names the
+    activation specs the model reports while a counter is active
+    (:mod:`repro_torch.models.actsharding`); ``mesh`` stays the island's."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
-                 mesh: Any = None, ep: Optional[EPInfo] = None):
+                 mesh: Any = None, ep: Optional[EPInfo] = None,
+                 shard_mesh: Any = None):
         super().__init__(cfg, device)
+        self.shard_mesh = shard_mesh
         self.mesh = mesh
         self.ep = ep or (EPInfo(inner_axis="model", pod_axis="pod")
                          if mesh is not None and cfg.is_moe else None)
@@ -284,17 +291,27 @@ class LM(TreeModel):
     def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, S] -> hidden [B, S, d] (after the final norm)."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        x = self.cs_hidden(self._embed(tokens))
         remat = cfg.remat and torch.is_grad_enabled()
         if self.rwkv:
             for lp in self.layers:
+                self.cs_params(lp)
+                x = self.cs_full_hidden(x)
                 x = (checkpoint(_rwkv_apply, lp, cfg, x, use_reentrant=False)
                      if remat else _rwkv_apply(lp, cfg, x))
+                x = self.cs_hidden(x)
             return _norm(cfg, x, self.final_norm)
-        for lp, w in self._stack(tokens.shape[1]):
+        for i, (lp, w) in enumerate(self._stack(tokens.shape[1])):
+            stacked = i >= self.n_dense       # the reference's scanned layers
+            if stacked:
+                self.cs_params(lp)
+                x = self.cs_full_hidden(x)
             x = (checkpoint(block_apply, lp, cfg, x, window=w, moe=self._moe_once(),
-                            use_reentrant=False)
-                 if remat else block_apply(lp, cfg, x, window=w, moe=self._moe))
+                            cs_qkv=self.cs_qkv, use_reentrant=False)
+                 if remat else block_apply(lp, cfg, x, window=w, moe=self._moe,
+                                           cs_qkv=self.cs_qkv))
+            if stacked:
+                x = self.cs_hidden(x)
         return _norm(cfg, x, self.final_norm)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -302,7 +319,8 @@ class LM(TreeModel):
         h = self.hidden(batch["tokens"])
         return chunked_xent(h, self.head_matrix(), batch["labels"],
                             chunk=self.cfg.xent_chunk,
-                            softcap=self.cfg.final_softcap)
+                            softcap=self.cfg.final_softcap,
+                            cs_logits=self.cs_logits)
 
     def _layer_caches(self, cache: Dict) -> List[Dict[str, torch.Tensor]]:
         """Each layer's view of the stacked cache, in ``_stack``'s order."""
@@ -329,8 +347,16 @@ class LM(TreeModel):
                 x, c = _rwkv_layer(lp, cfg, x, state0)
                 caches.append(c)
         else:
-            for lp, w in self._stack(s):
-                x, c = block_prefill(lp, cfg, x, window=w, moe=self._moe)
+            for i, (lp, w) in enumerate(self._stack(s)):
+                stacked = i >= self.n_dense
+                if stacked:
+                    x = self.cs_full_hidden(x)
+                x, c = block_prefill(lp, cfg, x, window=w, moe=self._moe,
+                                     cs_qkv=self.cs_qkv)
+                if stacked:
+                    x = self.cs_hidden(x)
+                    for k in sorted(c):
+                        self.cs_kv(c[k])
                 caches.append(c)
         x = _norm(cfg, x, self.final_norm)
         logits = head_logits(x[:, -1], self.head_matrix(), cfg.final_softcap)
@@ -394,9 +420,12 @@ class LM(TreeModel):
                     states[k][i] = v
         else:
             max_seq = next(iter(cache["layers"].values())).shape[2]
-            for (lp, w), c in zip(self._stack(max_seq), self._layer_caches(cache)):
+            for i, ((lp, w), c) in enumerate(zip(self._stack(max_seq),
+                                                 self._layer_caches(cache))):
                 x, _ = block_decode(lp, cfg, x, c, length, pos=pos, window=w,
                                     moe=self._moe)
+                if i >= self.n_dense:
+                    x = self.cs_hidden(x)
         cache["length"] = length + 1
         cache["pos"] = pos + 1
         x = _norm(cfg, x, self.final_norm)

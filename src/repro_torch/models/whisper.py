@@ -35,6 +35,7 @@ from torch import nn
 from repro_torch.device import DeviceLike
 from repro_torch.kernels.decode_attn.kernel import decode_attention_grouped
 from repro_torch.models import attention as attn
+from repro_torch.models.actsharding import ActShard
 from repro_torch.models.common import (blocked_attention, chunked_xent,
                                        dense_init, dtype_of, embed_init,
                                        head_logits, init_device, layer_call,
@@ -78,15 +79,16 @@ def _xattn_apply(p, cfg, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     return out.reshape(b, s, -1) @ p["wo"]
 
 
-def _enc_layer(lp, cfg, x: torch.Tensor) -> torch.Tensor:
-    x = x + attn.gqa_apply(lp.attn, cfg, rms_norm(x, lp.norm1), causal=False)
+def _enc_layer(lp, cfg, x: torch.Tensor, cs_qkv=None) -> torch.Tensor:
+    x = x + attn.gqa_apply(lp.attn, cfg, rms_norm(x, lp.norm1), causal=False,
+                           cs_qkv=cs_qkv)
     return x + ffn_apply(lp.ffn, rms_norm(x, lp.norm2), act="gelu")
 
 
-def _dec_layer(lp, cfg, x: torch.Tensor, enc: torch.Tensor):
+def _dec_layer(lp, cfg, x: torch.Tensor, enc: torch.Tensor, cs_qkv=None):
     """One decoder layer over the full sequence, and its caches: the
     self-attention's k, v and the cross-attention's xk, xv."""
-    h, k, v = attn.gqa_attend(lp.attn, cfg, rms_norm(x, lp.norm1))
+    h, k, v = attn.gqa_attend(lp.attn, cfg, rms_norm(x, lp.norm1), cs_qkv=cs_qkv)
     x = x + h
     xk, xv = _xattn_kv(lp.xattn, cfg, enc)
     x = x + _xattn_apply(lp.xattn, cfg, rms_norm(x, lp.norm_x), xk, xv)
@@ -94,15 +96,19 @@ def _dec_layer(lp, cfg, x: torch.Tensor, enc: torch.Tensor):
     return x, {"k": k, "v": v, "xk": xk, "xv": xv}
 
 
-def _dec_apply(lp, cfg, x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
-    return _dec_layer(lp, cfg, x, enc)[0]
+def _dec_apply(lp, cfg, x: torch.Tensor, enc: torch.Tensor,
+               cs_qkv=None) -> torch.Tensor:
+    return _dec_layer(lp, cfg, x, enc, cs_qkv)[0]
 
 
-class WhisperModel(TreeModel):
-    """The encoder-decoder on one device (CUDA unless ``device="cpu"``)."""
+class WhisperModel(TreeModel, ActShard):
+    """The encoder-decoder on one device (CUDA unless ``device="cpu"``);
+    ``shard_mesh`` names the activation specs it reports while a counter
+    is active (:mod:`repro_torch.models.actsharding`)."""
 
-    def __init__(self, cfg, device: DeviceLike = None):
+    def __init__(self, cfg, device: DeviceLike = None, *, shard_mesh: Any = None):
         super().__init__(cfg, device)
+        self.shard_mesh = shard_mesh
         self.enc_layers = nn.ModuleList()
         self.dec_layers = nn.ModuleList()
 
@@ -145,7 +151,9 @@ class WhisperModel(TreeModel):
                            cfg.d_model).to(x.dtype)[None]
         run = layer_call(self.cfg.remat)
         for lp in self.enc_layers:
-            x = run(_enc_layer, lp, cfg, x)
+            self.cs_params(lp)
+            x = self.cs_full_hidden(x)
+            x = self.cs_hidden(run(_enc_layer, lp, cfg, x, self.cs_qkv))
         return rms_norm(x, self.enc_norm)
 
     # ---- decoder (training) ---------------------------------------------------
@@ -155,7 +163,9 @@ class WhisperModel(TreeModel):
         x = self._embed(tokens, torch.arange(tokens.shape[1], device=tokens.device)[None])
         run = layer_call(self.cfg.remat)
         for lp in self.dec_layers:
-            x = run(_dec_apply, lp, self.cfg, x, enc)
+            self.cs_params(lp)
+            x = self.cs_full_hidden(x)
+            x = self.cs_hidden(run(_dec_apply, lp, self.cfg, x, enc, self.cs_qkv))
         return rms_norm(x, self.final_norm)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -163,7 +173,7 @@ class WhisperModel(TreeModel):
         ``batch["frames"]``, float32."""
         h = self.hidden(batch["tokens"], self.encode(batch["frames"]))
         return chunked_xent(h, self.head_matrix(), batch["labels"],
-                            chunk=self.cfg.xent_chunk)
+                            chunk=self.cfg.xent_chunk, cs_logits=self.cs_logits)
 
     # ---- serving ------------------------------------------------------------
     @torch.no_grad()
@@ -188,7 +198,10 @@ class WhisperModel(TreeModel):
         x = self._embed(tokens, torch.arange(s, device=tokens.device)[None])
         caches = []
         for lp in self.dec_layers:
-            x, c = _dec_layer(lp, cfg, x, enc)
+            x, c = _dec_layer(lp, cfg, x, enc, self.cs_qkv)
+            for k in sorted(c):
+                self.cs_kv(c[k])
+            x = self.cs_hidden(x)
             caches.append(c)
         x = rms_norm(x, self.final_norm)
         logits = head_logits(x[:, -1], self.head_matrix())
@@ -233,7 +246,8 @@ class WhisperModel(TreeModel):
             q = (rms_norm(x, lp.norm_x) @ lp.xattn["wq"]).reshape(b, hkv, -1, dh)
             y = decode_attention_grouped(q, cache["xk"][i].transpose(1, 2),
                                          cache["xv"][i].transpose(1, 2), enc_len,
-                                         scale=1.0 / math.sqrt(dh))
+                                         scale=1.0 / math.sqrt(dh),
+                                         span=cfg.encoder_seq)
             x = x + y.to(x.dtype).reshape(b, 1, -1) @ lp.xattn["wo"]
             x = x + ffn_apply(lp.ffn, rms_norm(x, lp.norm2), act="gelu")
         cache["length"] = length + 1

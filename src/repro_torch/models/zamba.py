@@ -33,6 +33,7 @@ from torch import nn
 
 from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn
+from repro_torch.models.actsharding import ActShard
 from repro_torch.models import ssm
 from repro_torch.models.common import (chunked_xent, dtype_of, embed_init,
                                        head_logits, init_device, layer_call,
@@ -45,22 +46,25 @@ def _mamba_layer(lp, cfg, x: torch.Tensor) -> torch.Tensor:
     return x + ssm.mamba2_apply(lp.mamba, cfg, rms_norm(x, lp.norm))
 
 
-def _shared_attend(sp, cfg, x: torch.Tensor):
+def _shared_attend(sp, cfg, x: torch.Tensor, cs_qkv=None):
     """The shared block over the full sequence, and the k, v it attended."""
-    h, k, v = attn.gqa_attend(sp.attn, cfg, rms_norm(x, sp.norm1))
+    h, k, v = attn.gqa_attend(sp.attn, cfg, rms_norm(x, sp.norm1), cs_qkv=cs_qkv)
     x = x + h
     return x + ffn_apply(sp.ffn, rms_norm(x, sp.norm2)), k, v
 
 
-def _shared_apply(sp, cfg, x: torch.Tensor) -> torch.Tensor:
-    return _shared_attend(sp, cfg, x)[0]
+def _shared_apply(sp, cfg, x: torch.Tensor, cs_qkv=None) -> torch.Tensor:
+    return _shared_attend(sp, cfg, x, cs_qkv)[0]
 
 
-class ZambaModel(TreeModel):
-    """The hybrid on one device (CUDA unless ``device="cpu"``)."""
+class ZambaModel(TreeModel, ActShard):
+    """The hybrid on one device (CUDA unless ``device="cpu"``);
+    ``shard_mesh`` names the activation specs it reports while a counter
+    is active (:mod:`repro_torch.models.actsharding`)."""
 
-    def __init__(self, cfg, device: DeviceLike = None):
+    def __init__(self, cfg, device: DeviceLike = None, *, shard_mesh: Any = None):
         super().__init__(cfg, device)
+        self.shard_mesh = shard_mesh
         self.mamba_layers = nn.ModuleList()
 
     @property
@@ -97,15 +101,17 @@ class ZambaModel(TreeModel):
         run = layer_call(cfg.remat)
         for seg in range(self.n_apps):
             for i in self._segment(seg):
-                x = run(_mamba_layer, self.mamba_layers[i], cfg, x)
-            x = run(_shared_apply, self.shared, cfg, x)
+                self.cs_params(self.mamba_layers[i])
+                x = self.cs_full_hidden(x)
+                x = self.cs_hidden(run(_mamba_layer, self.mamba_layers[i], cfg, x))
+            x = run(_shared_apply, self.shared, cfg, x, self.cs_qkv)
         return rms_norm(x, self.final_norm)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean token NLL of ``batch["labels"]`` (-1 ignored), float32."""
         h = self.hidden(batch["tokens"])
         return chunked_xent(h, self.head_matrix(), batch["labels"],
-                            chunk=self.cfg.xent_chunk)
+                            chunk=self.cfg.xent_chunk, cs_logits=self.cs_logits)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -120,7 +126,7 @@ class ZambaModel(TreeModel):
         for seg in range(self.n_apps):
             for i in self._segment(seg):
                 x = _mamba_layer(self.mamba_layers[i], cfg, x)
-            x, k, v = _shared_attend(self.shared, cfg, x)
+            x, k, v = _shared_attend(self.shared, cfg, x, self.cs_qkv)
             ks.append(k)
             vs.append(v)
         x = rms_norm(x, self.final_norm)

@@ -479,8 +479,11 @@ def _flat(isl: _Island, chunk, w, ids, experts, e_base, drops):
     # sequential-k FIFO: copy (t, k) follows every copy of k' < k
     counts = torch.zeros((C, n_chips), dtype=torch.int64, device=dev)
     slot = torch.empty((C, Tc, K), dtype=torch.int64, device=dev)
+    chips = torch.arange(n_chips, device=dev)
     for k in range(K):
-        onehot = F.one_hot(dst_chip[:, :, k], n_chips)        # [C, Tc, n_chips]
+        # F.one_hot's values; its operators differ by device (a range check
+        # with a host sync on the CPU), this comparison's do not
+        onehot = (dst_chip[:, :, k, None] == chips).to(torch.int64)   # [C, Tc, n_chips]
         s = counts[:, None, :] + torch.cumsum(onehot, 1) - onehot
         sk = (s * onehot).sum(-1)
         slot[:, :, k] = torch.where(sk < capacity, sk, capacity)

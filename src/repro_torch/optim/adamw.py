@@ -290,7 +290,7 @@ def adamw_update(grads: Pytree, params: Pytree, state: Dict,
             upd.add_(base, alpha=cfg.weight_decay)
             base.add_(upd, alpha=-lr)
             del upd
-            if base.data_ptr() != dst.data_ptr():
+            if base is not dst:
                 dst.copy_(base)
             if q8:
                 _store(m_st, _q8_quant(m))

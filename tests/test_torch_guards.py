@@ -346,3 +346,41 @@ def test_late_families_raise_without_cuda(arch, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", arch, "--steps", "1"])
     assert build_model(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_dry_run_modules_import_loads_neither_jax_nor_reference():
+    """The dry run, its meshes, specs, counter and roofline load neither
+    JAX nor the JAX package."""
+    code = ("import sys, repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+            "import repro_torch.core.op_analysis, repro_torch.core.roofline\n"
+            "import repro_torch.models.partitioning, repro_torch.models.actsharding\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\nprint('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "clean" in proc.stdout
+
+
+def test_dry_run_counts_on_meta_and_models_default_to_cuda(monkeypatch, tmp_path):
+    """The dry run counts on ``meta`` and needs no card; a cell on a real
+    device, a model with a sharding mesh and the live production mesh
+    still need CUDA (or ``device="cpu"``)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = make_production_mesh(n_devices=256)
+    with pytest.raises(RuntimeError, match="n_devices"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(get_reduced("gemma2-2b"), shard_mesh=mesh)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.build_cell("gemma2-2b", "decode_32k", mesh, device="cuda")
+    assert steps.build_cell("gemma2-2b", "decode_32k", mesh,
+                            overrides={"n_layers": 1}).kind == "decode"
+    assert dryrun.main(["--arch", "rwkv6-3b", "--shape", "long_500k", "--set",
+                        "n_layers=1", "--out", str(tmp_path / "d.json")]) == 0
