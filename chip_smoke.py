@@ -5,7 +5,8 @@ the distributed SpGEMM and the AMG solver path, the solver service, the
 multi-process mesh, the MoE token dispatch, the hierarchical collectives,
 the gemma2-2b serving path, gemma2-2b's prefill and training,
 serving and training the MoE LMs (qwen3-moe-235b-a22b, deepseek-v2-236b),
-and serving whisper-small, zamba2-2.7b and rwkv6-3b.
+serving whisper-small, zamba2-2.7b and rwkv6-3b, and data-parallel
+training across processes.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -404,7 +405,8 @@ Phases, each fatal on failure:
     448 over 4 x 1500 frames and zamba2-2.7b 4 x 512 at full depth,
     rwkv6-3b 4 x 512 cut to 4 of 32 layers, its stepwise recurrence),
     bf16 weights from the seed, fp32 masters, the configs' float32
-    moments, remat, grad_accum 1, 4 steps: step ms (median of steps 2-4)
+    moments, remat, grad_accum 1, 4 steps (rwkv6 2): step ms (median of
+    the steps after the first)
     split into forward + backward and the update, tokens/s, 6 N T's share
     of the bf16 peak beside the products' FLOPs x 3, peak memory and busy
     share (rwkv6's from a 4 x 64 step), finite losses and grad norms
@@ -424,6 +426,23 @@ Phases, each fatal on failure:
     forward counted on the card: its exchanges' node-crossing bytes per
     axis equal ``inter_node_bytes()`` over the same apply and its ELL
     calls the launches (gated);
+29. data-parallel training across two gloo processes sharing the card
+    (children of this script, ``--dp-child``, started with phase 9's
+    host work and waited for before its first timing on the card; the
+    checks here): (a) ``repro_torch.launch.train.train`` over the job's
+    data axis, whisper-small at full width (bf16, fp32 masters, remat),
+    phase 27's 4 x 448 tokens over 4 x 1500 frames split 2 + 2, 3
+    steps: each step's ms split into forward + backward, the all-reduce
+    (its wall beside it) and AdamW, bytes staged and sent to the other
+    process, peak memory a process; the processes' parameter digests
+    equal every step, finite losses, and step 1 against process 0's
+    one-process step on the whole batch from the same weights (loss
+    rtol 1e-3, the reduced gradient within 2^-6 of each leaf's max
+    |grad|), all gated; (b) held: reduced gemma2-2b and qwen3-moe as
+    replicas, qwen3-moe and deepseek-v2 on the island over Topology(2,
+    2) across the processes (flat and nap, f32 wire), float32, 3 steps
+    each against its one-process run on the card (losses rtol 1e-4,
+    digests equal), gated;
 21. the whole script's seconds with every phase's, a JSON line of every
     kernel (with ``device_ms`` and, for the BSR kernels,
     ``library_bsr_ms``; the decode kernel again at qwen3-moe's served
@@ -531,8 +550,8 @@ from repro_torch.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.core.spmv_torch import clear_compile_cache  # noqa: E402
 from repro_torch.mesh import (DiscoveryError, attach,  # noqa: E402
                               default_registry, detach,
-                              fetch_mesh_array, launch, mesh_env, mesh_for,
-                              pick_coordinator, stage_mesh_array)
+                              fetch_mesh_array, job_barrier, launch, mesh_env,
+                              mesh_for, pick_coordinator, stage_mesh_array)
 from repro_torch.mesh.comm import (inter_node_bytes,  # noqa: E402
                                    live_all_to_all, node_all_to_all,
                                    reset_inter_node_bytes)
@@ -2657,6 +2676,20 @@ def mesh_program_ms(pid, op, runs, x):
     return out
 
 
+def exit_with_parent():
+    """The launching script runs on beside this child process; if it dies,
+    this process stops too instead of outliving it."""
+    parent = os.getppid()
+
+    def watchdog():
+        while True:
+            time.sleep(2)
+            if os.getppid() != parent:
+                os._exit(3)
+
+    threading.Thread(target=watchdog, daemon=True).start()
+
+
 def mesh_child(spec_file):
     """One process of phases 9e and 9h, started by ``launch`` with the
     REPRO_MESH_* variables: attach, build the main path's operators over
@@ -2665,17 +2698,7 @@ def mesh_child(spec_file):
     plan, then the AMG path and the service; write the results (process
     0) and a report with the digests of every result (each process)."""
     spec = json.loads(Path(spec_file).read_text())
-    parent = os.getppid()
-
-    def watchdog():
-        """The launching script runs on beside this process; if it dies,
-        this process stops too instead of outliving it."""
-        while True:
-            time.sleep(2)
-            if os.getppid() != parent:
-                os._exit(3)
-
-    threading.Thread(target=watchdog, daemon=True).start()
+    exit_with_parent()
     info = attach(verbose=True)
     pid = info["process_id"]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5801,7 +5824,9 @@ FAMILY_SSD = (2, 256, 128)   # zamba2's held batch, tokens and its full config's
 # stepwise recurrence a token at a time), the others at full depth
 FAMILY_FULL = {"whisper-small": (4, 448, 12), "zamba2-2.7b": (4, 512, 54),
                "rwkv6-3b": (4, 512, 4)}
-FAMILY_STEPS = 4
+# steps of each (the first is warm-up); rwkv6 cut from 4 to 2 for the time
+# limit when phase 29 came (~4.2 s a step)
+FAMILY_STEPS = {"whisper-small": 4, "zamba2-2.7b": 4, "rwkv6-3b": 2}
 # rwkv6's busy share is read from a step of 4 x 64 tokens: the profiler
 # took ~2 min to process a 4 x 512 step's ~100 k kernels (the time limit)
 FAMILY_PROFILE_SEQ = {"rwkv6-3b": 64}
@@ -5887,18 +5912,19 @@ def train_flops(model, cfg, b, s):
 def family_full(arch, seed, smi):
     """One of the three at full width (rwkv6 cut to 4 layers), bf16
     weights from the seed, fp32 masters, the config's moments, remat,
-    grad_accum 1: ``FAMILY_STEPS`` steps of the driver's batches."""
+    grad_accum 1: ``FAMILY_STEPS[arch]`` steps of the driver's batches."""
     t0 = time.perf_counter()
     b, s, layers = FAMILY_FULL[arch]
+    n_steps = FAMILY_STEPS[arch]
     full = get_config(arch)
     cfg = full.replace(grad_accum=1, n_layers=layers)
     model = build_model(cfg).init(seed)
     n_params = count_params(model)
-    opt_cfg = AdamWConfig(lr=3e-4, total_steps=FAMILY_STEPS, warmup_steps=1,
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=n_steps, warmup_steps=1,
                           state_dtype=cfg.opt_state_dtype, master_fp32=cfg.opt_master_fp32)
     opt_state = adamw_init(model.param_tree(), opt_cfg)
     step_fn = make_train_step(model, opt_cfg)
-    batches = [train.to_device(x, DEV) for x in family_batches(cfg, seed, b, s, FAMILY_STEPS + 1)]
+    batches = [train.to_device(x, DEV) for x in family_batches(cfg, seed, b, s, n_steps + 1)]
     print(f"[27] {arch} training at full width: {cfg.n_layers} of {full.n_layers} layers, "
           f"{cfg.dtype} weights from the seed, {n_params} parameters, remat {cfg.remat}; "
           f"{b} x {s} bigram tokens" + (f" over {b} x {cfg.encoder_seq} frames"
@@ -5906,7 +5932,7 @@ def family_full(arch, seed, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, norms, fb, up = [], [], [], []
-    for i in range(FAMILY_STEPS):
+    for i in range(n_steps):
         clock = Clock(DEV)
         clock.mark()
         loss, grads = step_fn.loss_and_grad(batches[i])
@@ -5940,7 +5966,7 @@ def family_full(arch, seed, smi):
           f"{cfg.opt_state_dtype} moments {state_gb:.3f} GB; losses "
           f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in norms]} "
           f"(finite)")
-    print(f"  step {step:.2f} ms (CUDA events, median of steps 2-{FAMILY_STEPS}; min "
+    print(f"  step {step:.2f} ms (CUDA events, median of steps 2-{n_steps}; min "
           f"{min(steps[1:]):.2f}, max {max(steps[1:]):.2f}): forward + backward "
           f"{statistics.median(fb[1:]):.2f} ms, AdamW update {statistics.median(up[1:]):.2f} "
           f"ms; {tokens / (step / 1e3):.0f} tokens/s; 6 N T / (step x 989 TFLOP/s) = "
@@ -6105,6 +6131,209 @@ def phase_counts(finish, smi):
           f"inter_node_bytes() (checked in phase 4)")
 
 
+# ---------------------------------------------------------------------------
+# 29. data-parallel training across processes
+# ---------------------------------------------------------------------------
+
+DP_PROCS = 2
+DP_ARCH = "whisper-small"
+# 29a: phase 27's whisper batch, 4 x 448 tokens over 4 x 1500 frames, split
+# over the two processes
+DP_FULL = dict(batch=4, seq=448, steps=3, lr=3e-4)
+DP_GRAD_GATE = 2.0 ** -6     # of each leaf's max |grad|: bf16 gradients
+DP_HELD = dict(batch=4, seq=32, steps=3, lr=1e-3)
+# 29b: (arch, config overrides, on the island over Topology(2, 2) across
+# the processes); the capacity holds every copy, so the one-process run
+# (batch 4 on one island) and the job's (2 a process) drop nothing
+DP_MOE = dict(wire_dtype="f32", capacity_factor=8.0)
+DP_HELD_CASES = {
+    "gemma2-2b": ("gemma2-2b", {}, False),
+    "qwen3-moe replicas": ("qwen3-moe-235b-a22b", DP_MOE, False),
+    **{f"{arch.split('-')[0]} island {mode}": (arch, dict(DP_MOE, moe_dispatch=mode), True)
+       for arch in MOE_LM_ARCHS for mode in ("flat", "nap")}}
+DP_ISLAND = (2, 2)
+
+
+def dp_control(model, cfg, seed, got_loss, got_grads):
+    """Process 0's one-process step 1 on the whole batch from the same
+    weights (before the update): its loss and each leaf's max |diff| over
+    the control's max |grad|."""
+    h = DP_FULL
+    batch = train.to_device(train.step_batch(
+        cfg, SyntheticLM(cfg.vocab, h["seq"], seed=seed), 0, h["batch"]), model.device)
+    loss, grads = make_train_step(model, AdamWConfig()).loss_and_grad(batch)
+    errs = {}
+    for (path, g), (_, w) in zip(tree_leaves_with_path(got_grads),
+                                 tree_leaves_with_path(grads)):
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        errs["/".join(map(str, path))] = err / scale if scale else (0.0 if err == 0 else
+                                                                     math.inf)
+    return dict(loss=float(loss), got_loss=float(got_loss), errs=errs)
+
+
+def dp_child(spec_file):
+    """One process of phase 29's job, started by ``launch``: 29a, whisper-
+    small at full width trained by ``launch.train.train`` over the job's
+    data axis (process 0 also runs the one-process control of step 1),
+    then 29b's held cases, each followed on process 0 by its one-process
+    run; a report as JSON."""
+    spec = json.loads(Path(spec_file).read_text())
+    exit_with_parent()
+    pid = attach(verbose=True)["process_id"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = mesh_for(Topology(DP_PROCS, 1))
+    seed, h = spec["seed"], DP_FULL
+    report = {"pid": pid}
+    cfg = get_config(DP_ARCH).replace(grad_accum=1)
+    control = {}
+
+    def on_grads(step, model, batch, loss, grads):
+        if step == 0 and pid == 0:
+            control.update(dp_control(model, cfg, seed, loss, grads))
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.train(cfg, steps=h["steps"], batch=h["batch"], seq=h["seq"], lr=h["lr"],
+                      seed=seed, log_every=1, mesh=data, on_grads=on_grads)
+    report["a"] = dict(
+        seconds=time.perf_counter() - t0, losses=run.losses, grad_norms=run.grad_norms,
+        fwd_bwd_ms=run.fwd_bwd_ms, allreduce_ms=run.allreduce_ms,
+        allreduce_wall_ms=run.allreduce_wall_ms, update_ms=run.update_ms,
+        sync_stats=run.sync_stats, digests=run.digests,
+        host_s=list(run.detector.times["local"]), peak=torch.cuda.max_memory_allocated(),
+        n_params=count_params(run.model), control=control)
+    del run, control
+    gc.collect()
+    torch.cuda.empty_cache()
+    hh = DP_HELD
+    report["b"] = {}
+    for name, (arch, over, on_island) in DP_HELD_CASES.items():
+        c = get_reduced(arch).replace(grad_accum=1, **over)
+        kw = dict(steps=hh["steps"], batch=hh["batch"], seq=hh["seq"], lr=hh["lr"],
+                  seed=seed, log_every=hh["steps"])
+        run = train.train(c, mesh=data, island=mesh_for(Topology(*DP_ISLAND))
+                          if on_island else None, **kw)
+        rec = dict(losses=run.losses, digests=run.digests,
+                   sent=[st["sent_bytes_nodexproc"] for st in run.sync_stats])
+        del run
+        if pid == 0:         # the same training in one process, the whole batch
+            one = train.train(c, island=Topology(*DP_ISLAND) if on_island else None, **kw)
+            rec["one"] = one.losses
+            del one
+        job_barrier(data)
+        report["b"][name] = rec
+    (Path(spec["out"]) / f"dp_report_{pid}.json").write_text(json.dumps(report))
+    detach()
+    print(f"  [p{pid}] done", flush=True)
+
+
+def start_dp_children(tmp, seed):
+    """Start phase 29's two gloo children (this script with
+    ``--dp-child``) on the card, in the background.  Returns ``finish()``:
+    it waits for them (once) and returns their reports, output and
+    seconds (LaunchError if a child failed)."""
+    tmp = Path(tmp)
+    spec_file = tmp / "dp_spec.json"
+    spec_file.write_text(json.dumps(dict(seed=seed, out=str(tmp))))
+    box = {}
+
+    def run():
+        try:
+            box["res"] = launch(str(Path(__file__).resolve()), DP_PROCS,
+                                args=["--dp-child", str(spec_file)],
+                                env={"REPRO_MESH_BACKEND": "gloo"}, timeout_s=900)
+        except BaseException as e:      # re-raised by finish()
+            box["err"] = e
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    print(f"[29] {DP_PROCS} gloo children started in the background: data-parallel "
+          f"training of {DP_ARCH} at full width (29a), then 29b's held cases")
+
+    def finish():
+        if "out" not in box:
+            t1 = time.perf_counter()
+            thread.join()
+            if "err" in box:
+                raise box["err"]
+            box["out"] = dict(
+                reports=[json.loads((tmp / f"dp_report_{pid}.json").read_text())
+                         for pid in range(DP_PROCS)],
+                outputs=[box["res"].output(pid) for pid in range(DP_PROCS)],
+                wall_s=time.perf_counter() - t0, waited_s=time.perf_counter() - t1)
+        return box["out"]
+
+    return finish
+
+
+def phase_dp_train(finish, smi):
+    """[29] data-parallel training across two gloo processes on the card:
+    the checks and figures of what ``start_dp_children`` ran."""
+    res = finish()
+    reports = res["reports"]
+    for pid, out in enumerate(res["outputs"]):
+        for line in out.splitlines():
+            if line.startswith(("step ", "training ", "  [p", "[mesh.attach]")):
+                print(f"  p{pid}| {line}")
+    a = [r["a"] for r in reports]
+    h = DP_FULL
+    print(f"[29a] {DP_ARCH} at full width ({a[0]['n_params']} parameters, bf16 weights, "
+          f"fp32 masters, remat), trained by launch.train over a job of {DP_PROCS} gloo "
+          f"processes on the card: global batch {h['batch']} x {h['seq']} tokens over "
+          f"{h['batch']} x 1500 frames from the seed, {h['batch'] // DP_PROCS} rows a "
+          f"process, {h['steps']} steps; the children ran {res['wall_s']:.1f} s (to "
+          f"the wait for them, {res['waited_s']:.1f} s) [{smi}]")
+    if a[0]["losses"] != a[1]["losses"] or a[0]["digests"] != a[1]["digests"]:
+        raise AssertionError("29a: the processes' losses or parameter digests differ")
+    if len(a[0]["digests"]) != h["steps"] or not np.isfinite(a[0]["losses"]).all():
+        raise AssertionError(f"29a: {len(a[0]['digests'])} digests, losses {a[0]['losses']}")
+    for i in range(h["steps"]):
+        parts = []
+        for pid, r in enumerate(a):
+            st = r["sync_stats"][i]
+            step = r["fwd_bwd_ms"][i] + r["allreduce_ms"][i] + r["update_ms"][i]
+            parts.append(
+                f"p{pid} {step:.2f} ms = forward + backward {r['fwd_bwd_ms'][i]:.2f} + "
+                f"all-reduce {r['allreduce_ms'][i]:.2f} (wall {r['allreduce_wall_ms'][i]:.2f}) "
+                f"+ AdamW {r['update_ms'][i]:.2f}, host {r['host_s'][i]:.3f} s; staged "
+                f"{st['staged_bytes']:,} B, sent to the other process "
+                f"{st['sent_bytes_nodexproc']:,} B")
+        print(f"  step {i}: loss {a[0]['losses'][i]:.5f}, grad norm "
+              f"{a[0]['grad_norms'][i]:.4f}; digests equal ({a[0]['digests'][i][:16]}); "
+              + "; ".join(parts))
+    print("  peak memory " + ", ".join(f"p{pid} {r['peak'] / 1e9:.3f} GB"
+                                       for pid, r in enumerate(a)))
+    ctl = a[0]["control"]
+    rel = abs(ctl["got_loss"] - ctl["loss"]) / abs(ctl["loss"])
+    worst = max(ctl["errs"], key=ctl["errs"].get)
+    print(f"  control, process 0's one-process step 1 on the whole batch from the same "
+          f"weights: loss {ctl['loss']:.6f} against the job's {ctl['got_loss']:.6f} (rel "
+          f"{rel:.3e}, rtol 1e-3); reduced gradient against the control's, "
+          f"{len(ctl['errs'])} leaves, worst {ctl['errs'][worst]:.3e} of its max |grad| "
+          f"({worst}; limit 2^-6)")
+    if not (rel <= 1e-3 and ctl["errs"][worst] <= DP_GRAD_GATE):
+        raise AssertionError("29a: the job's step 1 disagrees with the one-process control")
+    hh = DP_HELD
+    print(f"[29b] held: reduced configs in float32, {hh['steps']} steps of "
+          f"{hh['batch']} x {hh['seq']} tokens, lr {hh['lr']}; each job against process "
+          f"0's one-process run of it on the card (losses rtol 1e-4)")
+    for name in DP_HELD_CASES:
+        got = [r["b"][name] for r in reports]
+        one = got[0]["one"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(got[0]["losses"], one))
+        print(f"  {name}: losses {[round(x, 6) for x in got[0]['losses']]} against one "
+              f"process {[round(x, 6) for x in one]} (max rel {rel:.3e}); digests equal "
+              f"{got[0]['digests'] == got[1]['digests']}; sent to the other process "
+              f"{got[0]['sent'][0]:,} B a step")
+        if not (rel <= 1e-4 and got[0]["losses"] == got[1]["losses"]
+                and got[0]["digests"] == got[1]["digests"]):
+            raise AssertionError(f"29b {name}: the job disagrees with one process or "
+                                 f"its replicas differ")
+
+
 class PhaseClock:
     """Seconds of each phase of ``main``, printed as each ends (a phase
     run inside another's wait counts in that one's)."""
@@ -6141,7 +6370,12 @@ def main():
                     help="run one process of phase 9g (set by its launcher)")
     ap.add_argument("--count-child", metavar="SPEC",
                     help="run phase 28's meta counts (set by its launcher)")
+    ap.add_argument("--dp-child", metavar="SPEC",
+                    help="run one process of phase 29 (set by its launcher)")
     args = ap.parse_args()
+    if args.dp_child:
+        dp_child(args.dp_child)
+        return
     if args.count_child:
         count_child(args.count_child)
         return
@@ -6275,16 +6509,23 @@ def main():
     # phase 25's first serving runs, then phases 15 (its CPU half done by
     # then) and 17 run while phase 9 waits for the children: they time
     # nothing on the card
+    # phase 29's children start with that work and are waited for before
+    # phase 9's first timing on the card; their checks come last (phase 29)
     late_first = {}
+    dp_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dp_")
+    dp = {}
     amg = phase_amg(a_amg, topo, gen, args.seed, args.n == 2024, keep,
                     levels_file=str(Path(mesh_tmp.name) / "levels.npz"),
                     children=children,
-                    host_work=lambda: (late_first.update(late_first_runs(args.seed)),
+                    host_work=lambda: (dp.update(finish=start_dp_children(dp_tmp.name,
+                                                                          args.seed)),
+                                       late_first.update(late_first_runs(args.seed)),
                                        phase_train_held(args.seed, cpu_twin()),
                                        phase_example_train(release),
-                                       phase_family_train_held(args.seed)))
+                                       phase_family_train_held(args.seed),
+                                       dp["finish"]()))
     free()
-    clock.done("9 (with 25a, 15, 17 and 26 in its wait)")
+    clock.done("9 (with 25a, 15, 17, 26 and 29's children in its wait)")
     phase_spgemm_small(a_b, topo, args.seed)
     clock.done("9b")
     phase_examples()
@@ -6358,6 +6599,12 @@ def main():
     phase_counts(counts, smi)
     count_tmp.cleanup()
     clock.done("28")
+
+    # 29. data-parallel training across processes (its children ran in
+    # phase 9's wait) ----------------------------------------------------
+    phase_dp_train(dp["finish"], smi)
+    dp_tmp.cleanup()
+    clock.done(f"29 (its children {dp['finish']()['wall_s']:.1f} s in phase 9's wait)")
 
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it); the AMG solve's launches, forward

@@ -12,6 +12,20 @@ batch carries ``frames``): the gradients
 come from ``torch.autograd.grad`` (nothing accumulates in ``.grad``), and
 the update writes the weights and the optimizer state in place.
 
+Across the processes of a ``torch.distributed`` job the step is the
+reference driver's ``data`` axis: one replica of the model a process, the
+global batch split by rows.  ``make_train_step(model, opt_cfg, mesh=)``
+takes the job's :class:`~repro_torch.mesh.buffers.ProcessMesh` over
+``Topology(world, 1)`` (one rank a process): each process scales its
+loss to its share of the global mean (shard rows / global rows), so the
+sum over the processes is the global loss and gradient; ``all_reduce``
+sums them with :func:`~repro_torch.core.hier_collectives.flat_psum_tree`
+(GSPMD's data-axis psum: the float32 bucket reduce-scattered, each chunk
+folded once in rank order, then all-gathered, so every process holds
+the same bits, each leaf cast back to its dtype once), and the same
+AdamW update follows on every process.  In one process (no mesh, or a
+world of 1) nothing is scaled or reduced.
+
 A cell is one (arch x shape x mesh) of the dry run.  The reference lowers
 its program for a TPU mesh and reads the HLO; here ``build_cell`` builds
 the model and its inputs on ``meta`` (no memory: any cell fits) or on a
@@ -33,7 +47,9 @@ import torch
 
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
 from repro_torch.core import op_analysis
+from repro_torch.core.hier_collectives import flat_psum_tree
 from repro_torch.core.topology import Topology
+from repro_torch.mesh.buffers import ProcessMesh
 from repro_torch.models import partitioning as part
 from repro_torch.models.common import dtype_of
 from repro_torch.models.params import TreeModel
@@ -49,7 +65,8 @@ def adamw_config_for(cfg) -> AdamWConfig:
                        master_fp32=cfg.opt_master_fp32)
 
 
-def make_loss_with_accum(model: TreeModel) -> Callable[[Batch], Tuple[torch.Tensor, Any]]:
+def make_loss_with_accum(model: TreeModel, share: float = 1.0
+                         ) -> Callable[[Batch], Tuple[torch.Tensor, Any]]:
     """``loss_and_grad(batch) -> (loss, grads)`` over the global batch,
     with ``cfg.grad_accum`` microbatches: each microbatch's grads are
     summed into float32 buffers (as the reference's scan does; summing into
@@ -59,7 +76,9 @@ def make_loss_with_accum(model: TreeModel) -> Callable[[Batch], Tuple[torch.Tens
     key of the batch splits along its first axis (whisper's ``frames``
     with its tokens).  On the island each microbatch must split over the
     pods this process runs; a batch that does not raises before any
-    compute."""
+    compute.  ``share`` (a data-parallel process's rows over the global
+    batch's) scales the loss before the backward with one microbatch, the
+    mean of the microbatches after it with more."""
     a = model.cfg.grad_accum
 
     def loss_and_grad(batch: Batch):
@@ -73,6 +92,8 @@ def make_loss_with_accum(model: TreeModel) -> Callable[[Batch], Tuple[torch.Tens
             check_island_batch(b // max(a, 1), island_pods(model.mesh, model.ep))
         if a <= 1:
             loss = model.loss(batch)
+            if share != 1.0:
+                loss = loss * share
             grads = iter(torch.autograd.grad(loss, leaves))
             return loss.detach(), tree_map(lambda _: next(grads), params)
         micro = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])
@@ -86,22 +107,47 @@ def make_loss_with_accum(model: TreeModel) -> Callable[[Batch], Tuple[torch.Tens
                 buf.add_(g)
             loss_acc = loss_acc + loss.detach()
         inv = 1.0 / a
-        grads = iter(buf.mul_(inv) for buf in acc)
-        return loss_acc * inv, tree_map(lambda _: next(grads), params)
+        for buf in acc:
+            buf.mul_(inv)
+            if share != 1.0:
+                buf.mul_(share)
+        loss_acc = loss_acc * inv
+        if share != 1.0:
+            loss_acc = loss_acc * share
+        grads = iter(acc)
+        return loss_acc, tree_map(lambda _: next(grads), params)
 
     return loss_and_grad
 
 
 class TrainStep:
     """``step(opt_state, batch) -> (loss, grad_norm)``: one training step
-    that updates ``model``'s weights and ``opt_state`` in place.  Its two
-    halves, ``loss_and_grad(batch)`` and ``update(grads, opt_state)``, are
-    there for a caller that times them apart."""
+    that updates ``model``'s weights and ``opt_state`` in place.  Its
+    parts, ``loss_and_grad(batch)``, ``all_reduce(loss, grads)`` and
+    ``update(grads, opt_state)``, are there for a caller that times them
+    apart.  With ``mesh`` (the job's data axis, module docstring) ``batch``
+    is this process's rows of the global batch and ``all_reduce`` returns
+    the global loss and gradient; without one it returns its arguments."""
 
-    def __init__(self, model: TreeModel, opt_cfg: AdamWConfig):
+    def __init__(self, model: TreeModel, opt_cfg: AdamWConfig,
+                 mesh: Optional[ProcessMesh] = None):
+        if mesh is not None and mesh.topo.n_procs != mesh.world:
+            raise ValueError(f"the data axis takes one rank a process: a mesh over "
+                             f"Topology({mesh.world}, 1), not {mesh.topo}")
         self.model = model
         self.opt_cfg = opt_cfg
-        self.loss_and_grad = make_loss_with_accum(model)
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.loss_and_grad = make_loss_with_accum(
+            model, 1.0 if self.mesh is None else 1.0 / self.mesh.world)
+
+    def all_reduce(self, loss: torch.Tensor, grads) -> Tuple[torch.Tensor, Any]:
+        """The sum over the job's processes of ``loss`` and every leaf of
+        ``grads``, in one float32 bucket; the same bits on every process."""
+        if self.mesh is None:
+            return loss, grads
+        tree = {"grads": tree_map(lambda g: g[None], grads), "loss": loss[None]}
+        out = flat_psum_tree(tree, self.mesh.topo, self.mesh, device=loss.device)
+        return out["loss"][0], tree_map(lambda g: g[0], out["grads"])
 
     def update(self, grads, opt_state: Dict) -> torch.Tensor:
         return adamw_update(grads, self.model.param_tree(), opt_state,
@@ -109,12 +155,13 @@ class TrainStep:
 
     def __call__(self, opt_state: Dict, batch: Batch
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        loss, grads = self.loss_and_grad(batch)
+        loss, grads = self.all_reduce(*self.loss_and_grad(batch))
         return loss, self.update(grads, opt_state)
 
 
-def make_train_step(model: TreeModel, opt_cfg: AdamWConfig) -> TrainStep:
-    return TrainStep(model, opt_cfg)
+def make_train_step(model: TreeModel, opt_cfg: AdamWConfig,
+                    mesh: Optional[ProcessMesh] = None) -> TrainStep:
+    return TrainStep(model, opt_cfg, mesh)
 
 
 # ---------------------------------------------------------------------------

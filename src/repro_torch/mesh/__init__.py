@@ -21,7 +21,8 @@ Importing the package starts no process and touches no device.
 from repro_torch.mesh.buffers import (BufferNamespace, BufferRegistry,
                                       ProcessMesh, broadcast_from_first,
                                       default_registry, fetch_mesh_array,
-                                      input_stager, is_first_process,
+                                      gather_from_all, input_stager,
+                                      is_first_process,
                                       is_multiprocess, job_barrier, mesh_for,
                                       process_count, stage_mesh_array)
 from repro_torch.mesh.discover import (DiscoveryError, discover_topology,
@@ -32,7 +33,7 @@ from repro_torch.mesh.launcher import (LaunchError, LaunchResult, attach,
 
 __all__ = [
     "BufferNamespace", "BufferRegistry", "default_registry", "ProcessMesh",
-    "broadcast_from_first", "fetch_mesh_array", "input_stager",
+    "broadcast_from_first", "fetch_mesh_array", "gather_from_all", "input_stager",
     "is_first_process", "is_multiprocess", "job_barrier", "mesh_for",
     "process_count", "stage_mesh_array",
     "DiscoveryError", "discover_topology", "discovery_report",

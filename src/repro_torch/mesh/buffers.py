@@ -39,7 +39,7 @@ from repro_torch.core.topology import Topology
 
 __all__ = ["BufferNamespace", "BufferRegistry", "default_registry",
            "ProcessMesh", "process_count", "is_multiprocess", "is_first_process",
-           "job_barrier", "broadcast_from_first", "local_ranks",
+           "job_barrier", "broadcast_from_first", "gather_from_all", "local_ranks",
            "mesh_for", "plan_mesh", "stage_mesh_array", "input_stager",
            "fetch_mesh_array"]
 
@@ -92,6 +92,18 @@ def broadcast_from_first(obj, mesh: Optional["ProcessMesh"] = None):
     box = [obj]
     _dist().broadcast_object_list(box, src=0, group=_group(mesh))
     return box[0]
+
+
+def gather_from_all(obj, mesh: Optional["ProcessMesh"] = None) -> list:
+    """``obj`` of every process of the job, in process order (a picklable
+    object, over ``mesh.group``, else the default group); ``[obj]`` in
+    one process."""
+    if not is_multiprocess():
+        return [obj]
+    dist = _dist()
+    out = [None] * int(dist.get_world_size(group=_group(mesh)))
+    dist.all_gather_object(out, obj, group=_group(mesh))
+    return out
 
 
 def local_ranks() -> int:
