@@ -5,8 +5,8 @@ the distributed SpGEMM and the AMG solver path, the solver service, the
 multi-process mesh, the MoE token dispatch, the hierarchical collectives,
 the gemma2-2b serving path, gemma2-2b's prefill and training,
 serving and training the MoE LMs (qwen3-moe-235b-a22b, deepseek-v2-236b),
-serving whisper-small, zamba2-2.7b and rwkv6-3b, and data-parallel
-training across processes.
+serving whisper-small, zamba2-2.7b and rwkv6-3b, data-parallel training
+across processes, and rwkv6-3b's chunked WKV.
 
     python3 chip_smoke.py            # full size; needs one CUDA GPU and nvcc
 
@@ -443,6 +443,32 @@ Phases, each fatal on failure:
     2) across the processes (flat and nap, f32 wire), float32, 3 steps
     each against its one-process run on the card (losses rtol 1e-4,
     digests equal), gated;
+30. rwkv6-3b's chunked WKV (``rwkv_chunk`` 64, the dry run's form): (a)
+    inside phase 9's wait, before phase 15 (nothing timed): the reduced
+    config in float32 with every ``w0`` at 4.7 (every decay below
+    float32's normal range: where the decay underflows), weights drawn on
+    the CPU, at chunk 8 over 4 x 32 bigram tokens: step 1's gradient on
+    the card against the CPU (1e-4 of each leaf's max |grad|) and against
+    the stepwise form on the card (1e-5; differences under 2^-126 not
+    counted), every gradient finite, then 3 ``make_train_step`` steps on
+    both (losses rtol 1e-4, finite grad norms, parameters as phase 15
+    holds them); and phase 27's cut (4 of 32 layers, full width) with its
+    bf16 weights cast up to float32: step 1's chunked gradient against the
+    stepwise one within 1e-4 of each leaf's max; (b) ``LM.prefill`` of
+    phase 25's 4 x 512 prompt at full width and depth on phase 25's
+    weights: ms (median of 3) against phase 25's stepwise prefill, its
+    bound, the operator-boundary bytes of one call (``count_ops``), busy
+    share, peak; logits and every layer's final state against phase 25's
+    stepwise prefill (layer 0's S within 1e-5, layer i's within 2 i x
+    2^-8, the logits within 32 x 2^-8 of their max: bf16 roundings of
+    each layer's output carried down the stack), finite logits; (c) step
+    1's bf16 gradient on phase 27's cut against phase 27's stepwise step
+    1, each against the float32 gradient of the same weights (the chunked
+    form's worst leaf within 2x the stepwise form's), then 3 steps at
+    full depth (32 layers; bf16, fp32 masters, float32 moments, remat, 4
+    x 512 bigram tokens): step ms split into forward + backward and the
+    update, tokens/s, 6 N T's share of the bf16 peak, peak memory, busy
+    share, finite losses and grad norms gated;
 21. the whole script's seconds with every phase's, a JSON line of every
     kernel (with ``device_ms`` and, for the BSR kernels,
     ``library_bsr_ms``; the decode kernel again at qwen3-moe's served
@@ -5297,17 +5323,20 @@ def leaf_grads(model, batch):
     return loss.detach(), {path: g for (path, _), g in zip(leaves, grads)}
 
 
-def grad_errors(got, want):
-    """Each leaf's max |got - want| over its max |want|, by path; raises
-    where a leaf of ``got`` has no gradient."""
+def grad_errors(got, want, floor=0.0):
+    """Each leaf's max |got - want| over its max |want|, by path, with
+    differences below ``floor`` counted as 0; raises where a leaf of
+    ``got`` has no gradient."""
     missing = [p for p, g in got.items() if g is None]
     if missing:
         raise AssertionError(f"{len(missing)} leaves get no gradient on the island: "
                              f"{missing[:4]}")
     out = {}
     for path, w in want.items():
-        out[path] = float((got[path].float() - w.float()).abs().max()
-                          / w.float().abs().max().clamp_min(1e-30))
+        d = (got[path].float() - w.float()).abs()
+        if floor:
+            d = torch.where(d < floor, torch.zeros_like(d), d)
+        out[path] = float(d.max() / w.float().abs().max().clamp_min(1e-30))
     return out
 
 
@@ -5702,11 +5731,18 @@ def late_first_runs(seed):
     return out
 
 
-def late_full(arch, seed, smi, first):
+def late_prompt(cfg, seed, shape):
+    """The timed prefill's prompt: ``shape`` seeded tokens on the card."""
+    return torch.from_numpy(np.random.default_rng(seed + 4).integers(
+        0, cfg.vocab, shape)).to(DEV)
+
+
+def late_full(arch, seed, smi, first, keep=None):
     """One of the three at full width and depth, bf16 weights from the
     seed: the timed ``serve.generate`` (finite greedy tokens equal to
     ``first``'s run, both runs' kernel launches as counted), the kernel on
-    the served caches, then a timed prefill.  Returns the decode kernel's
+    the served caches, then a timed prefill; ``keep`` (a dict) takes the
+    prefill's logits and final states.  Returns the decode kernel's
     launches over the timed generate."""
     t0 = time.perf_counter()
     cfg = get_config(arch)
@@ -5771,15 +5807,14 @@ def late_full(arch, seed, smi, first):
     # the prefill: rwkv6 runs the stepwise recurrence its config ships
     # (rwkv_chunk 0), zamba2 the chunked SSD, whisper its encoder first
     shape = LATE_PREFILL[arch]
-    toks = torch.from_numpy(np.random.default_rng(seed + 4).integers(
-        0, cfg.vocab, shape)).to(DEV)
+    toks = late_prompt(cfg, seed, shape)
     args = prefill_args(toks, None if frames is None else
                         late_frames(cfg, shape[0], seed + 1, DEV))
     out = {}
 
     def run():
         out.clear()                  # the last call's cache freed first
-        out["logits"] = model.prefill(*args)[0]
+        out["logits"], out["cache"] = model.prefill(*args)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5788,9 +5823,12 @@ def late_full(arch, seed, smi, first):
     reps = 1 if cfg.family == "ssm" else 3
     ms = time_ms(run, reps=reps, warmup=0)
     peak = torch.cuda.max_memory_allocated()
-    logits = out.pop("logits")
+    logits, cache = out.pop("logits"), out.pop("cache")
     if not torch.isfinite(logits).all():
         raise AssertionError(f"{arch} prefill: non-finite logits")
+    if keep is not None:
+        keep.update(logits=logits, state=cache["state"], ms=ms)
+    del cache
     tokens = shape[0] * shape[1]
     flops = prefill_flops(model, cfg, *shape)
     weights = sum(p.nbytes for p in model.parameters())       # a prefill reads them all
@@ -5810,11 +5848,14 @@ def late_full(arch, seed, smi, first):
     return n_launch
 
 
-def phase_late_full(seed, smi, first):
+def phase_late_full(seed, smi, first, rwkv_prefill):
     """[25] whisper-small, zamba2-2.7b and rwkv6-3b at full width and
     depth, one after the other (``first``: ``late_first_runs``'s
-    results): the decode kernel's launches by arch."""
-    return {arch: late_full(arch, seed, smi, first[arch]) for arch in LATE_ARCHS}
+    results): the decode kernel's launches by arch.  ``rwkv_prefill``
+    takes rwkv6's stepwise prefill (phase 30 holds the chunked one to it)."""
+    return {arch: late_full(arch, seed, smi, first[arch],
+                            keep=rwkv_prefill if arch == RWKV_ARCH else None)
+            for arch in LATE_ARCHS}
 
 
 # training the last three families (phases 26-27) -----------------------------
@@ -5909,15 +5950,18 @@ def train_flops(model, cfg, b, s):
     return 3 * (prefill_flops(model, cfg, b, s) - head + s * head)
 
 
-def family_full(arch, seed, smi):
-    """One of the three at full width (rwkv6 cut to 4 layers), bf16
-    weights from the seed, fp32 masters, the config's moments, remat,
-    grad_accum 1: ``FAMILY_STEPS[arch]`` steps of the driver's batches."""
+def train_timed(label, arch, cfg, seed, smi, b, s, n_steps, profile_seq=None,
+                keep=None):
+    """``n_steps`` steps of ``make_train_step`` on ``cfg`` (bf16 weights from
+    the seed, fp32 masters, the config's moments, remat) over the driver's
+    b x s batches: step ms (median of the steps after the first) split
+    into forward + backward and the update, tokens/s, the bf16 peak's
+    share, peak memory and the busy share of a step traced over
+    ``profile_seq`` tokens (all of them by default); finite losses and
+    grad norms gated.  ``keep`` (a dict) takes step 1's loss and a copy of
+    its gradient by path, taken before the update."""
     t0 = time.perf_counter()
-    b, s, layers = FAMILY_FULL[arch]
-    n_steps = FAMILY_STEPS[arch]
     full = get_config(arch)
-    cfg = full.replace(grad_accum=1, n_layers=layers)
     model = build_model(cfg).init(seed)
     n_params = count_params(model)
     opt_cfg = AdamWConfig(lr=3e-4, total_steps=n_steps, warmup_steps=1,
@@ -5925,10 +5969,11 @@ def family_full(arch, seed, smi):
     opt_state = adamw_init(model.param_tree(), opt_cfg)
     step_fn = make_train_step(model, opt_cfg)
     batches = [train.to_device(x, DEV) for x in family_batches(cfg, seed, b, s, n_steps + 1)]
-    print(f"[27] {arch} training at full width: {cfg.n_layers} of {full.n_layers} layers, "
-          f"{cfg.dtype} weights from the seed, {n_params} parameters, remat {cfg.remat}; "
-          f"{b} x {s} bigram tokens" + (f" over {b} x {cfg.encoder_seq} frames"
-                                        if cfg.is_encoder_decoder else ""))
+    print(f"[{label}] {arch} training at full width: {cfg.n_layers} of {full.n_layers} "
+          f"layers, {cfg.dtype} weights from the seed, {n_params} parameters, remat "
+          f"{cfg.remat}" + (f", rwkv_chunk {cfg.rwkv_chunk}" if cfg.family == "ssm" else "")
+          + f"; {b} x {s} bigram tokens" + (f" over {b} x {cfg.encoder_seq} frames"
+                                            if cfg.is_encoder_decoder else ""))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, norms, fb, up = [], [], [], []
@@ -5937,6 +5982,9 @@ def family_full(arch, seed, smi):
         clock.mark()
         loss, grads = step_fn.loss_and_grad(batches[i])
         clock.mark()
+        if keep is not None and i == 0:
+            keep.update(loss=float(loss), grads={path: g.detach().clone() for path, g
+                                                 in tree_leaves_with_path(grads)})
         gnorm = step_fn.update(grads, opt_state)
         clock.mark()
         del grads
@@ -5953,7 +6001,7 @@ def family_full(arch, seed, smi):
     tokens = b * s
     share = 6 * n_params * tokens / (step / 1e3 * BF16_FLOPS)
     flops = train_flops(model, cfg, b, s)
-    ps = FAMILY_PROFILE_SEQ.get(arch, s)
+    ps = profile_seq or s
     prof_batch = {k: v[:, :ps] if k != "frames" else v for k, v in batches[-1].items()}
     prof_ms = step if ps == s else time_ms(lambda: step_fn(opt_state, prof_batch), reps=1,
                                            warmup=0)
@@ -5974,17 +6022,289 @@ def family_full(arch, seed, smi):
           f"FLOPs x 3 {flops / 1e12:.3f} TFLOP: {100 * flops / (step / 1e3 * BF16_FLOPS):.2f}% "
           f"of it; peak memory {peak / 1e9:.3f} GB; busy {100 * busy / prof_ms:.1f}% of a step"
           + (f" of {b} x {ps} tokens ({prof_ms:.2f} ms)" if ps != s else "")
-          + f"; first step {steps[0]:.1f} ms; phase 27 {arch} {time.perf_counter() - t0:.1f} s "
-          f"[{smi}]")
+          + f"; first step {steps[0]:.1f} ms; phase {label} {arch} "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
     del model, opt_state, step_fn, batches
     free()
 
 
+def family_full(arch, seed, smi, keep=None):
+    """One of the three at full width (rwkv6 cut to 4 layers), bf16
+    weights from the seed, fp32 masters, the config's moments, remat,
+    grad_accum 1: ``FAMILY_STEPS[arch]`` steps of the driver's batches
+    (``train_timed``; ``keep`` takes step 1's gradient)."""
+    b, s, layers = FAMILY_FULL[arch]
+    cfg = get_config(arch).replace(grad_accum=1, n_layers=layers)
+    train_timed("27", arch, cfg, seed, smi, b, s, FAMILY_STEPS[arch],
+                profile_seq=FAMILY_PROFILE_SEQ.get(arch), keep=keep)
+
+
 def phase_family_train_full(seed, smi):
     """[27] training whisper-small, zamba2-2.7b and rwkv6-3b at full
-    width, one model at a time."""
+    width, one model at a time; returns rwkv6's step-1 loss and gradient
+    (its stepwise recurrence), which phase 30 holds the chunked form to."""
+    rwkv_step1 = {}
     for arch in LATE_ARCHS:
-        family_full(arch, seed, smi)
+        family_full(arch, seed, smi, keep=rwkv_step1 if arch == RWKV_ARCH else None)
+    return rwkv_step1
+
+
+# ---------------------------------------------------------------------------
+# 30. rwkv6-3b's chunked WKV on the card
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-3b"
+RWKV_CHUNK = 64              # the dry run's form (launch/dryrun.py): 512 / 64 = 8 chunks
+# 30a: the reduced config in float32 with every w0 at 4.7, where exp(w0) ~ 110
+# puts every decay exp(-exp(w0 + LoRA)) below float32's normal range (most
+# at 0), where the log of the decay would be -inf; steps of 4 x 32 bigram
+# tokens at chunk 8
+RWKV_HELD = dict(batch=4, seq=32, steps=3, lr=1e-3, chunk=8, w0=4.7)
+# 30a's chunked against stepwise gradient on the card, of each leaf's max
+# |grad|: two float32 summation orders of the same products (the gate of
+# tests/test_torch_rwkv_chunk.py)
+RWKV_HELD_GATE = 1e-5
+# gradient differences below float32's smallest normal number are not
+# counted: at w0 = 4.7 the decay leaves' gradients are carried by subnormal
+# decays alone, which one device may flush to zero and another keep
+NORMAL32 = torch.finfo(torch.float32).tiny
+# 30b: the chunked prefill against the stepwise one on the same bf16
+# weights.  Layer 0's inputs are the same embedding in both forms, so its
+# final state S (float32) agrees to float32 summation orders: 1e-5 of its
+# max.  Every layer rounds its time mix's output y to bf16, and where the
+# two forms' float32 y (equal to ~1e-6) straddle a rounding boundary they
+# round one bf16 ulp (2^-8 of |y|) apart; the residual stream carries these
+# on, so layer i's inputs differ by up to i such roundings, its S (bilinear
+# in them) by 2 i x 2^-8 of its max, and the logits (linear in the last
+# hidden state) by n_layers x 2^-8 of max |logit|.  30a holds the two forms
+# to each other in float32 at full width.
+RWKV_S0_GATE = 1e-5
+BF16_ULP = 2.0 ** -8
+# 30a at full width (4 of 32 layers, float32): chunked against stepwise
+# step-1 gradients, of each leaf's max |grad|: phase 26's card-vs-CPU gate
+# (3.9e-6 measured; sums over 2048 tokens and d 2560)
+RWKV_F32_GATE = 1e-4
+# 30c in bf16: each form's step-1 gradient against the float32 one of the
+# same weights (cast up exactly); the chunked form's worst leaf within 2x
+# the stepwise form's (both ~2.6e-2 at 4 layers: bf16's own error, which
+# the two forms draw apart, so they differ from each other by ~sqrt(2) x it)
+RWKV_BF16_RATIO = 2.0
+RWKV_TRAIN_STEPS = 3         # 30c at full depth: steps 2-3 timed
+
+
+def rwkv_held_tree(cfg, seed, w0):
+    """The reduced model's weights drawn on the CPU, every layer's ``w0``
+    filled."""
+    tree = build_model(cfg, device="cpu").init(seed).param_tree()
+    with torch.no_grad():
+        for layer in tree["layers"]:
+            layer["block"]["w0"].fill_(w0)
+    return tree
+
+
+def rwkv_held_steps(model, opt, batches):
+    """``make_train_step`` over ``batches``: (losses, grad norms)."""
+    state = adamw_init(model.param_tree(), opt)
+    step_fn = make_train_step(model, opt)
+    out = [step_fn(state, train.to_device(b, model.device)) for b in batches]
+    return [float(x) for x, _ in out], [float(n) for _, n in out]
+
+
+def phase_rwkv_chunk_held(seed):
+    """[30a] (run inside phase 9's wait: it times nothing) rwkv6's chunked
+    WKV where the decay underflows: the reduced config in float32, every
+    ``w0`` at 4.7, weights drawn on the CPU; step 1's gradient at chunk 8
+    on the card against the CPU (1e-4 of each leaf's max |grad|) and
+    against the stepwise form on the card (``RWKV_HELD_GATE``), every
+    gradient finite; then ``RWKV_HELD["steps"]`` steps on both (losses
+    rtol 1e-4, finite grad norms, parameters as phase 15 holds them)."""
+    t0 = time.perf_counter()
+    h = RWKV_HELD
+    cfg = get_reduced(RWKV_ARCH).replace(grad_accum=1, rwkv_chunk=h["chunk"])
+    start = rwkv_held_tree(cfg, seed, h["w0"])
+    batches = family_batches(cfg, seed, h["batch"], h["seq"], h["steps"])
+    card = build_model(cfg).load(start)
+    host = build_model(cfg, device="cpu").load(start)
+    _, g_card = leaf_grads(card, train.to_device(batches[0], DEV))
+    _, g_host = leaf_grads(host, train.to_device(batches[0], "cpu"))
+    _, g_step = leaf_grads(build_model(cfg.replace(rwkv_chunk=0)).load(start),
+                           train.to_device(batches[0], DEV))
+    finite = all(g is not None and bool(torch.isfinite(g).all())
+                 for grads in (g_card, g_host, g_step) for g in grads.values())
+    vs_cpu = grad_errors({k: g.cpu() for k, g in g_card.items()}, g_host, NORMAL32)
+    vs_step = grad_errors(g_card, g_step, NORMAL32)
+    opt = AdamWConfig(lr=h["lr"], warmup_steps=1, total_steps=h["steps"])
+    card_losses, card_norms = rwkv_held_steps(card, opt, batches)
+    host_losses, host_norms = rwkv_held_steps(host, opt, batches)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, host_losses))
+    steps_finite = bool(np.isfinite(card_losses + host_losses + card_norms
+                                    + host_norms).all())
+    moved = h["lr"] * h["steps"]
+    worst, share = held_close(f"{RWKV_ARCH} chunked card vs CPU", card.param_tree(),
+                              host.param_tree(), moved)
+    print(f"[30a] {RWKV_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}), float32, every w0 "
+          f"{h['w0']} (every decay below 2^-126, most 0), rwkv_chunk {h['chunk']} over "
+          f"{h['batch']} x {h['seq']} bigram tokens (inside phase 9's wait): step-1 grads "
+          f"finite (card, CPU, stepwise on the card) {finite}; card vs CPU {len(vs_cpu)} "
+          f"leaves, worst {worst_leaf(vs_cpu)} of its max |grad| (limit 1e-4); chunked vs "
+          f"stepwise on the card, worst {worst_leaf(vs_step)} (limit {RWKV_HELD_GATE:g}; "
+          f"differences under 2^-126 not counted); {h['steps']} steps: losses "
+          f"{[round(x, 5) for x in card_losses]} max rel diff {rel:.3e} (rtol 1e-4), grad "
+          f"norms {[round(x, 4) for x in card_norms]} finite {steps_finite}; parameters "
+          f"max |diff| {worst:.3e} (limit {2 * moved:.1e}), {100 * share:.4f}% beyond 1e-6 "
+          f"of max |p|; phase 30a {time.perf_counter() - t0:.1f} s")
+    if not (finite and steps_finite and max(vs_cpu.values()) <= 1e-4
+            and max(vs_step.values()) <= RWKV_HELD_GATE and rel <= 1e-4):
+        raise AssertionError(f"{RWKV_ARCH} chunked in the fault's regime: a gradient "
+                             f"or loss is not finite, or a gate failed")
+    del card, host, start
+    release()
+    rwkv_full_f32_held(seed)
+
+
+def rwkv_cut(seed, dtype, chunk, tree=None):
+    """Phase 27's cut of rwkv6-3b (4 of 32 layers, full width) at
+    ``chunk`` in ``dtype``: weights from the seed (phase 27's) or ``tree``
+    (cast to ``dtype``), and phase 27's first batch on the card."""
+    b, s, layers = FAMILY_FULL[RWKV_ARCH]
+    cfg = get_config(RWKV_ARCH).replace(grad_accum=1, n_layers=layers, rwkv_chunk=chunk,
+                                        dtype=dtype)
+    model = build_model(cfg).init(seed) if tree is None else build_model(cfg).load(tree)
+    return model, train.to_device(family_batches(cfg, seed, b, s, 1)[0], DEV)
+
+
+def rwkv_full_f32_held(seed):
+    """[30a] at full width: phase 27's cut with its bf16 weights cast up to
+    float32 (exactly), phase 27's first batch: step 1's gradient at
+    ``RWKV_CHUNK`` against the stepwise form's on the card, every leaf
+    finite and within ``RWKV_F32_GATE`` of its max |grad|."""
+    t0 = time.perf_counter()
+    bf16, _ = rwkv_cut(seed, "bfloat16", 0)
+    tree = bf16.param_tree()
+    out = {}
+    for chunk in (RWKV_CHUNK, 0):
+        model, batch = rwkv_cut(seed, "float32", chunk, tree)
+        out[chunk] = leaf_grads(model, batch)
+        del model
+        release()
+    (l_c, g_c), (l_s, g_s) = out[RWKV_CHUNK], out[0]
+    finite = all(bool(torch.isfinite(g).all()) for g in list(g_c.values()) + list(g_s.values()))
+    errs = grad_errors(g_c, g_s)
+    print(f"[30a] {RWKV_ARCH} at full width, {len(bf16.layers)} of "
+          f"{get_config(RWKV_ARCH).n_layers} layers, phase 27's bf16 weights cast up to float32, "
+          f"its first batch: step 1 at rwkv_chunk {RWKV_CHUNK} against the stepwise form on the "
+          f"card: loss {float(l_c):.6f} / {float(l_s):.6f}; grads finite {finite}; {len(errs)} "
+          f"leaves, worst "
+          f"{worst_leaf(errs)} of its max |grad| (limit {RWKV_F32_GATE:g}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not (finite and max(errs.values()) <= RWKV_F32_GATE):
+        raise AssertionError(f"{RWKV_ARCH} at full width in float32: the chunked gradient "
+                             f"disagrees with the stepwise one")
+    del bf16, tree, out, g_c, g_s
+    release()
+
+
+def rwkv_chunk_prefill(seed, smi, ref):
+    """[30b] ``LM.prefill`` at ``RWKV_CHUNK``, full width and depth, bf16
+    weights from the seed (phase 25's), phase 25's prompt: ms (median of
+    3), peak, busy share, the operator-boundary bytes of one call
+    (``count_ops``) at the HBM rate beside phase 25's bound; logits and
+    every layer's final state S against phase 25's stepwise prefill
+    (``ref``) within the gates above ``RWKV_S0_GATE``, logits finite."""
+    cfg = get_config(RWKV_ARCH).replace(rwkv_chunk=RWKV_CHUNK)
+    shape = LATE_PREFILL[RWKV_ARCH]
+    model = build_model(cfg).init(seed)
+    toks = late_prompt(cfg, seed, shape)
+    out = {}
+
+    def run():
+        out.clear()
+        out["logits"], out["cache"] = model.prefill(toks)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(run, reps=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    logits, s_all = out.pop("logits"), out.pop("cache")["state"]["S"]
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{RWKV_ARCH} chunked prefill: non-finite logits")
+    rel = lambda got, want: float((got - want).abs().max() / want.abs().max())  # noqa: E731
+    s_rel = [rel(s_all[i], ref["state"]["S"][i]) for i in range(cfg.n_layers)]
+    s_gate = [RWKV_S0_GATE] + [2 * i * BF16_ULP for i in range(1, cfg.n_layers)]
+    l_rel, l_gate = rel(logits, ref["logits"]), cfg.n_layers * BF16_ULP
+    same_ids = bool((logits.argmax(-1) == ref["logits"].argmax(-1)).all())
+    del logits, s_all
+    with count_ops() as counted:
+        model.prefill(toks)
+    torch.cuda.synchronize()
+    busy = profile_program(f"{RWKV_ARCH} prefill at rwkv_chunk {RWKV_CHUNK}",
+                           lambda: model.prefill(toks), ms, host_ops=False)
+    flops = prefill_flops(model, cfg, *shape)
+    weights = sum(p.nbytes for p in model.parameters())
+    bound, by = max((weights / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (flops / BF16_FLOPS * 1e3, "operations"))
+    t_boundary = counted.hbm_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[30b] {RWKV_ARCH} prefill {list(shape)} at rwkv_chunk {RWKV_CHUNK} ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.dtype}, {count_params(model)} parameters, phase "
+          f"25's weights and prompt): {ms:.4f} ms (CUDA events, median of 3 after one "
+          f"warm-up), {shape[0] * shape[1] / (ms / 1e3):.0f} tokens/s, against the stepwise "
+          f"{ref['ms']:.4f} ms of phase 25 ({ref['ms'] / ms:.1f}x); bound {bound:.4f} ms "
+          f"({by}, as phase 25's), {100 * bound / ms:.2f}% of it; operator-boundary bytes "
+          f"{counted.hbm_bytes / 1e9:.3f} GB ({counted.operators} operators, count_ops) at "
+          f"3.35 TB/s {t_boundary:.4f} ms, {100 * t_boundary / ms:.1f}% of the call; busy "
+          f"{100 * busy / ms:.1f}%; peak memory {peak / 1e9:.3f} GB [{smi}]")
+    print(f"  against the stepwise prefill, max |diff| / max |stepwise|: logits {l_rel:.3e} "
+          f"(limit {cfg.n_layers} x 2^-8 = {l_gate:.3e}), greedy ids equal {same_ids}; "
+          f"layer 0's S {s_rel[0]:.3e} (limit {RWKV_S0_GATE:g}); layers 1-{cfg.n_layers - 1}'s "
+          f"S over their limits 2 i x 2^-8 at most {max(r / g for r, g in zip(s_rel[1:], s_gate[1:])):.3f} "
+          f"(<= 1 passes; S by layer " + ", ".join(f"{r:.2e}" for r in s_rel)
+          + "); logits finite")
+    if l_rel > l_gate or any(r > g for r, g in zip(s_rel, s_gate)):
+        raise AssertionError(f"{RWKV_ARCH}: the chunked prefill disagrees with the stepwise")
+    del model, toks, out
+    free()
+
+
+def rwkv_chunk_grad(seed, step1):
+    """[30c] step 1's gradient at ``RWKV_CHUNK`` on phase 27's cut (its
+    bf16 weights and first batch) against phase 27's stepwise step 1
+    (``step1``): every leaf finite, and each form's gradient against the
+    float32 one of the same weights (``RWKV_BF16_RATIO``; 30a holds the
+    two forms to each other in float32)."""
+    model, batch = rwkv_cut(seed, "bfloat16", RWKV_CHUNK)
+    loss, got = leaf_grads(model, batch)
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    f32, batch = rwkv_cut(seed, "float32", RWKV_CHUNK, model.param_tree())
+    del model
+    _, exact = leaf_grads(f32, batch)
+    del f32
+    release()
+    e_chunk, e_step = grad_errors(got, exact), grad_errors(step1["grads"], exact)
+    direct = grad_errors(got, step1["grads"])
+    ratio = max(e_chunk.values()) / max(e_step.values())
+    print(f"[30c] {RWKV_ARCH} step 1 at rwkv_chunk {RWKV_CHUNK}, bf16, {len(e_chunk)} leaves of "
+          f"phase 27's cut (its weights and first batch): loss {float(loss):.6f} against the "
+          f"stepwise {step1['loss']:.6f}; grads finite {finite}; against the float32 gradient "
+          f"of the same weights, worst leaf chunked {worst_leaf(e_chunk)}, stepwise "
+          f"{worst_leaf(e_step)}: ratio {ratio:.3f} (limit {RWKV_BF16_RATIO:g}); chunked "
+          f"against stepwise directly {worst_leaf(direct)} (recorded: 2^-6 would not hold two "
+          f"bf16 draws of ~2.6e-2 each)")
+    if not (finite and ratio <= RWKV_BF16_RATIO):
+        raise AssertionError(f"{RWKV_ARCH}: the chunked bf16 gradient is further from the "
+                             f"float32 one than the stepwise form's")
+    del got, exact, batch
+    free()
+
+
+def phase_rwkv_chunk(seed, smi, prefill_ref, step1):
+    """[30] rwkv6-3b's chunked WKV at full width (30a ran in phase 9's
+    wait): the prefill (30b), then step 1's gradient at phase 27's cut and
+    ``RWKV_TRAIN_STEPS`` training steps at full depth (30c)."""
+    rwkv_chunk_prefill(seed, smi, prefill_ref)
+    rwkv_chunk_grad(seed, step1)
+    cfg = get_config(RWKV_ARCH).replace(grad_accum=1, rwkv_chunk=RWKV_CHUNK)
+    b, s, _ = FAMILY_FULL[RWKV_ARCH]
+    train_timed("30c", RWKV_ARCH, cfg, seed, smi, b, s, RWKV_TRAIN_STEPS)
 
 
 # ---------------------------------------------------------------------------
@@ -6520,12 +6840,13 @@ def main():
                     host_work=lambda: (dp.update(finish=start_dp_children(dp_tmp.name,
                                                                           args.seed)),
                                        late_first.update(late_first_runs(args.seed)),
+                                       phase_rwkv_chunk_held(args.seed),
                                        phase_train_held(args.seed, cpu_twin()),
                                        phase_example_train(release),
                                        phase_family_train_held(args.seed),
                                        dp["finish"]()))
     free()
-    clock.done("9 (with 25a, 15, 17, 26 and 29's children in its wait)")
+    clock.done("9 (with 25a, 30a, 15, 17, 26 and 29's children in its wait)")
     phase_spgemm_small(a_b, topo, args.seed)
     clock.done("9b")
     phase_examples()
@@ -6582,7 +6903,8 @@ def main():
     # 24-25. serving whisper-small, zamba2-2.7b and rwkv6-3b ---------------------
     phase_late_held(args.seed)
     clock.done("24")
-    late = phase_late_full(args.seed, smi, late_first)
+    rwkv_prefill = {}
+    late = phase_late_full(args.seed, smi, late_first, rwkv_prefill)
     clock.done("25")
     # the decode kernel's entry counts the gemma2-2b path and these; each
     # g = 1 entry its own arch's serving
@@ -6591,8 +6913,14 @@ def main():
         e["launches"] = late[arch]
 
     # 26-27. training them (26 ran inside phase 9's wait) --------------------------
-    phase_family_train_full(args.seed, smi)
+    rwkv_step1 = phase_family_train_full(args.seed, smi)
     clock.done("27")
+
+    # 30. rwkv6-3b's chunked WKV (30a ran in phase 9's wait) -------------------
+    phase_rwkv_chunk(args.seed, smi, rwkv_prefill, rwkv_step1)
+    del rwkv_prefill, rwkv_step1
+    free()
+    clock.done("30")
 
     # 28. the operator counter (28a in a child since phase 8, 28b's card
     # counts inside phases 11, 14 and 16, 28c inside phase 4) -------------

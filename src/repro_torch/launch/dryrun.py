@@ -45,7 +45,9 @@ ONE_CARD = "1"
 # by (arch, kind or None for every kind): rwkv6's stepwise recurrence runs a
 # Python step a token (32768 steps x 32 layers at prefill_32k: hours of
 # counting on meta), so its cells count the chunked WKV, the same function
-# (``models/rwkv.py``; decode is one step either way); qwen3-moe's config
+# (``models/rwkv.py``; decode is one step either way) whose log decays are
+# -exp(w0 + LoRA) themselves, not the log of the decay w (no exp and log
+# pass between, and no -inf where w underflows); qwen3-moe's config
 # ships a bf16 wire, on which the island has no gradient and raises, so
 # its training cells count the f32 wire it trains on (``launch.train``)
 COUNT_FORMS = {("rwkv6-3b", None): {"rwkv_chunk": 64},

@@ -62,9 +62,11 @@ def _shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     return torch.cat([last[:, None], x[:, :-1]], dim=1)
 
 
-def _time_mix_inputs(p, cfg, x: torch.Tensor, last_x: torch.Tensor):
-    """r, k, v, the gate g (x's dtype) and the decay w (float32, in (0, 1)),
-    each [B, S, d]."""
+def _time_mix_rates(p, x: torch.Tensor, last_x: torch.Tensor):
+    """r, k, v, the gate g (x's dtype) and the decay's rate
+    e = exp(w0 + LoRA(x)) (float32, > 0), each [B, S, d].  The decay is
+    w = exp(-e) and its log is -e, taken whole: exp(-e) is 0 in float32
+    once e passes ~104, and the log of that 0 is -inf."""
     xs = _shift(x, last_x)
     mix = lambda m: x * m + xs * (1.0 - m)  # noqa: E731
     r = mix(p["mix_r"]) @ p["wr"]
@@ -73,8 +75,14 @@ def _time_mix_inputs(p, cfg, x: torch.Tensor, last_x: torch.Tensor):
     g = F.silu(mix(p["mix_g"]) @ p["wg"])
     xw = mix(p["mix_w"])
     lora = (torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]).float()
-    w = torch.exp(-torch.exp(p["w0"] + lora))
-    return r, k, v, g, w
+    return r, k, v, g, torch.exp(p["w0"] + lora)
+
+
+def _time_mix_inputs(p, cfg, x: torch.Tensor, last_x: torch.Tensor):
+    """r, k, v, the gate g (x's dtype) and the decay w (float32, in [0, 1)),
+    each [B, S, d]."""
+    r, k, v, g, rate = _time_mix_rates(p, x, last_x)
+    return r, k, v, g, torch.exp(-rate)
 
 
 def _wkv(r, k, v, w, u, state, head_size: int):
@@ -117,8 +125,13 @@ def rwkv6_time_mix_chunked(p, cfg, x: torch.Tensor, state: Dict[str, torch.Tenso
     two running sums: under a steep decay those reach hundreds, exp of
     their difference overflows above the diagonal (an inf whose gradient
     is NaN even where ``torch.where`` drops it) and the gradient of the
-    difference cancels to a few percent of its size.  Equal to
-    ``rwkv6_time_mix`` up to float round-off, its gradient too."""
+    difference cancels to a few percent of its size.  The log decays are
+    -exp(w0 + LoRA) themselves, never the log of the decay w, which is 0
+    in float32 once exp(w0 + LoRA) passes ~104 (the log's -inf made the
+    backward multiply inf by 0).  The one edge left: -exp(z) is -inf for
+    z > ~88.7, far beyond any decay a model draws (``rwkv6_init``'s w0 is
+    -2).  Equal to ``rwkv6_time_mix`` up to float round-off, its gradient
+    too."""
     b, s, d = x.shape
     n = cfg.rwkv_head_size
     h = d // n
@@ -126,11 +139,11 @@ def rwkv6_time_mix_chunked(p, cfg, x: torch.Tensor, state: Dict[str, torch.Tenso
     if s % L:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {L}")
     nc = s // L
-    r, k, v, g, w = _time_mix_inputs(p, cfg, x, state["last_x"])
+    r, k, v, g, rate = _time_mix_rates(p, x, state["last_x"])
     rh = r.reshape(b, nc, L, h, n).float()
     kh = k.reshape(b, nc, L, h, n).float()
     vh = v.reshape(b, nc, L, h, n).float()
-    lw = torch.log(w.reshape(b, nc, L, h, n))           # negative
+    lw = -rate.reshape(b, nc, L, h, n)                  # log w: negative, finite
     lcum = torch.cumsum(lw, dim=2)                      # [B, nc, L, H, N]
     lprev = torch.cat([torch.zeros_like(lcum[:, :, :1]), lcum[:, :, :-1]], dim=2)
     uh = p["u"].reshape(h, n)
