@@ -261,10 +261,13 @@ Phases, each fatal on failure:
    decode_32k lengths, timed the same way; one query row a kv head (g =
    1): zamba2-2.7b's heads (Hkv 32, D 80) and whisper-small's (Hkv 12, D
    64) at the same lengths, and whisper's cross-attention as served (B
-   4, all 1500 encoder rows), timed the same way; then the kernel's other
+   4, all 1500 encoder rows), timed the same way on the g = 1 kernel
+   (units of a run of positions and a group of kv heads, one launch; its
+   plan printed beside the k/v bytes); then the kernel's other
    instantiations (one and two M-tiles of 16 rows, a group of more than
-   32 rows, both D buckets, both types) at small shapes, each split
-   over blocks with the combine and in one block without it, untimed;
+   32 rows, both D buckets, both types, and g = 1 in float32) at small
+   shapes, each split over blocks (with the combine at g >= 2, merged by
+   each group's last unit at g = 1) and in one block, untimed;
 11. the serving path at full width: gemma2-2b, all 26 layers, bf16,
    weights drawn from the seed on the card, through
    ``repro_torch.launch.serve.generate``: batch 4, a 256-token prompt
@@ -405,8 +408,8 @@ Phases, each fatal on failure:
     448 over 4 x 1500 frames and zamba2-2.7b 4 x 512 at full depth,
     rwkv6-3b 4 x 512 cut to 4 of 32 layers, its stepwise recurrence),
     bf16 weights from the seed, fp32 masters, the configs' float32
-    moments, remat, grad_accum 1, 4 steps (rwkv6 2): step ms (median of
-    the steps after the first)
+    moments, remat, grad_accum 1, 3 steps (rwkv6 2; 4 before phases 29
+    and 31): step ms (median of the steps after the first)
     split into forward + backward and the update, tokens/s, 6 N T's share
     of the bf16 peak beside the products' FLOPs x 3, peak memory and busy
     share (rwkv6's from a 4 x 64 step), finite losses and grad norms
@@ -464,16 +467,30 @@ Phases, each fatal on failure:
     each layer's output carried down the stack), finite logits; (c) step
     1's bf16 gradient on phase 27's cut against phase 27's stepwise step
     1, each against the float32 gradient of the same weights (the chunked
-    form's worst leaf within 2x the stepwise form's), then 3 steps at
+    form's worst leaf within 2x the stepwise form's), then 2 steps at
     full depth (32 layers; bf16, fp32 masters, float32 moments, remat, 4
-    x 512 bigram tokens): step ms split into forward + backward and the
+    x 512 bigram tokens; 3 before phase 31): step 2's ms split into
+    forward + backward and the
     update, tokens/s, 6 N T's share of the bf16 peak, peak memory, busy
     share, finite losses and grad norms gated;
+31. zamba2-2.7b's long_500k decode (``configs/shapes.py``: one token
+    against a 524,288-position cache, batch 1), last and alone on the
+    card: full width and depth, bf16 weights from the seed,
+    ``init_cache(1, 524288)`` with each of the 9 shared-block
+    applications' k and v drawn from the seed in place (48.318 GB),
+    ``length`` and ``pos`` at 524,287; one ``decode_step``, the kernel
+    held against its plain version at that length on the step's own q
+    (first application, ``attn_tolerance``, with ms, plain and SDPA
+    beside it), then 5 timed steps (``length`` / ``pos`` reset before
+    each): the step's wall, the 9 kernels' device time against their
+    14.42 ms bound, the card's busy share of a profiled step, peak
+    memory, launches (9 a step), finite logits, all gated;
 21. the whole script's seconds with every phase's, a JSON line of every
     kernel (with ``device_ms`` and, for the BSR kernels,
     ``library_bsr_ms``; the decode kernel again at qwen3-moe's served
-    shapes, at zamba2's heads and at whisper's cross-attention, each
-    with its own arch's serving launches), then the result line.
+    shapes, at zamba2's heads, at whisper's cross-attention and at
+    long_500k's first application, each with its own path's launches),
+    then the result line.
 
 Launch counts are reset right before each path is driven and read right
 after, and the peak of allocated device memory is reset and read around
@@ -533,6 +550,7 @@ from repro_torch.kernels.bsr_spmv import (bsr_spmm_padded,  # noqa: E402
 from repro_torch.kernels.decode_attn import (decode_attention_grouped,  # noqa: E402
                                              decode_attention_ref)
 from repro_torch.kernels.decode_attn.kernel import (TILE,  # noqa: E402
+                                                    g1_launch, g1_scratch, g1_units,
                                                     launch_blocks, scratch_floats,
                                                     split_units)
 from repro_torch.kernels.ell_spmv import (ell_spmm_packed,  # noqa: E402
@@ -4420,19 +4438,8 @@ def attn_case(label, q, k, v, lengths, window, softcap, scale, timed=True):
     ms0 = time_ms(lambda: decode_attention_grouped(q, k, v, lengths, scale=scale,
                                                    window=window))
     profile_program(label, run, entry["ms"])
-    # the work's split: one block a (b, kv head), or the units of the split
-    # and the partials' scratch allocated and written (one slot a unit)
-    n_blocks = launch_blocks(q, k, window)
-    units = split_units((-(-n // TILE)).tolist(), hkv, n_blocks) if n_blocks else []
-    part_alloc = 4 * scratch_floats(b * hkv, g, d, n_blocks)
-    part_written = 4 * len(units) * g * (d + 2)
-    print(f"  {label}: " + ("one block a (b, kv head), one launch (no combine)"
-                            if not n_blocks else
-                            f"{len(units)} units of up to {max(u[3] for u in units)} tiles "
-                            f"on {n_blocks} blocks, and the combine; partials "
-                            f"{part_alloc / 1e6:.3f} MB allocated, {part_written / 1e6:.3f} "
-                            f"MB written and read back")
-          + f", beside {2 * rows * hkv * d * k.element_size() / 1e6:.3f} MB of k/v rows")
+    print(f"  {label}: {attn_split(q, k, n, window)}, beside "
+          f"{2 * rows * hkv * d * k.element_size() / 1e6:.3f} MB of k/v rows")
     print(f"  {label}: {rows} k/v rows of {k.shape[2]} x {b}, {nbytes / 1e9:.4f} GB; "
           f"kernel {entry['ms']:.4f} ms (device {entry['device_ms']:.4f}; softcap 0: "
           f"{ms0:.4f}), bound {bms:.4f} ms "
@@ -4440,6 +4447,35 @@ def attn_case(label, q, k, v, lengths, window, softcap, scale, timed=True):
           f"(softcap 0) {entry['library_ms']:.4f} ms, its result vs the kernel "
           f"at softcap 0: max_abs_err {lib_err:.3e}")
     return entry
+
+
+def attn_split(q, k, n, window):
+    """The work's split of a call on the card (``n``: each sequence's
+    positions inside the masks): g = 1's units of a run of positions and
+    a group of kv heads, one launch, the partials' scratch (kept for the
+    shape) and the bytes of it written; g >= 2's one block a (b, kv head),
+    or the units of its split and the partials' scratch allocated and
+    written (one slot a unit) with the combine."""
+    b, hkv, g, d = q.shape
+    if g == 1:
+        hg, phases, grid = g1_launch(q)
+        run, units = g1_units(n.tolist(), hkv, hg, grid)
+        floats, ints = g1_scratch(b, hkv, d, hg, grid)
+        split = sum(u[5] > 1 for u in units)
+        return (f"g = 1: {len(units)} units of {hg} kv heads x up to {run} positions "
+                f"({max(u[4] for u in units) * hg} rows; the even share "
+                f"{hkv * int(n.sum()) / grid:.0f} a block) on {grid} blocks, {phases} "
+                f"lane groups a head, one launch; partials {4 * floats / 1e6:.3f} MB kept "
+                f"for the shape, {4 * split * hg * (d + 2) / 1e6:.3f} MB written and "
+                f"merged by each group's last unit")
+    n_blocks = launch_blocks(q, k, window)
+    units = split_units((-(-n // TILE)).tolist(), hkv, n_blocks) if n_blocks else []
+    if not n_blocks:
+        return "one block a (b, kv head), one launch (no combine)"
+    return (f"{len(units)} units of up to {max(u[3] for u in units)} tiles on {n_blocks} "
+            f"blocks, and the combine; partials "
+            f"{4 * scratch_floats(b * hkv, g, d, n_blocks) / 1e6:.3f} MB allocated, "
+            f"{4 * len(units) * g * (d + 2) / 1e6:.3f} MB written and read back")
 
 
 DECODE_32K_LENGTHS = (1, 17, 4096, 4097, 9000, 20000, 30000, 32768)   # 99,979 rows
@@ -5866,8 +5902,9 @@ FAMILY_SSD = (2, 256, 128)   # zamba2's held batch, tokens and its full config's
 FAMILY_FULL = {"whisper-small": (4, 448, 12), "zamba2-2.7b": (4, 512, 54),
                "rwkv6-3b": (4, 512, 4)}
 # steps of each (the first is warm-up); rwkv6 cut from 4 to 2 for the time
-# limit when phase 29 came (~4.2 s a step)
-FAMILY_STEPS = {"whisper-small": 4, "zamba2-2.7b": 4, "rwkv6-3b": 2}
+# limit when phase 29 came (~4.2 s a step), whisper and zamba2 from 4 to 3
+# when phase 31 came (~0.9-1.1 s a step)
+FAMILY_STEPS = {"whisper-small": 3, "zamba2-2.7b": 3, "rwkv6-3b": 2}
 # rwkv6's busy share is read from a step of 4 x 64 tokens: the profiler
 # took ~2 min to process a 4 x 512 step's ~100 k kernels (the time limit)
 FAMILY_PROFILE_SEQ = {"rwkv6-3b": 64}
@@ -6089,7 +6126,7 @@ RWKV_F32_GATE = 1e-4
 # the stepwise form's (both ~2.6e-2 at 4 layers: bf16's own error, which
 # the two forms draw apart, so they differ from each other by ~sqrt(2) x it)
 RWKV_BF16_RATIO = 2.0
-RWKV_TRAIN_STEPS = 3         # 30c at full depth: steps 2-3 timed
+RWKV_TRAIN_STEPS = 2         # 30c at full depth: step 2 timed (3 before phase 31's cut)
 
 
 def rwkv_held_tree(cfg, seed, w0):
@@ -6654,6 +6691,143 @@ def phase_dp_train(finish, smi):
                                  f"its replicas differ")
 
 
+# zamba2-2.7b's long_500k decode (phase 31) ----------------------------------
+LONG_ARCH = "zamba2-2.7b"
+LONG_SEQ = 524_288           # configs/shapes.py long_500k: one token against this cache, batch 1
+LONG_REPS = 5                # timed decode steps after the first
+
+
+def long_cache(model, seq, seed):
+    """``init_cache(1, seq)`` with every application's k and v drawn from
+    the seed in place, one at a time in bf16 (no float32 copy of the
+    cache), and ``length`` / ``pos`` at seq - 1: the next step writes slot
+    seq - 1 and attends over the whole cache."""
+    cache = model.init_cache(1, seq)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 31)
+    for a in range(model.n_apps):
+        for name in ("k", "v"):
+            cache["shared"][name][a].normal_(generator=gen)
+    cache["length"].fill_(seq - 1)
+    cache["pos"] = seq - 1
+    return cache
+
+
+def recording_attention(record):
+    """A stand-in for ``models.attention``'s decode kernel call that
+    records each call's arguments and output into ``record``."""
+    real = decode_attention_grouped
+
+    def call(q, k, v, lengths, **kw):
+        out = real(q, k, v, lengths, **kw)
+        record.append(dict(q=q, lengths=lengths, kw=kw, out=out))
+        return out
+    return call
+
+
+def phase_long_500k(seed, smi):
+    """[31] zamba2-2.7b's long_500k decode at full width and depth, bf16
+    weights from the seed: one token against a 524,288-position cache of
+    its 9 shared-block applications (48.318 GB of k/v).  One step, the
+    decode kernel held against its plain version on the step's own q at
+    the first application, then LONG_REPS timed steps, ``length`` and
+    ``pos`` reset to S - 1 before each (a full cache raises); the last
+    step's 9 kernel calls re-timed back to back on their own inputs (events
+    around one call in the step would count the wrapper's host time too:
+    the card waits for the host there), and one step profiled.  Returns
+    the kernels-line entry of the kernel at this length."""
+    t0 = time.perf_counter()
+    cfg = get_config(LONG_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg).init(seed)
+    cache = long_cache(model, LONG_SEQ, seed)
+    torch.cuda.synchronize()
+    kv_bytes = sum(t.nbytes for t in cache["shared"].values())
+    weights = sum(t.nbytes for t in model.parameters())
+    print(f"[31] {LONG_ARCH} long_500k: {cfg.n_layers} layers, {model.n_apps} shared-block "
+          f"applications, one token against a {LONG_SEQ}-position cache, batch 1, "
+          f"{cfg.dtype}; weights {weights / 1e9:.3f} GB and k/v {kv_bytes / 1e9:.3f} GB "
+          f"([{model.n_apps}, 1, {LONG_SEQ}, {cfg.n_kv_heads}, {cfg.head_dim}] each) from "
+          f"seed {seed} in {time.perf_counter() - t0:.2f} s")
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (1, 1))).to(DEV)
+    record = []
+    attention.decode_attention_grouped = recording_attention(record)
+    try:
+        reset_launches()
+        logits, cache = model.decode_step(cache, tok)
+        torch.cuda.synchronize()
+        first_launches = launches["decode_attention_grouped"]
+        first = record[0]
+        q, lengths = first["q"], first["lengths"]
+        k = cache["shared"]["k"][0].transpose(1, 2)
+        v = cache["shared"]["v"][0].transpose(1, 2)
+        again = decode_attention_grouped(q, k, v, lengths, **first["kw"])
+        if not (torch.isfinite(logits).all() and torch.equal(again, first["out"])):
+            raise AssertionError("long_500k: non-finite logits, or the kernel's output "
+                                 "in the step differs from a second call on its inputs")
+        print(f"  step 1: {len(record)} decode kernel calls, {first_launches} launches; "
+              f"first application: lengths {lengths.tolist()}, q {list(q.shape)}")
+        entry = attn_case(f"{LONG_ARCH} long_500k, first application, the step's own q: "
+                          f"B 1, S {LONG_SEQ}, Hkv {cfg.n_kv_heads}, g 1, D {cfg.head_dim}, "
+                          f"{cfg.dtype} [B,S,Hkv,D]", q, k, v, lengths, first["kw"]["window"],
+                          first["kw"]["softcap"], first["kw"]["scale"])
+        del q, lengths, k, v, again, first, record[:]
+        free()                      # the plain version's float32 copies
+        peak_check = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        reset_launches()
+        for _ in range(LONG_REPS):
+            cache["length"].fill_(LONG_SEQ - 1)
+            cache["pos"] = LONG_SEQ - 1
+            record.clear()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = model.decode_step(cache, tok)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+            if not torch.isfinite(logits).all():
+                raise AssertionError("long_500k: non-finite logits")
+        n_launch = launches["decode_attention_grouped"]
+    finally:
+        attention.decode_attention_grouped = decode_attention_grouped
+    wall = statistics.median(walls)
+    # the last step's calls, application a on cache application a
+    attn_ms = [device_ms(lambda r=r, a=a: decode_attention_grouped(
+        r["q"], cache["shared"]["k"][a].transpose(1, 2), cache["shared"]["v"][a].transpose(1, 2),
+        r["lengths"], **r["kw"]), n=5, warmup=1) for a, r in enumerate(record)]
+    cache["length"].fill_(LONG_SEQ - 1)
+    cache["pos"] = LONG_SEQ - 1
+    busy = profile_program(f"{LONG_ARCH} long_500k: one decode step",
+                           lambda: model.decode_step(cache, tok), wall, host_ops=False)
+    peak_steps = torch.cuda.max_memory_allocated()
+    want = model.n_apps * LONG_REPS
+    if n_launch != want or first_launches != model.n_apps:
+        raise AssertionError(f"long_500k: {first_launches} + {n_launch} decode kernel "
+                             f"launches, not {model.n_apps} + {want}")
+    attn_bound = kv_bytes / HBM_BYTES_PER_S * 1e3
+    step_bound = (kv_bytes + weights) / HBM_BYTES_PER_S * 1e3
+    attn = sum(attn_ms)
+    print(f"  {LONG_REPS} timed steps: wall median {wall:.4f} ms (min {min(walls):.4f}, "
+          f"max {max(walls):.4f}; host clock around a synchronized step); the "
+          f"{model.n_apps} attention kernels' device time (the last step's calls again, "
+          f"events around 5 back-to-back launches each) {attn:.4f} ms a step ("
+          f"{min(attn_ms):.4f} .. {max(attn_ms):.4f} an application) against their bound "
+          f"{attn_bound:.4f} ms ({kv_bytes / 1e9:.3f} GB of k/v at 3.35 TB/s): "
+          f"{100 * attn_bound / attn:.1f}%; the step's bound {step_bound:.4f} ms (the "
+          f"weights too), {100 * step_bound / wall:.1f}% of its wall; the card busy "
+          f"{busy:.4f} ms of the profiled step ({100 * busy / wall:.1f}% of the median "
+          f"wall); launches {first_launches} + {n_launch} (= {model.n_apps} a step); peak "
+          f"memory {peak_check / 1e9:.3f} GB with the plain version's check, "
+          f"{peak_steps / 1e9:.3f} GB over the timed steps; logits finite; phase 31 "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    del model, cache, logits
+    free()
+    entry["launches"] = first_launches + n_launch
+    return dict(name=f"decode_attention_grouped:{LONG_ARCH}:long_500k", route="cuda",
+                source=ATTN_SOURCE, replaces=ATTN_REPLACES, **entry)
+
+
 class PhaseClock:
     """Seconds of each phase of ``main``, printed as each ends (a phase
     run inside another's wait counts in that one's)."""
@@ -6933,6 +7107,10 @@ def main():
     phase_dp_train(dp["finish"], smi)
     dp_tmp.cleanup()
     clock.done(f"29 (its children {dp['finish']()['wall_s']:.1f} s in phase 9's wait)")
+
+    # 31. zamba2-2.7b's long_500k decode (~53 GB: last, alone on the card) ----
+    entries.append(phase_long_500k(args.seed, smi))
+    clock.done("31")
 
     # launches of each kernel over the paths that run it (each path's
     # counts were reset just before it); the AMG solve's launches, forward

@@ -66,6 +66,39 @@
 // The row pitch of every shared tile carries 16 bytes of padding, so the
 // ldmatrix rows of an 8 x 8 matrix fall on distinct banks; D % 16 = 8
 // pads the mma's k-dimension with zeros in shared memory.
+//
+// g = 1 (one query row a kv head: zamba2-2.7b's 32 heads of D 80,
+// whisper-small's 12 of D 64) takes a path of its own, decode_attn_g1
+// below; the tile kernel above serves g >= 2.  Its bound is the same: the
+// bytes of the k/v rows inside the masks, read once (1.0239 GB, 0.3056 ms
+// at zamba2's heads and decode_32k's lengths; 5.3687 GB, 1.6026 ms a
+// shared-block application of its long_500k cell).  At 1 flop a byte an
+// M-tile of 16 rows with one live row, P split for the tensor cores and
+// barriers across warps every tile buy nothing, so the design drops them:
+//   - a group of D / 8 lanes holds one head's row, 8 elements a lane (one
+//     16-byte vector in bf16, two in f32: 10 lanes at D 80, 8 at D 64),
+//     and keeps that head's running max, sum and output in registers;
+//     scores reduce within the group by shuffles;
+//   - each thread streams its own slices of k and v through a ring of
+//     kG1Stages slots in shared memory by cp.async (kG1Pos positions a
+//     slot, zero-filled past the unit's end) and reads back only what it
+//     copied itself, so the ring needs no barrier: three slots in flight
+//     a thread while it computes on the fourth, 138 KB an SM at D 80;
+//   - the work is units of (sequence, run of R positions, group of hg kv
+//     heads), hg dividing Hkv: in the model's [B, S, Hkv, D] cache one
+//     position's heads lie side by side, so a block reads rows of hg D
+//     contiguous elements.  A block's lane groups take the hg heads times
+//     `phases` interleaved runs of positions; the phases merge once, in
+//     shared memory, at the unit's end.  R is the fewest positions whose
+//     units fit the grid (at least one block slot each, the sequences'
+//     lengths read on the card), so every unit of a sequence but its last
+//     has R positions and the balance comes from the construction;
+//   - a sequence of one unit writes its output; else each unit writes a
+//     partial (m, l, acc) and counts itself on an atomic counter of its
+//     (sequence, head group), and the last to arrive merges the partials
+//     and resets the counter: one launch, no combine kernel.
+// Other strides (the [B, Hkv, S, D] layout) take the same code; a row of
+// a head then no longer lies beside its neighbours'.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -777,6 +810,386 @@ cudaError_t dispatch(int dtype, int d, int rows, F&& f) {
   return dtype == 0 ? dispatch_t<float>(d, rows, f) : dispatch_t<bf16>(d, rows, f);
 }
 
+// ---------------------------------------------------------------------------
+// g = 1 (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kG1Warps = 8;
+constexpr int kG1Threads = kG1Warps * 32;
+constexpr int kG1Stages = 4;      // ring slots a thread: three in flight while it computes
+constexpr int kG1Lane = 8;        // elements of D a lane holds
+constexpr int kG1MinBlocks = 3;
+
+template <typename T>
+struct G1Cfg {
+  static constexpr int kVecs = kG1Lane * (int)sizeof(T) / 16;  // 16-byte vectors of a slice
+  static constexpr int kPos = 2 / kVecs;                       // positions a slot: 2 bf16, 1 f32
+  static constexpr int kSlotVecs = 2 * kPos * kVecs;           // k and v: 4 either way
+  static constexpr int kSmem = kG1Stages * kSlotVecs * 16 * kG1Threads;  // 64 KB
+};
+
+// q [B, Hkv, 1, D] contiguous, k/v strides in elements, out [B, Hkv, 1, D];
+// part: the partials' acc [grid][hg][D] then (m, l) [grid][hg][2]; counts
+// [B][Hkv / hg], zero between launches.
+template <typename T>
+struct G1Args {
+  const T* q;
+  const T* k;
+  const T* v;
+  const int* lengths;
+  long long ksb, ksh, kss, vsb, vsh, vss;
+  float* out;
+  float* part;
+  int* counts;
+  int batch, hkv, seq, d, window, hg, phases;
+  float scale, softcap;
+};
+
+// A block's unit: sequence b, head group hg, positions [begin, end); the
+// sequence's units are chunks first, first + 1, ... (nu of them) of the
+// plan's (b, chunk) order.
+struct G1Unit {
+  int b, hg, nu, begin, end;
+  long long first;
+};
+
+__device__ __forceinline__ long long warp_sum(long long x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Chunks of sequence b at a run of r positions: at least one (an empty
+// sequence's unit writes its zeros).
+__device__ __forceinline__ long long g1_chunks(int n, long long r) {
+  return n > 0 ? (n + r - 1) / r : 1;
+}
+
+// The unit plan, computed by each warp alone (the same in every warp, so
+// no barrier): the run R is the fewest positions whose chunks, times the
+// head groups, fit the grid's slots (gridDim.x / nhg chunks a head group,
+// at least B by the host's grid); units in (b, chunk, head group) order.
+// False for a block past the last unit.
+template <typename T>
+__device__ bool g1_unit(const G1Args<T>& a, long long u, int nhg, G1Unit& un) {
+  const int lane = threadIdx.x & 31;
+  const long long slots = gridDim.x / nhg;
+  long long total = 0;
+  int longest = 0;
+  for (int b = lane; b < a.batch; b += 32) {
+    const int2 r = seq_range(a.lengths, b, a.seq, a.window);
+    total += r.y - r.x;
+    longest = max(longest, r.y - r.x);
+  }
+  total = warp_sum(total);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    longest = max(longest, __shfl_xor_sync(0xffffffffu, longest, off));
+  auto chunks = [&](long long run) {
+    long long c = 0;
+    for (int b = lane; b < a.batch; b += 32) {
+      const int2 r = seq_range(a.lengths, b, a.seq, a.window);
+      c += g1_chunks(r.y - r.x, run);
+    }
+    return warp_sum(c);
+  };
+  // R in [ceil(total / slots), longest]; each sequence adds at most one
+  // short chunk, so ceil(total / (slots - B)) fits when slots > B
+  long long lo = max(1LL, (total + slots - 1) / slots), hi = max(1, longest);
+  if (slots > a.batch) hi = min(hi, max(lo, (total + slots - a.batch - 1) / (slots - a.batch)));
+  while (lo < hi) {
+    const long long mid = (lo + hi) / 2;
+    if (chunks(mid) <= slots) hi = mid; else lo = mid + 1;
+  }
+  const long long run = lo, cu = u / nhg;
+  long long base = 0;
+  for (int b0 = 0; b0 < a.batch; b0 += 32) {
+    const int b = b0 + lane;
+    const int2 r = b < a.batch ? seq_range(a.lengths, b, a.seq, a.window) : make_int2(0, 0);
+    const long long c = b < a.batch ? g1_chunks(r.y - r.x, run) : 0;
+    long long incl = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const bool mine = b < a.batch && base + incl - c <= cu && cu < base + incl;
+    const unsigned hit = __ballot_sync(0xffffffffu, mine);
+    if (hit) {
+      const int src = __ffs(hit) - 1;
+      un.b = b0 + src;
+      un.first = base + __shfl_sync(0xffffffffu, incl - c, src);
+      un.nu = (int)__shfl_sync(0xffffffffu, c, src);
+      const int lo_b = __shfl_sync(0xffffffffu, r.x, src);
+      const int hi_b = __shfl_sync(0xffffffffu, r.y, src);
+      const long long j = cu - un.first;
+      un.hg = (int)(u - cu * nhg);
+      un.begin = (int)min((long long)lo_b + j * run, (long long)hi_b);
+      un.end = (int)min((long long)lo_b + (j + 1) * run, (long long)hi_b);
+      return true;
+    }
+    base += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  return false;
+}
+
+// A lane's 8 elements as floats; vector i of the slice at p + i * stride.
+template <typename T>
+__device__ __forceinline__ void unpack8(const uint4* p, int stride, float (&x)[8]) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const uint4 u = *p;
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  } else {
+    const float4 lo = *reinterpret_cast<const float4*>(p);
+    const float4 hi = *reinterpret_cast<const float4*>(p + stride);
+    x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+    x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+  }
+}
+
+// Sums over the lh lanes of each lane group (lanes [base, base + lh)), in
+// every lane of the group: a butterfly when lh is a power of two (p2 ==
+// lh), else a tree to the group's first lane and a broadcast.
+template <int N>
+__device__ __forceinline__ void group_sums(float (&x)[N], int lh, int p2, int idx, int base) {
+  if (lh == p2) {
+    for (int off = lh >> 1; off > 0; off >>= 1)
+#pragma unroll
+      for (int n = 0; n < N; ++n) x[n] += __shfl_xor_sync(0xffffffffu, x[n], off);
+  } else {
+    for (int off = p2 >> 1; off > 0; off >>= 1)
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float y = __shfl_down_sync(0xffffffffu, x[n], off);
+        if (idx + off < lh) x[n] += y;
+      }
+#pragma unroll
+    for (int n = 0; n < N; ++n) x[n] = __shfl_sync(0xffffffffu, x[n], base);
+  }
+}
+
+__device__ __forceinline__ void store8(float* dst, const float (&x)[8], float den) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(x[0] / den, x[1] / den, x[2] / den, x[3] / den);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(x[4] / den, x[5] / den, x[6] / den, x[7] / den);
+}
+
+__device__ __forceinline__ void load8(const float* src, float (&x)[8]) {
+  const float4 lo = reinterpret_cast<const float4*>(src)[0];
+  const float4 hi = reinterpret_cast<const float4*>(src)[1];
+  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+}
+
+// Each head's (m, l, acc) merged over its lane groups' phases through
+// `red` ([lane group][D + 4] floats of shared memory, free on entry): the
+// lead lanes (phase 0) get the result; a barrier inside.
+__device__ __forceinline__ void merge_phases(float* red, int d, int i, int idx, int hl,
+                                             int hg, int phases, bool active, bool lead,
+                                             float& m, float& l, float (&acc)[kG1Lane]) {
+  const int pitch = d + 4;
+  if (active) {
+    float* r = red + i * pitch;
+    store8(r + kG1Lane * idx, acc, 1.0f);
+    if (idx == 0) {
+      r[d] = m;
+      r[d + 1] = l;
+    }
+  }
+  __syncthreads();
+  if (!lead) return;
+  m = kNegBig;
+  for (int p = 0; p < phases; ++p) m = fmaxf(m, red[(p * hg + hl) * pitch + d]);
+  l = 0.0f;
+#pragma unroll
+  for (int e = 0; e < kG1Lane; ++e) acc[e] = 0.0f;
+  for (int p = 0; p < phases; ++p) {
+    const float* r = red + (p * hg + hl) * pitch;
+    const float w = expf(r[d] - m);
+    float x[kG1Lane];
+    load8(r + kG1Lane * idx, x);
+    l = fmaf(r[d + 1], w, l);
+#pragma unroll
+    for (int e = 0; e < kG1Lane; ++e) acc[e] = fmaf(x[e], w, acc[e]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kG1Threads, kG1MinBlocks) decode_attn_g1(const G1Args<T> a) {
+  using C = G1Cfg<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nhg = a.hkv / a.hg;
+  G1Unit un;
+  if (!g1_unit(a, blockIdx.x, nhg, un)) return;
+
+  // lane group i = (head hl of the unit's group, phase ph); lanes of a
+  // warp past its whole groups, and groups past hg x phases, stay idle
+  // (they shuffle along and copy nothing)
+  const int lh = a.d / kG1Lane, per_warp = 32 / lh;
+  const int p2 = lh > 1 ? 1 << (32 - __clz(lh - 1)) : 1;
+  const int grp = lane / lh, idx = lane - grp * lh;
+  const int i = warp * per_warp + grp;
+  const bool active = grp < per_warp && i < a.hg * a.phases;
+  const int hl = active ? i % a.hg : 0, ph = active ? i / a.hg : 0;
+  const int h = un.hg * a.hg + hl;
+  const int n_tiles = (un.end - un.begin + C::kPos - 1) / C::kPos;
+  const int steps = (n_tiles + a.phases - 1) / a.phases;
+  const T* kb = a.k + un.b * a.ksb + h * a.ksh + kG1Lane * idx;
+  const T* vb = a.v + un.b * a.vsb + h * a.vsh + kG1Lane * idx;
+  const uint32_t ring = smem_u32(smem) + tid * 16;
+  constexpr int kPer16 = 16 / (int)sizeof(T);
+  // step st: this lane group's tile ph + st phases, into slot st % kG1Stages
+  auto load = [&](int st) {
+    const int slot = st % kG1Stages;
+    const int p0 = un.begin + (ph + st * a.phases) * C::kPos;
+#pragma unroll
+    for (int p = 0; p < C::kPos; ++p) {
+      const bool live = active && p0 + p < un.end;
+      const T* ks = live ? kb + (long long)(p0 + p) * a.kss : a.k;
+      const T* vs = live ? vb + (long long)(p0 + p) * a.vss : a.v;
+#pragma unroll
+      for (int e = 0; e < C::kVecs; ++e) {
+        const int vk = (slot * C::kSlotVecs + (2 * p) * C::kVecs + e) * kG1Threads;
+        const int vv = (slot * C::kSlotVecs + (2 * p + 1) * C::kVecs + e) * kG1Threads;
+        cp_async16(ring + vk * 16, ks + e * kPer16, live);
+        cp_async16(ring + vv * 16, vs + e * kPer16, live);
+      }
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kG1Stages; ++st) {
+    if (st < steps) load(st);
+    cp_async_commit();
+  }
+
+  float q[kG1Lane], acc[kG1Lane];
+#pragma unroll
+  for (int e = 0; e < kG1Lane; ++e) acc[e] = 0.0f;
+  if (active) {
+    const T* qp = a.q + ((long long)un.b * a.hkv + h) * a.d + kG1Lane * idx;
+    unpack8<T>(reinterpret_cast<const uint4*>(qp), 1, q);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kG1Lane; ++e) q[e] = 0.0f;
+  }
+  float m = kNegBig, l = 0.0f;
+  const uint4* mine = reinterpret_cast<const uint4*>(smem) + tid;
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<kG1Stages - 1>();  // this thread's copies of step st landed
+    const int slot = st % kG1Stages;
+    const int p0 = un.begin + (ph + st * a.phases) * C::kPos;
+    float kx[C::kPos][kG1Lane], vx[C::kPos][kG1Lane], s[C::kPos];
+#pragma unroll
+    for (int p = 0; p < C::kPos; ++p) {
+      unpack8<T>(mine + (slot * C::kSlotVecs + 2 * p * C::kVecs) * kG1Threads, kG1Threads,
+                 kx[p]);
+      unpack8<T>(mine + (slot * C::kSlotVecs + (2 * p + 1) * C::kVecs) * kG1Threads,
+                 kG1Threads, vx[p]);
+      s[p] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < kG1Lane; ++e) s[p] = fmaf(q[e], kx[p][e], s[p]);
+    }
+    group_sums(s, lh, p2, idx, grp * lh);
+    float mx = m;
+#pragma unroll
+    for (int p = 0; p < C::kPos; ++p) {
+      float x = s[p] * a.scale;
+      if (a.softcap > 0.0f) x = a.softcap * tanhf(x / a.softcap);
+      s[p] = active && p0 + p < un.end ? x : kNegBig;
+      mx = fmaxf(mx, s[p]);
+    }
+    const float alpha = expf(m - mx);
+    m = mx;
+    l *= alpha;
+#pragma unroll
+    for (int e = 0; e < kG1Lane; ++e) acc[e] *= alpha;
+#pragma unroll
+    for (int p = 0; p < C::kPos; ++p) {
+      const float w = active && p0 + p < un.end ? expf(s[p] - mx) : 0.0f;
+      l += w;
+#pragma unroll
+      for (int e = 0; e < kG1Lane; ++e) acc[e] = fmaf(w, vx[p][e], acc[e]);
+    }
+    // the slot is read: step st + kG1Stages into it
+    if (st + kG1Stages < steps) load(st + kG1Stages);
+    cp_async_commit();
+  }
+
+  // the phases of each head merge in shared memory (the ring is done)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  const bool lead = active && ph == 0;
+  merge_phases(red, a.d, i, idx, hl, a.hg, a.phases, active, lead, m, l, acc);
+  float* out = a.out + ((long long)un.b * a.hkv + h) * a.d + kG1Lane * idx;
+  if (un.nu == 1) {
+    if (lead) store8(out, acc, fmaxf(l, 1e-30f));
+    return;
+  }
+
+  // a partial; the unit that counts last merges its group's: lane group
+  // (hl, ph) the units ph, ph + phases, ..., then the phases as above
+  float* part_acc = a.part;
+  float* part_ml = a.part + (long long)gridDim.x * a.hg * a.d;
+  if (lead) {
+    const long long slot = (long long)blockIdx.x * a.hg + hl;
+    store8(part_acc + slot * a.d + kG1Lane * idx, acc, 1.0f);
+    if (idx == 0) *reinterpret_cast<float2*>(part_ml + 2 * slot) = make_float2(m, l);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* c = a.counts + (long long)un.b * nhg + un.hg;
+    last = atomicAdd(c, 1) == un.nu - 1;
+    if (last) *c = 0;  // every unit of the group has counted
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  m = kNegBig;
+  l = 0.0f;
+#pragma unroll
+  for (int e = 0; e < kG1Lane; ++e) acc[e] = 0.0f;
+  for (int j = active ? ph : un.nu; j < un.nu; j += a.phases) {
+    const long long sj = ((un.first + j) * nhg + un.hg) * a.hg + hl;
+    const float2 ml = __ldcg(reinterpret_cast<const float2*>(part_ml + 2 * sj));
+    const float4* src = reinterpret_cast<const float4*>(part_acc + sj * a.d + kG1Lane * idx);
+    const float4 lo = __ldcg(src), hi = __ldcg(src + 1);
+    const float x[kG1Lane] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const float mn = fmaxf(m, ml.x);
+    const float alpha = expf(m - mn), w = expf(ml.x - mn);
+    m = mn;
+    l = l * alpha + ml.y * w;
+#pragma unroll
+    for (int e = 0; e < kG1Lane; ++e) acc[e] = fmaf(x[e], w, acc[e] * alpha);
+  }
+  merge_phases(red, a.d, i, idx, hl, a.hg, a.phases, active, lead, m, l, acc);
+  if (lead) store8(out, acc, fmaxf(l, 1e-30f));
+}
+
+template <typename T>
+cudaError_t g1_kernel(void (**kernel)(G1Args<T>)) {
+  *kernel = decode_attn_g1<T>;
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && ready[dev])) return err;
+  err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             G1Cfg<T>::kSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < 64) ready[dev] = true;
+  return err;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k and v alike).  q [B, Hkv, g, D]
@@ -845,4 +1258,49 @@ extern "C" int decode_attention_occupancy(int dtype, int d, int rows, int* block
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, kernel, kThreads, Cfg<T, I::kDMax, I::kMT>::kSmem);
   });
+}
+
+// g = 1 (q [B, Hkv, 1, D]): units of hg kv heads (hg dividing Hkv) with
+// `phases` lane groups a head, over `grid` blocks (at least B Hkv / hg);
+// part holds grid hg (D + 2) floats and counts B Hkv / hg ints, zero before
+// the first launch (each launch leaves them zero).  One launch.
+extern "C" int decode_attention_g1(
+    const void* q, const void* k, const void* v, const int* lengths, int dtype,
+    long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
+    long long vss, float* out, float* part, int* counts, int batch, int hkv, int seq,
+    int d, int window, int hg, int phases, int grid, float scale, float softcap,
+    void* stream) {
+  if (d <= 0 || d > kMaxD || d % kG1Lane || hg <= 0 || phases <= 0 || hkv % hg ||
+      hg * phases > kG1Warps * (32 / (d / kG1Lane)) || (dtype != 0 && dtype != 1) ||
+      (long long)grid < (long long)batch * (hkv / hg) || grid <= 0)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)batch * hkv == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    void (*kernel)(G1Args<T>);
+    cudaError_t e = g1_kernel<T>(&kernel);
+    if (e != cudaSuccess) return e;
+    const G1Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+                      static_cast<const T*>(v), lengths, ksb, ksh, kss, vsb, vsh, vss,
+                      out, part, counts, batch, hkv, seq, d, window, hg, phases,
+                      scale, softcap};
+    kernel<<<(unsigned)grid, kG1Threads, G1Cfg<T>::kSmem, s>>>(a);
+    return cudaGetLastError();
+  };
+  return (int)(dtype == 0 ? run((float*)nullptr) : run((bf16*)nullptr));
+}
+
+// Blocks of the g = 1 kernel an SM holds (dtype as above).
+extern "C" int decode_attention_g1_occupancy(int dtype, int* blocks) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    void (*kernel)(G1Args<T>);
+    cudaError_t e = g1_kernel<T>(&kernel);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kG1Threads,
+                                                         G1Cfg<T>::kSmem);
+  };
+  return (int)(dtype == 0 ? run((float*)nullptr) : run((bf16*)nullptr));
 }

@@ -17,6 +17,10 @@ the TPU kernel's contract.  ``softcap > 0`` caps the scores as
 
 CPU tensors take the plain version (:mod:`.ref`); CUDA tensors take the
 kernel or raise; ``meta`` tensors an empty result of the output's shape.
+g >= 2 takes the tile kernel (all g rows of a kv head in a block; its
+split mirrored by :func:`split_units`); g = 1 its own kernel, one launch,
+over units of (sequence, run of positions, group of kv heads) mirrored by
+:func:`g1_units`, with a scratch sized once for each shape and kept.
 While :mod:`repro_torch.core.op_analysis` counts, a call reports its
 declared work (:func:`declared_work`): the k/v rows inside the masks,
 read once.
@@ -40,6 +44,8 @@ MAX_ROWS = 32             # query rows a launch holds (kMaxRows): two M-tiles of
 ONE_BLOCK_SPAN = 1024     # spans up to this take one block a (b, kv head), no combine
 MIN_TILES = 16            # fewest tiles (512 positions) a unit of the split takes
 MAX_BLOCKS = 65535        # blocks of the split (kMaxBlocks in the source)
+G1_WARPS = 8              # warps of a g = 1 block (kG1Warps)
+G1_LANE = 8               # elements of D a lane of the g = 1 kernel holds (kG1Lane)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 
@@ -50,6 +56,16 @@ def _fn():
         p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, i, ll, ll, ll, ll, ll, ll, p, p,
                        i, i, i, i, i, i, i, f, f, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _g1_fn():
+    fn = _build.library("decode_attn").decode_attention_g1
+    if fn.argtypes is None:
+        p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, i, ll, ll, ll, ll, ll, ll, p, p, p,
+                       i, i, i, i, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -121,6 +137,107 @@ def split_units(seq_tiles: Sequence[int], hkv: int,
             for h in range(hkv):
                 units.append((len(units), b * hkv + h, j * w, min(w, n - j * w)))
     return units
+
+
+def g1_groups(hkv: int, d: int) -> Tuple[int, int]:
+    """(hg, phases) of the g = 1 kernel: a block's lane groups (D / 8 lanes
+    each, as many as a warp holds whole, G1_WARPS warps) take hg kv heads,
+    hg dividing Hkv, times ``phases`` interleaved runs of positions; hg is
+    the largest of those that keep the most lane groups busy (zamba2's 32
+    heads of D 80: 8 x 3 of 24; whisper's 12 of D 64: 4 x 8 of 32)."""
+    groups = G1_WARPS * (32 // (d // G1_LANE))
+    _, hg = max((h * (groups // h), h) for h in range(1, min(hkv, groups) + 1)
+                   if hkv % h == 0)
+    return hg, groups // hg
+
+
+def g1_grid(batch: int, hkv: int, hg: int, slots: int) -> int:
+    """Blocks of a g = 1 launch: every block slot of the card, and at
+    least one a (sequence, head group)."""
+    return max(slots, batch * (hkv // hg))
+
+
+def g1_units(n_pos: Sequence[int], hkv: int, hg: int, grid: int
+             ) -> Tuple[int, List[Tuple[int, int, int, int, int, int]]]:
+    """The g = 1 kernel's unit plan, as (run, units): sequence b's
+    ``n_pos[b]`` positions inside the masks cut into chunks of ``run``
+    (max(1, ceil(n / run)) chunks: an empty sequence's one unit writes its
+    zeros), one unit a chunk and head group in (b, chunk, head group)
+    order, as (unit, b, first head, first position, positions, chunks of
+    b); positions count from the sequence's first inside the masks.  The
+    run is the fewest positions whose units fit the grid, at most
+    ``grid // (Hkv / hg)`` chunks a head group; unit u is block u."""
+    nhg = hkv // hg
+    slots = grid // nhg
+    chunks = lambda run: sum(-(-n // run) if n > 0 else 1 for n in n_pos)  # noqa: E731
+    total = sum(n_pos)
+    lo, hi = max(1, -(-total // slots)), max(1, max(n_pos, default=0))
+    if slots > len(n_pos):
+        hi = min(hi, max(lo, -(-total // (slots - len(n_pos)))))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if chunks(mid) <= slots:
+            hi = mid
+        else:
+            lo = mid + 1
+    units = []
+    for b, n in enumerate(n_pos):
+        c = -(-n // lo) if n > 0 else 1
+        for j in range(c):
+            for h in range(nhg):
+                units.append((len(units), b, h * hg, j * lo, max(0, min(lo, n - j * lo)), c))
+    return lo, units
+
+
+def g1_scratch(batch: int, hkv: int, d: int, hg: int, grid: int) -> Tuple[int, int]:
+    """(floats, ints) of the g = 1 kernel's scratch: (acc, m, l) of the hg
+    heads of every block's unit, and a counter a (sequence, head group);
+    sized by the shape alone, not the lengths."""
+    return grid * hg * (d + 2), batch * (hkv // hg)
+
+
+@functools.lru_cache(maxsize=None)
+def _g1_slots(index: int, dtype: int) -> int:
+    """Block slots of the g = 1 kernel on the card: blocks an SM holds x SMs."""
+    fn = _build.library("decode_attn").decode_attention_g1_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    blocks = ctypes.c_int()
+    with torch.cuda.device(index):
+        code = fn(dtype, ctypes.byref(blocks))
+    _build.check_status(code, NAME)
+    return blocks.value * _sms(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _g1_plan(index: int, dtype: int, batch: int, hkv: int, d: int):
+    """(hg, phases, grid, scratch floats, scratch ints) of a g = 1 shape."""
+    hg, phases = g1_groups(hkv, d)
+    grid = g1_grid(batch, hkv, hg, _g1_slots(index, dtype))
+    return (hg, phases, grid) + g1_scratch(batch, hkv, d, hg, grid)
+
+
+def g1_launch(q: torch.Tensor) -> Tuple[int, int, int]:
+    """(hg, phases, grid) of a g = 1 call on q's card (CUDA tensors)."""
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    return _g1_plan(index, _DTYPES[q.dtype], q.shape[0], q.shape[1], q.shape[3])[:3]
+
+
+# the g = 1 scratch a (device, stream): partials (float32) and counters
+# (int32, zero between launches: the kernel's last unit of a group resets
+# its own), grown when a shape needs more
+_G1_SCRATCH = {}
+
+
+def _g1_buffers(device: torch.device, index: int, stream: int, floats: int, ints: int):
+    part, counts = _G1_SCRATCH.get((index, stream), (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    if counts is None or counts.numel() < ints:
+        counts = torch.zeros(max(ints, 1), dtype=torch.int32, device=device)
+    _G1_SCRATCH[(index, stream)] = (part, counts)
+    return part, counts
 
 
 def scratch_floats(n_pairs: int, g: int, d: int, n_blocks: int) -> int:
@@ -223,6 +340,8 @@ def _dispatch(q, k, v, lengths, scale, softcap, window) -> torch.Tensor:
         raise ValueError(f"unsupported device {q.device}")
     _check_kernel_layout(q, k, v, lengths)
     b, hkv, g, d = q.shape
+    if g == 1:
+        return _dispatch_g1(q, k, v, lengths, scale, softcap, window)
     seq = k.shape[2]
     n_blocks = launch_blocks(q, k, window)
     out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device)
@@ -233,6 +352,26 @@ def _dispatch(q, k, v, lengths, scale, softcap, window) -> torch.Tensor:
                  _DTYPES[q.dtype], *k.stride()[:3], *v.stride()[:3],
                  out.data_ptr(), part.data_ptr() if n_blocks else None, b, hkv, g, seq, d,
                  window, n_blocks, float(scale), float(softcap), stream)
+    _build.check_status(code, NAME)
+    _build.launches[NAME] += 1
+    return out
+
+
+def _dispatch_g1(q, k, v, lengths, scale, softcap, window) -> torch.Tensor:
+    b, hkv, _, d = q.shape
+    dev = q.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    dtype = _DTYPES[q.dtype]
+    hg, phases, grid, floats, ints = _g1_plan(index, dtype, b, hkv, d)
+    # the current stream's handle, without the Stream object that
+    # torch.cuda.current_stream builds (~4.5 us of a ~35 us call on the card)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    part, counts = _g1_buffers(dev, index, stream, floats, ints)
+    out = torch.empty((b, hkv, 1, d), dtype=torch.float32, device=dev)
+    code = _g1_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), dtype,
+                    *k.stride()[:3], *v.stride()[:3], out.data_ptr(), part.data_ptr(),
+                    counts.data_ptr(), b, hkv, k.shape[2], d, window, hg, phases, grid,
+                    float(scale), float(softcap), stream)
     _build.check_status(code, NAME)
     _build.launches[NAME] += 1
     return out

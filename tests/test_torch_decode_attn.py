@@ -8,7 +8,10 @@ rtol 1e-4 / atol 1e-5, the JAX package's own for this kernel
 card (``chip_smoke.py``); here its algorithm (the wrapper's own
 ``split_blocks`` and ``split_units``, all g rows of a kv head in one
 block, tiles of ``TILE`` positions, the bf16 split of P, the combine or
-the one block's own normalization) is emulated in float64.
+the one block's own normalization) is emulated in float64, and its g = 1
+path (``g1_groups`` and ``g1_units``: units of a run of positions and a
+group of kv heads, lane groups in phases, partials merged by the last
+unit) in float32.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,10 +25,12 @@ from repro.models.common import cache_decode_attention as jax_cache_attn
 from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_grouped,
                                              decode_attention_ref)
-from repro_torch.kernels.decode_attn.kernel import (MAX_BLOCKS,
-                                                    MIN_TILES, ONE_BLOCK_SPAN,
-                                                    TILE, scratch_floats,
-                                                    split_blocks, split_units)
+from repro_torch.kernels.decode_attn.kernel import (G1_LANE, G1_WARPS, MAX_BLOCKS,
+                                                    MAX_D, MIN_TILES, ONE_BLOCK_SPAN,
+                                                    TILE, g1_grid, g1_groups,
+                                                    g1_scratch, g1_units,
+                                                    scratch_floats, split_blocks,
+                                                    split_units)
 from repro_torch.models.common import cache_decode_attention
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -344,3 +349,239 @@ def test_partial_scratch_is_small(b, hkv, g, d, span):
     part = 4 * scratch_floats(b * hkv, g, d, n_blocks)
     assert part <= b * hkv * span * d * 2 * 2 / 16
     assert (part == 0) == (span <= ONE_BLOCK_SPAN)
+
+
+# ---------------------------------------------------------------------------
+# the g = 1 path: its unit plan, emulated in float32, and its scratch
+# ---------------------------------------------------------------------------
+
+H100_SLOTS = 3 * 132          # the g = 1 kernel's block slots on an H100 (3 an SM)
+ZAMBA2, WHISPER = (32, 80), (12, 64)   # (Hkv, D) of the two g = 1 models
+
+
+def _ranges(lengths, S, window):
+    """[lo, hi) of every sequence inside the masks (the kernel's seq_range)."""
+    out = []
+    for n in lengths:
+        hi = min(max(int(n), 0), S)
+        out.append((max(hi - window, 0) if window > 0 else 0, hi))
+    return out
+
+
+_G1_LENGTHS = {
+    "zeros": [0, 0, 0], "ones": [1, 1, 1, 1], "1024": [1024] * 3, "1025": [1025, 1025],
+    "ragged": np.random.default_rng(5).integers(0, 4097, 8).tolist(),
+    "ragged_long": np.random.default_rng(6).integers(0, 40_000, 5).tolist(),
+    "decode_32k": [1, 17, 4096, 4097, 9000, 20000, 30000, 32768],
+}
+
+
+@pytest.mark.parametrize("hkv,d", [ZAMBA2, WHISPER, (2, 64), (1, 256), (8, 40)])
+@pytest.mark.parametrize("window", [0, 7, 300])
+@pytest.mark.parametrize("which", sorted(_G1_LENGTHS))
+@pytest.mark.parametrize("slots", [H100_SLOTS, 6])
+def test_g1_plan_covers_every_position(hkv, d, window, which, slots):
+    """The g = 1 plan's mirror covers every (sequence, head, position)
+    inside the masks exactly once; its units fit the grid (one block
+    each), ordered (b, chunk, head group); every chunk of a sequence but
+    its last has the run's positions; an empty sequence has one empty unit
+    a head group (it writes zeros)."""
+    lengths = _G1_LENGTHS[which]
+    S = max(max(lengths), 1)
+    ranges = _ranges(lengths, S, window)
+    n_pos = [hi - lo for lo, hi in ranges]
+    hg, phases = g1_groups(hkv, d)
+    assert hkv % hg == 0 and hg * phases <= G1_WARPS * (32 // (d // G1_LANE))
+    grid = g1_grid(len(lengths), hkv, hg, slots)
+    run, units = g1_units(n_pos, hkv, hg, grid)
+    assert run >= 1 and len(units) <= grid
+    assert [u[0] for u in units] == list(range(len(units)))
+    seen = np.zeros((len(lengths), hkv, S), np.int64)
+    order = []
+    for u, b, h0, first, count, nu in units:
+        assert h0 % hg == 0 and 0 <= count <= run
+        lo, hi = ranges[b]
+        seen[b, h0:h0 + hg, lo + first:lo + first + count] += 1
+        order.append((b, first, h0))
+        assert nu == (max(1, -(-n_pos[b] // run)))
+    assert order == sorted(order)
+    for b, (lo, hi) in enumerate(ranges):
+        assert (seen[b][:, lo:hi] == 1).all() and not seen[b][:, :lo].any() \
+            and not seen[b][:, hi:].any()
+        chunks = sorted({(f, c) for _, bb, _, f, c, _ in units if bb == b})
+        assert [f for f, _ in chunks] == [j * run for j in range(len(chunks))]
+        assert all(c == run for _, c in chunks[:-1])
+        if n_pos[b] == 0:
+            assert chunks == [(0, 0)]
+
+
+def test_g1_plan_balance_at_zamba2_lengths():
+    """At phase 10's zamba2 case (Hkv 32, decode_32k's lengths, 396
+    slots) the g = 1 plan's largest unit is within 10% of the even share
+    of rows a slot; the g >= 2 split at g = 1 gave 469 tiles against 253,
+    since it gave each kv head 12 of the 396 slots."""
+    hkv, d = ZAMBA2
+    n_pos = _G1_LENGTHS["decode_32k"]
+    hg, _ = g1_groups(hkv, d)
+    run, units = g1_units(n_pos, hkv, hg, g1_grid(len(n_pos), hkv, hg, H100_SLOTS))
+    even = hkv * sum(n_pos) / H100_SLOTS
+    assert max(u[4] for u in units) * hg <= 1.1 * even
+    tiles = [-(-n // TILE) for n in n_pos]
+    old = split_units(tiles, hkv, H100_SLOTS)
+    assert max(u[3] for u in old) == 469 and round(hkv * sum(tiles) / H100_SLOTS) == 253
+
+
+def test_g1_groups_fill_the_lane_groups():
+    """(hg, phases) for every head count and D the kernel takes: hg divides
+    Hkv, hg x phases fits the block's lane groups (the kernel raises past
+    them), and as many are busy as any divisor allows; zamba2's and
+    whisper's heads fill every lane group."""
+    for d in range(8, MAX_D + 1, 8):
+        groups = G1_WARPS * (32 // (d // G1_LANE))
+        for hkv in range(1, 65):
+            hg, phases = g1_groups(hkv, d)
+            assert hkv % hg == 0 and 1 <= hg * phases <= groups
+            assert hg * phases == max(h * (groups // h) for h in range(1, min(hkv, groups) + 1)
+                                      if hkv % h == 0)
+    assert g1_groups(*ZAMBA2) == (8, 3) and g1_groups(*WHISPER) == (4, 8)
+
+
+def _g1_attend(q, k, v, positions, kpos, phases, scale, softcap):
+    """One lane group of the g = 1 kernel in float32: its phase's tiles of
+    ``kpos`` positions (``positions`` split among ``phases``), the online
+    softmax a tile -> (m, l, acc)."""
+    f32 = np.float32
+    m, l, acc = f32(-1e30), f32(0), np.zeros(q.shape[-1], f32)
+    for s0 in range(0, len(positions), kpos):
+        idx = positions[s0:s0 + kpos]
+        sc = (k[idx] @ q).astype(f32) * f32(scale)
+        if softcap > 0:
+            sc = (f32(softcap) * np.tanh(sc / f32(softcap))).astype(f32)
+        mx = max(m, sc.max())
+        alpha = np.exp(f32(m - mx))
+        p = np.exp((sc - mx).astype(f32))
+        l = l * alpha + p.sum(dtype=f32)
+        acc = acc * alpha + (p[:, None] * v[idx]).sum(0, dtype=f32)
+        m = mx
+    return m, l, acc
+
+
+def _g1_merge(parts):
+    """(m, l, acc) partials merged: the kernel's phase and unit merges."""
+    f32 = np.float32
+    m = max([p[0] for p in parts], default=f32(-1e30))
+    w = [np.exp(f32(p[0] - m)) for p in parts]
+    return (m, sum((p[1] * wi for p, wi in zip(parts, w)), f32(0)),
+            sum((p[2] * wi for p, wi in zip(parts, w)), np.zeros_like(parts[0][2])))
+
+
+def _emulate_g1(q, k, v, lengths, scale, softcap, window, slots, kpos):
+    """The g = 1 kernel's algorithm in float32: q [B, Hkv, 1, D], k / v
+    [B, Hkv, S, D] views of either layout.  Each unit of ``g1_units``
+    runs its hg heads in ``phases`` lane groups each (tile t of the unit
+    in phase t mod phases), merges the phases, and writes its output (one
+    unit a sequence) or a partial; the last unit of a (sequence, head
+    group) merges the partials, lane group ph the units ph, ph + phases,
+    ..., then the phases."""
+    B, Hkv, _, D = q.shape
+    ranges = _ranges(lengths, k.shape[2], window)
+    hg, phases = g1_groups(Hkv, D)
+    _, units = g1_units([hi - lo for lo, hi in ranges], Hkv, hg, g1_grid(B, Hkv, hg, slots))
+    out = np.zeros((B, Hkv, 1, D), np.float32)
+    partials = {}
+    for u, b, h0, first, count, nu in units:
+        lo = ranges[b][0] + first
+        tiles = [list(range(lo + t * kpos, min(lo + (t + 1) * kpos, lo + count)))
+                 for t in range(-(-count // kpos))]
+        for h in range(h0, h0 + hg):
+            res = _g1_merge([_g1_attend(q[b, h, 0], k[b, h], v[b, h],
+                                        [s for t in tiles[ph::phases] for s in t], kpos,
+                                        phases, scale, softcap) for ph in range(phases)])
+            if nu == 1:
+                out[b, h, 0] = res[2] / max(res[1], np.float32(1e-30))
+            else:
+                partials.setdefault((b, h), []).append(res)
+    for (b, h), parts in partials.items():
+        m, l, acc = _g1_merge([_g1_merge(parts[ph::phases]) for ph in range(phases)
+                               if parts[ph::phases]])
+        out[b, h, 0] = acc / max(l, np.float32(1e-30))
+    return out
+
+
+@pytest.mark.parametrize("hkv,d", [ZAMBA2, WHISPER])
+@pytest.mark.parametrize("layout", ["BSHD", "BHSD"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_g1_kernel_emulated_matches_pallas(hkv, d, layout, softcap):
+    """The g = 1 path emulated in float32 (bf16's two positions a ring
+    slot) within
+    the JAX package's tolerance of its Pallas kernel in interpret mode, on
+    the model's [B, S, Hkv, D] cache and on a [B, Hkv, S, D] one.  Twelve
+    block slots a head group: the long sequences split into several units
+    and merge through partials, the short ones write their output."""
+    rng = np.random.default_rng(d + hkv + int(softcap))
+    B, S = 4, 512
+    q = rng.standard_normal((B, hkv, 1, d)).astype(np.float32)
+    if layout == "BSHD":
+        k, v = (rng.standard_normal((B, S, hkv, d)).astype(np.float32).transpose(0, 2, 1, 3)
+                for _ in range(2))
+    else:
+        k, v = (rng.standard_normal((B, hkv, S, d)).astype(np.float32) for _ in range(2))
+    lengths = np.array([0, 1, 300, S], np.int32)
+    scale = d ** -0.5
+    hg, _ = g1_groups(hkv, d)
+    slots = 12 * (hkv // hg)
+    got = _emulate_g1(q, k, v, lengths, scale, softcap, 0, slots=slots, kpos=2)
+    _, units = g1_units(lengths.tolist(), hkv, hg, g1_grid(B, hkv, hg, slots))
+    assert min(u[5] for u in units if u[1] >= 2) > 1 and {u[5] for u in units if u[1] < 2} == {1}
+    want = np.asarray(jax_grouped(jnp.asarray(q), jnp.asarray(np.ascontiguousarray(k)),
+                                  jnp.asarray(np.ascontiguousarray(v)), jnp.asarray(lengths),
+                                  scale=scale, softcap=softcap, block_s=128, interpret=True))
+    assert not got[0].any()                # length 0 gives zeros
+    np.testing.assert_allclose(got, want, **TOL)
+    plain = decode_attention_ref(_t(q), _t(k), _t(v), _t(lengths), scale=scale,
+                                 softcap=softcap).numpy()
+    np.testing.assert_allclose(got, plain, **TOL)
+
+
+@pytest.mark.parametrize("window", [0, 7, 300])
+def test_g1_kernel_emulated_with_window_and_f32_slots(window):
+    """The float32 instantiation (one position a ring slot) with a sliding
+    window, against the port's plain version at whisper's heads."""
+    rng = np.random.default_rng(window + 1)
+    B, S = 3, 700
+    hkv, d = WHISPER
+    q = rng.standard_normal((B, hkv, 1, d)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, hkv, d)).astype(np.float32).transpose(0, 2, 1, 3)
+            for _ in range(2))
+    lengths = np.array([0, 350, S], np.int32)
+    got = _emulate_g1(q, k, v, lengths, 0.125, 30.0, window, slots=9, kpos=1)
+    plain = decode_attention_ref(_t(q), _t(k), _t(v), _t(lengths), scale=0.125,
+                                 softcap=30.0, window=window).numpy()
+    np.testing.assert_allclose(got, plain, **TOL)
+
+
+@pytest.mark.parametrize("b,s,hkv,d", [
+    (8, 32768, *ZAMBA2),       # row 5e: zamba2's heads at decode_32k
+    (8, 32768, *WHISPER),      # row 5f
+    (4, 1500, *WHISPER),       # whisper's cross-attention as served
+    (4, 128, *ZAMBA2),         # a served self-attention cache
+    (1, 524288, *ZAMBA2),      # a shared-block application of long_500k
+    (2000, 64, 2, 64),         # more (sequence, head group)s than slots
+])
+def test_g1_scratch_is_sized_by_shape(b, s, hkv, d):
+    """The g = 1 scratch: (acc, m, l) of the hg heads of every block's
+    unit and a counter a (sequence, head group), sized by the shape alone
+    (one allocation kept for every call of it, whatever the lengths),
+    every unit's slot and counter inside it; at the long caches at most
+    1/16 of the bf16 k/v bytes read."""
+    hg, _ = g1_groups(hkv, d)
+    grid = g1_grid(b, hkv, hg, H100_SLOTS)
+    floats, ints = g1_scratch(b, hkv, d, hg, grid)
+    assert floats == grid * hg * (d + 2) and ints == b * (hkv // hg)
+    assert grid >= max(H100_SLOTS, b * (hkv // hg))
+    for lengths in ([s] * b, np.random.default_rng(b).integers(0, s + 1, b).tolist()):
+        _, units = g1_units(lengths, hkv, hg, grid)
+        assert (len(units) - 1) * hg * (d + 2) + hg * (d + 2) <= floats
+        assert max(u[1] * (hkv // hg) + u[2] // hg for u in units) < ints
+    if s >= 1500:
+        assert 4 * floats <= b * s * hkv * d * 2 * 2 / 16
